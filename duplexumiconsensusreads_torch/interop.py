@@ -19,12 +19,16 @@ from duplexumiconsensusreads_torch.types import ConsensusParams, GroupingParams
 ARRAY_KEYS = ("pos", "umi", "strand_ab", "frag_end", "valid", "bases", "quals")
 
 
-def stacked_from_numpy(stacked: dict, device, pin: bool = False) -> dict:
+def stacked_from_numpy(
+    stacked: dict, device, pin: bool = False, keep: list | None = None
+) -> dict:
     """numpy stacked bucket arrays -> tensors on ``device`` (ARRAY_KEYS
     only; read_index and n_real_buckets stay on the host). u16 lanes
     (the packed pos) cross as their int16 bit pattern, which the
     pipeline's decode widens back. ``pin=True`` stages each array in
-    pinned host memory and copies without blocking."""
+    pinned host memory and copies without blocking, on the current
+    stream; ``keep`` collects the pinned staging tensors, for a caller
+    that holds them until its copies are known to be done."""
     device = torch.device(device)
     out = {}
     for k in ARRAY_KEYS:
@@ -34,6 +38,8 @@ def stacked_from_numpy(stacked: dict, device, pin: bool = False) -> dict:
         t = torch.from_numpy(a)
         if pin and device.type == "cuda":
             t = t.pin_memory()
+            if keep is not None:
+                keep.append(t)
         out[k] = t.to(device, non_blocking=pin)
     return out
 
@@ -50,8 +56,7 @@ _METHOD_NAMES = {
 
 # JAX spec fields the port does not carry, each with the only value it
 # takes (blockseg_t sizes the unported blockseg method and is dropped)
-_FIXED_FIELDS = {"packed_qbits": None, "qual_lut": None, "cycles_len": None,
-                 "fit_impl": "gather"}
+_FIXED_FIELDS = {"fit_impl": "gather"}
 
 
 def _params(cls, value):
@@ -66,7 +71,8 @@ def spec_from_fields(**fields) -> PipelineSpec:
     """The port's PipelineSpec from the field values of a JAX
     PipelineSpec (grouping/consensus may be dataclass instances of
     either package or plain dicts). Raises on a field value the port
-    does not implement (the sub-byte rung, the counts fit, blockseg)."""
+    does not implement (the counts fit, blockseg) or that is
+    inconsistent (a sub-byte width without its dictionary)."""
     fields = dict(fields)
     fields.pop("blockseg_t", None)
     for k, implied in _FIXED_FIELDS.items():

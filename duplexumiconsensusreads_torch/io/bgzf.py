@@ -132,6 +132,21 @@ def compress_fast(data: bytes, level: int = 6, eof: bool = True) -> bytes:
     return compress(data, level=level, eof=eof)
 
 
+def compress_fast_tagged(
+    data: bytes, level: int = 6, eof: bool = True
+) -> tuple[bytes, str]:
+    """``compress_fast`` plus the codec used: (bytes, "python"). The
+    streaming executor persists the tag per checkpoint shard, so a
+    resume never splices shards deflated by another codec."""
+    return compress(data, level=level, eof=eof), "python"
+
+
+def deflate_flavor() -> str:
+    """The deflate codec ``compress_fast`` uses: always "python" here
+    (no native library). Joins the streaming checkpoint fingerprint."""
+    return "python"
+
+
 def is_bgzf(data: bytes) -> bool:
     if len(data) < 18 or data[:2] != b"\x1f\x8b":
         return False

@@ -17,6 +17,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -32,6 +33,10 @@ NVCC_FLAGS = (
 )
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+# serialises the first build + load of each library: the streaming
+# executor's transfer workers can all reach their first kernel launch
+# at once, and must not start two nvcc runs or two CDLL loads
+_LOAD_LOCK = threading.Lock()
 
 
 def nvcc_path() -> str:
@@ -96,10 +101,14 @@ def build_all(names=SOURCES) -> dict[str, float]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of csrc/<name>.cu, built first if needed."""
+    """The loaded library of csrc/<name>.cu, built first if needed.
+    Thread-safe: concurrent first callers build and load it once."""
     lib = _LIBS.get(name)
     if lib is None:
-        build_all((name,))
-        lib = ctypes.CDLL(lib_path(name))
-        _LIBS[name] = lib
+        with _LOAD_LOCK:
+            lib = _LIBS.get(name)
+            if lib is None:
+                build_all((name,))
+                lib = ctypes.CDLL(lib_path(name))
+                _LIBS[name] = lib
     return lib

@@ -41,3 +41,21 @@ def pack_2bit(codes: torch.Tensor) -> torch.Tensor:
     return (
         c4[..., 0] | (c4[..., 1] << 2) | (c4[..., 2] << 4) | (c4[..., 3] << 6)
     ).to(torch.uint8)
+
+
+def unpack_bitplanes(packed: torch.Tensor, l: int, nbits: int) -> torch.Tensor:
+    """(..., nbits*ceil(l/8)) u8 bit-planes -> (..., l) u8 codes.
+
+    The wire layout of the sub-byte H2D rung (ops/pipeline.pack_stacked):
+    ``nbits`` separate little-endian bit-planes, each ceil(l/8) bytes,
+    concatenated along the last axis — plane b holds bit b of every
+    cycle's code. Shifts and masks only; codes stay below 2**nbits <=
+    128, so the u8 sum cannot wrap."""
+    l8 = packed.shape[-1] // nbits
+    lead = packed.shape[:-1]
+    planes = packed.reshape(*lead, nbits, l8)
+    shifts = torch.arange(8, dtype=torch.uint8, device=packed.device)
+    bits = (planes[..., None] >> shifts) & 1  # (..., nbits, l8, 8)
+    bits = bits.reshape(*lead, nbits, l8 * 8)[..., :l]
+    plane_shifts = torch.arange(nbits, dtype=torch.uint8, device=packed.device)
+    return (bits << plane_shifts[:, None]).sum(dim=-2, dtype=torch.uint8)

@@ -18,6 +18,7 @@ adds in the same order, so the two agree bit for bit.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -60,7 +61,8 @@ def segment_gemm(big: torch.Tensor, fid: torch.Tensor, f_max: int) -> torch.Tens
 
     CUDA tensors launch the hand-written kernel (and raise if it cannot
     launch); CPU tensors take the plain version. Every launch adds one
-    to ``segment_gemm.launches``."""
+    to ``segment_gemm.launches`` (under a lock: several threads launch
+    at once in the streaming executor)."""
     _check(big, fid, f_max)
     if big.device.type == "cpu":
         return segment_gemm_plain(big, fid, f_max)
@@ -81,8 +83,10 @@ def segment_gemm(big: torch.Tensor, fid: torch.Tensor, f_max: int) -> torch.Tens
         rc = fn(big.data_ptr(), fid.data_ptr(), out.data_ptr(), nb, r, c, f_max, stream)
     if rc != 0:
         raise RuntimeError(f"segment_gemm kernel launch failed (cudaError {rc})")
-    segment_gemm.launches += 1
+    with _COUNT_LOCK:
+        segment_gemm.launches += 1
     return out
 
 
 segment_gemm.launches = 0
+_COUNT_LOCK = threading.Lock()

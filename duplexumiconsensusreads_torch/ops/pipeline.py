@@ -25,6 +25,7 @@ from duplexumiconsensusreads_torch.kernels.consensus import (
     duplex_merge_strided,
     ssc_kernel,
 )
+from duplexumiconsensusreads_torch.kernels.encoding import unpack_bitplanes
 from duplexumiconsensusreads_torch.kernels.error_model import (
     apply_cycle_cap,
     fit_cycle_cap_kernel,
@@ -57,6 +58,16 @@ class PipelineSpec:
     packed_io: bool = False
     # true UMI code count, required to un-pack the 2-bit umi bytes
     umi_len: int | None = None
+    # the sub-byte H2D rung (qual-dictionary packing): with packed_io,
+    # each cycle's code is base (2 bits) | index into qual_lut (qbits),
+    # bit-plane packed to 2 + qbits bits per cycle; the all-ones index
+    # marks a non-evidence cycle. Lossless at any qual value (the
+    # dictionary carries quals verbatim). None = the byte rung.
+    packed_qbits: int | None = None
+    # the dictionary: sorted distinct real-cycle input quals
+    qual_lut: tuple | None = None
+    # true cycle count L, to slice the bit-plane decode
+    cycles_len: int | None = None
     # True: also compute per-base disagreement counts (the ce tag)
     per_base_counts: bool = False
 
@@ -70,6 +81,17 @@ class PipelineSpec:
             raise ValueError(
                 f"unknown ssc method {self.ssc_method!r} (ported: {SSC_METHODS})"
             )
+        if self.packed_qbits is not None and not (
+            self.packed_io
+            and self.packed_qbits in SUBBYTE_QBITS
+            and self.qual_lut
+            and len(self.qual_lut) <= (1 << self.packed_qbits) - 1
+            and self.cycles_len is not None
+        ):
+            raise ValueError(
+                f"packed_qbits={self.packed_qbits!r} needs packed_io, a width "
+                f"in {SUBBYTE_QBITS}, a qual_lut that fits it and cycles_len"
+            )
 
 
 def _pow2(n: int) -> int:
@@ -81,6 +103,33 @@ def _pow2(n: int) -> int:
 # lossless whenever max_input_qual <= 62.
 PACKED_QUAL_MAX = 62
 PACKED_NONE = 255
+
+# sub-byte rung dictionary widths, smallest first: 3 index bits cover
+# the <= 7-value alphabets of binned instruments (5 bits/cycle), 5 bits
+# cover <= 31 values (7 bits/cycle). One index pattern (all ones) is
+# reserved per width as the non-evidence marker.
+SUBBYTE_QBITS = (3, 5)
+
+
+def subbyte_qbits_for(alphabet_size: int) -> int | None:
+    """Smallest dictionary width whose capacity covers the alphabet, or
+    None (overflow -> byte-rung fallback)."""
+    for qbits in SUBBYTE_QBITS:
+        if alphabet_size <= (1 << qbits) - 1:
+            return qbits
+    return None
+
+
+def qual_alphabet(buckets) -> tuple:
+    """Sorted distinct input quals at real base cycles of valid reads
+    across ``buckets``: the chunk's qual alphabet. Non-evidence cycles
+    (N/PAD bases, invalid rows) pack as the NONE marker and are left
+    out."""
+    seen = np.zeros(256, bool)
+    for bk in buckets:
+        sel = (np.asarray(bk.bases) < 4) & np.asarray(bk.valid, bool)[:, None]
+        seen[np.asarray(bk.quals)[sel]] = True
+    return tuple(int(q) for q in np.nonzero(seen)[0])
 
 
 def pack_base_qual(bases: np.ndarray, quals: np.ndarray) -> np.ndarray:
@@ -94,17 +143,41 @@ def pack_base_qual(bases: np.ndarray, quals: np.ndarray) -> np.ndarray:
     ).astype(np.uint8)
 
 
-def pack_stacked(stacked: dict) -> dict:
-    """Apply the byte-rung packed-io convention to a stacked bucket dict
-    IN PLACE (the host side of spec.packed_io — fused_pipeline decodes):
+def pack_stacked(stacked: dict, spec: PipelineSpec | None = None) -> dict:
+    """Apply the packed-io convention to a stacked bucket dict IN PLACE
+    (the host side of spec.packed_io — fused_pipeline decodes):
 
-      bases      base|qual, one byte per cycle (pack_base_qual)
+      bases      byte rung: base|qual, one byte per cycle
+                 (pack_base_qual); sub-byte rung (spec.packed_qbits):
+                 base (2 bits) | qual-dictionary index (qbits),
+                 bit-plane packed to 2+qbits bits per cycle
       umi        2-bit codes, four per byte
       pos        u16 (bucket-local dense ids < capacity)
       strand_ab  strand | frag_end<<1 | valid<<2 flag byte
       quals/frag_end/valid  zero-width dummies
-    """
-    stacked["bases"] = pack_base_qual(stacked["bases"], stacked["quals"])
+
+    ``spec=None`` is the byte rung. The layout is the JAX package's,
+    byte for byte."""
+    if spec is not None and spec.packed_qbits:
+        qbits = spec.packed_qbits
+        lut = np.asarray(spec.qual_lut, np.uint8)
+        none_code = np.uint8((((1 << qbits) - 1) << 2) | 3)
+        bases = np.asarray(stacked["bases"])
+        # invalid rows' cycles pack as NONE too: the kernels mask them
+        real = (bases < 4) & np.asarray(stacked["valid"], bool)[:, :, None]
+        qidx = np.minimum(
+            np.searchsorted(lut, np.asarray(stacked["quals"])), len(lut) - 1
+        ).astype(np.uint8)
+        code = np.where(real, (qidx << 2) | bases, none_code)
+        stacked["bases"] = np.concatenate(
+            [
+                np.packbits((code >> b) & 1, axis=-1, bitorder="little")
+                for b in range(2 + qbits)
+            ],
+            axis=-1,
+        )
+    else:
+        stacked["bases"] = pack_base_qual(stacked["bases"], stacked["quals"])
     stacked["quals"] = np.zeros(stacked["quals"].shape[:2] + (0,), np.uint8)
     u = np.asarray(stacked["umi"])
     b_, r_, w_ = u.shape
@@ -136,6 +209,8 @@ def spec_for_buckets(
     ssc_method: str = "segment_gemm",
     packed_io: bool = False,
     per_base_counts: bool = False,
+    packed_qbits: int | None = None,
+    qual_lut: tuple | None = None,
 ) -> PipelineSpec:
     """Size the static axes from bucket statistics, exactly as the JAX
     package does: directional adjacency can only MERGE exact families,
@@ -149,6 +224,7 @@ def spec_for_buckets(
             per_base_counts=per_base_counts,
         )
     umi_len = int(buckets[0].umi.shape[1]) if packed_io else None
+    cycles_len = int(buckets[0].bases.shape[1]) if packed_qbits else None
     r = buckets[0].capacity
     max_u = max(b.n_unique_umi for b in buckets)
     u_max = min(_pow2(max_u), r)
@@ -164,6 +240,9 @@ def spec_for_buckets(
         presorted=True,  # bucketing's output contract
         packed_io=packed_io,
         umi_len=umi_len,
+        packed_qbits=packed_qbits,
+        qual_lut=qual_lut,
+        cycles_len=cycles_len,
         per_base_counts=per_base_counts,
     )
 
@@ -211,13 +290,28 @@ def analytic_flops(spec: PipelineSpec, r: int, l: int, b: int) -> float:
 
 
 def _decode_packed(pos, umi, strand_ab, bases, spec: PipelineSpec):
-    """The byte-rung wire convention -> the unpacked tensors."""
+    """The packed wire convention (byte or sub-byte rung) -> the
+    unpacked tensors."""
     if spec.umi_len is None:
         raise ValueError("packed_io requires spec.umi_len")
     n, r = pos.shape
-    real_b = bases != PACKED_NONE
-    quals = torch.where(real_b, bases >> 2, 0).to(torch.uint8)
-    bases = torch.where(real_b, bases & 3, BASE_N).to(torch.uint8)
+    if spec.packed_qbits:
+        none_idx = (1 << spec.packed_qbits) - 1
+        code = unpack_bitplanes(bases, spec.cycles_len, 2 + spec.packed_qbits)
+        qidx = (code >> 2) & none_idx
+        none = qidx == none_idx
+        # the lut padded to the full index range, so the NONE index
+        # gathers the pad instead of reading past the end
+        lut = torch.tensor(
+            tuple(spec.qual_lut) + (0,) * (none_idx + 1 - len(spec.qual_lut)),
+            dtype=torch.uint8, device=bases.device,
+        )
+        quals = torch.where(none, 0, lut[qidx.long()]).to(torch.uint8)
+        bases = torch.where(none, BASE_N, code & 3).to(torch.uint8)
+    else:
+        real_b = bases != PACKED_NONE
+        quals = torch.where(real_b, bases >> 2, 0).to(torch.uint8)
+        bases = torch.where(real_b, bases & 3, BASE_N).to(torch.uint8)
     flags = strand_ab.to(torch.uint8)
     strand_ab = (flags & 1) != 0
     frag_end = (flags & 2) != 0

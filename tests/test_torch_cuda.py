@@ -101,3 +101,54 @@ def test_cuda_pipeline_matches_cpu(config, cuda):
             assert (g.int() - w.int()).abs().max() <= (2 if duplex else 1)
         else:
             assert torch.equal(g, w), key
+
+
+@pytest.mark.cuda
+def test_cuda_stream_is_invariant_and_packs_like_the_cpu(cuda, tmp_path):
+    from duplexumiconsensusreads_torch.cli.main import params_for
+    from duplexumiconsensusreads_torch.io import simulated_bam
+    from duplexumiconsensusreads_torch.runtime import executor
+    from duplexumiconsensusreads_torch.runtime.stream import stream_call_consensus
+    from duplexumiconsensusreads_torch.simulate import SimConfig
+
+    gp, cp, _ = params_for("config5")
+    path = str(tmp_path / "in.bam")
+    simulated_bam(SimConfig(n_molecules=120, read_len=40, n_positions=8, umi_error=0.02,
+                            duplex=True, paired_reads=True, seed=11), path=path, sort=True)
+    outs = {}
+    before = sg.segment_gemm.launches
+    for name, knobs in (("auto", {}), ("off", dict(packed="off", d2h_packed="off",
+                                                   drain_workers=1, ingest_overlap="off"))):
+        out = str(tmp_path / f"{name}.bam")
+        rep = stream_call_consensus(path, out, gp, cp, capacity=128, chunk_reads=150,
+                                    device="cuda", **knobs)
+        assert rep.n_chunks >= 3
+        outs[name] = open(out, "rb").read()
+    assert outs["auto"] == outs["off"]
+    assert sg.segment_gemm.launches > before
+    # the compaction on the card gives the CPU's wire bytes
+    rng = np.random.default_rng(3)
+    n_b, f, l = 4, 16, 40
+    n_mol = torch.from_numpy(rng.integers(0, f + 1, n_b).astype(np.int32))
+    out = {
+        "n_families": n_mol * 2, "n_molecules": n_mol,
+        "family_id": torch.from_numpy(rng.integers(-1, 2 * f, (n_b, 64)).astype(np.int32)),
+        "molecule_id": torch.from_numpy(rng.integers(-1, f, (n_b, 64)).astype(np.int32)),
+        "cons_valid": torch.from_numpy(rng.random((n_b, f)) < 0.8),
+        "cons_base": torch.from_numpy(rng.integers(0, 5, (n_b, f, l)).astype(np.uint8)),
+        "cons_qual": torch.from_numpy(rng.integers(2, 90, (n_b, f, l)).astype(np.uint8)),
+        "cons_mate": torch.from_numpy(rng.integers(0, 2, (n_b, f)).astype(np.uint8)),
+        "cons_end": torch.from_numpy(rng.integers(0, 2, (n_b, f)).astype(np.uint8)),
+        "depth_max": torch.from_numpy(rng.integers(0, 300, (n_b, f)).astype(np.int32)),
+        "depth_min_pos": torch.from_numpy(rng.integers(0, 300, (n_b, f)).astype(np.int32)),
+        "cons_pair": torch.from_numpy(rng.integers(-1, 99, (n_b, f)).astype(np.int32)),
+    }
+    spec = type("S", (), {"consensus": cp})()
+    k_pad = 64
+    want = executor.fetch_outputs(executor.start_fetch(
+        executor.pack_fetch_outputs(out, spec, k_pad), keys=executor.PACKED_FETCH_KEYS))
+    got = executor.fetch_outputs(executor.start_fetch(
+        executor.pack_fetch_outputs({k: v.to(cuda) for k, v in out.items()}, spec, k_pad),
+        keys=executor.PACKED_FETCH_KEYS))
+    for k in executor.PACKED_FETCH_KEYS:
+        assert got[k].dtype == want[k].dtype and got[k].tobytes() == want[k].tobytes(), k

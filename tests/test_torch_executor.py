@@ -105,7 +105,7 @@ def test_cli_call_runs_and_refuses_unported_flags(bams):
     assert json.loads(r.stdout)["n_consensus"] == len(read_bam(out)[1]) > 0
     r = subprocess.run(
         [sys.executable, "-m", "duplexumiconsensusreads_torch", "call", paths["single"],
-         "-o", out, "--config", "config5", "--chunk-reads", "1000"],
+         "-o", out, "--config", "config5", "--follow"],
         capture_output=True, text=True, env=env, timeout=120,
     )
     assert r.returncode != 0 and "not supported by the torch port" in r.stderr
