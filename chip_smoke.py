@@ -3,28 +3,40 @@
 
     python3 chip_smoke.py
 
-Drives the port's two paths on the card — the config5 whole-file call
+Drives the port's three paths on the card — the config5 whole-file call
 (adjacency grouping, paired duplex, per-cycle error model) through
 ``call_consensus_file`` on a simulated ~600k-read BAM, one dispatch of
-the bench's size, and the config5 streaming call through
-``stream_call_consensus`` on the bench's ~2M-read e2e workload in
-500k-read chunks — and holds every hand-written kernel of those paths
-against its plain PyTorch version on the card. Phases, each printed as
-one JSON line:
+the bench's size; the same call with per-base tags and a BAI; and the
+config5 streaming call through ``stream_call_consensus`` on the bench's
+~2M-read e2e workload in 500k-read chunks — all reading through the
+native BAM loader and deflating through it, and holds every
+hand-written kernel of those paths against its plain PyTorch version on
+the card. Phases, each printed as one JSON line:
 
   env     the card (nvidia-smi name + power limit), torch and CUDA
-  build   nvcc of every csrc/ source, all started together
+  build   nvcc of every csrc/ source and g++ of the native BAM loader,
+          all started together (and whether zlib.h was found)
   e2e     simulate -> call_consensus_file(device="cuda"); per-stage
           seconds, peak device memory, kernel launch counts (each must
-          be > 0), device spans of the pipeline calls, and a small
-          input called on the card and on the CPU (plain versions)
-          that must agree record by record
+          be > 0), device spans of the pipeline calls, the reader and
+          deflate codecs that ran (native), and a small input called
+          on the card and on the CPU (plain versions) that must agree
+          record by record
+  reader  the e2e input through the native and the portable
+          load_input: identical ReadBatch arrays, each one's seconds
+  per_base  the e2e call again with per_base_tags and write_index:
+          every record carries cd/ce, segment_gemm ran at C = 9L+1,
+          the .bai exists and a ``view`` of one region through the
+          port's CLI equals that region of the full output; then card
+          against CPU on a small input (cd equal, ce equal except at
+          counted ties)
   stages  the largest class's fused pipeline once more, warm, with the
           device span of each stage function it calls
   kernel  each kernel vs its plain version on random inputs and on the
           main path's real inputs (those of the stages rerun, whose ids
-          must equal the e2e run's); times of the kernel, the plain
-          version and one library call, and the byte bound
+          must equal the e2e run's), and at the per-base shape (the
+          per_base call's full ssc pass, rerun); times of the kernel,
+          the plain version and one library call, and the byte bound
   parity  >= 8 real buckets through the fused pipeline with the kernel
           and with the plain reduction: integer outputs identical,
           bases identical except at ties, quals within 1
@@ -35,17 +47,20 @@ one JSON line:
           bytes and each class's H2D/D2H rung (from the trace), peak
           device memory, kernel launches (> 0), the device span of
           every fused_pipeline call and their union's share of the
-          wall; then a sum-check of the trace's spans against the
-          report's seconds
+          wall, the native reader and every shard's deflate codec;
+          then a sum-check of the trace's spans against the report's
+          seconds
   stream_small_reference  a small paired config5 input streamed on the
           card and on the CPU (plain versions) must agree record by
-          record; on the card, packed auto/off, d2h_packed auto/off,
-          drain_workers 1/2 and ingest_overlap on/off must give
-          byte-identical files
+          record, with per-base tags and a BAI too; on the card,
+          packed auto/off, d2h_packed auto/off, drain_workers 1/2 and
+          ingest_overlap on/off must give byte-identical files, and
+          DUT_NO_NATIVE=1 (the portable codec) the same records
   stream_resume  a run killed at a checkpoint mark after one committed
           chunk, resumed, gives the uninterrupted run's bytes
 
-Then the nvidia-smi line, the ``kernels`` JSON line, and last
+Then the nvidia-smi line, the ``kernels`` JSON line (segment_gemm's
+launches per path: whole_file, stream, per_base), and last
 ``{"ok": true, "device": {...}}``. Any failed phase raises and exits
 non-zero; with no CUDA device, or without the package beside this
 file, it exits non-zero before printing any result.
@@ -89,6 +104,11 @@ def nvidia_smi() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
+
+
+def read_bytes(path: str) -> bytes:
+    with open(path, "rb") as f:
+        return f.read()
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -154,7 +174,26 @@ class Capture:
         return [s.elapsed_time(e) for s, e in self.events]
 
 
-def compare_records(a, b, qual_tol: int, duplex_ties: bool = False) -> dict:
+def per_base_tags(aux: bytes) -> tuple[bytes, dict]:
+    """(aux without cd/ce, {b"cd": array, b"ce": array}) of one record."""
+    import numpy as np
+
+    from duplexumiconsensusreads_torch.io.bam import iter_aux_fields
+
+    rest, arrays = bytearray(), {}
+    for start, tag, typ, vs, end in iter_aux_fields(aux):
+        if tag in (b"cd", b"ce") and typ == b"B":
+            dt = {b"C": "u1", b"S": "<u2", b"I": "<u4", b"c": "i1", b"s": "<i2",
+                  b"i": "<i4"}[aux[vs:vs + 1]]
+            cnt = int.from_bytes(aux[vs + 1:vs + 5], "little")
+            arrays[tag] = np.frombuffer(aux, dt, cnt, vs + 5).astype(np.int64)
+        else:
+            rest += aux[start:end]
+    return bytes(rest), arrays
+
+
+def compare_records(a, b, qual_tol: int, duplex_ties: bool = False,
+                    per_base: bool = False) -> dict:
     """Record-by-record agreement of two consensus BAM record sets:
     everything identical but the quals, which agree within
     ``qual_tol``. With ``duplex_ties``, the parity bar's evidence ties
@@ -162,7 +201,10 @@ def compare_records(a, b, qual_tol: int, duplex_ties: bool = False) -> dict:
     (strand qual <= TIE_QUAL) may call either, which in the duplex merge
     either turns the cycle into N at NO_CALL_QUAL (2) on one side or
     moves the duplex qual by at most 2 * TIE_QUAL + qual_tol with the
-    same base; such cycles are counted and must stay under 1 in 10,000."""
+    same base; such cycles are counted and must stay under 1 in 10,000.
+    With ``per_base``, every record carries cd/ce: cd (an integer depth)
+    must be identical, ce (reads disagreeing with the call) may differ
+    only at those tie cycles, and its differing cycles are counted."""
     import numpy as np
 
     if len(a) != len(b):
@@ -170,7 +212,14 @@ def compare_records(a, b, qual_tol: int, duplex_ties: bool = False) -> dict:
     for f in ("names", "flags", "ref_id", "pos", "lengths"):
         if not np.array_equal(np.asarray(getattr(a, f)), np.asarray(getattr(b, f))):
             raise AssertionError(f"consensus records differ in {f}")
-    if list(a.aux_raw) != list(b.aux_raw):
+    pa = [per_base_tags(x) for x in a.aux_raw] if per_base else None
+    pb = [per_base_tags(x) for x in b.aux_raw] if per_base else None
+    if per_base:
+        if [x[0] for x in pa] != [x[0] for x in pb]:
+            raise AssertionError("consensus records differ in their aux tags")
+        if any(set(x[1]) != {b"cd", b"ce"} for x in pa + pb):
+            raise AssertionError("a consensus record lacks its cd/ce tags")
+    elif list(a.aux_raw) != list(b.aux_raw):
         raise AssertionError("consensus records differ in their aux tags")
     sa, sb = np.asarray(a.seq), np.asarray(b.seq)
     qa, qb = np.asarray(a.qual).astype(int), np.asarray(b.qual).astype(int)
@@ -189,8 +238,42 @@ def compare_records(a, b, qual_tol: int, duplex_ties: bool = False) -> dict:
         raise AssertionError("consensus records differ in seq")
     if dq.size and dq.max() > qual_tol:
         raise AssertionError(f"quals differ by {dq.max()} > {qual_tol}")
-    return {"n_records": len(a), "max_qual_diff": int(dq.max(initial=0)),
-            "tie_cycles": n_tie, "cycles": int(sa.size)}
+    out = {"n_records": len(a), "max_qual_diff": int(dq.max(initial=0)),
+           "tie_cycles": n_tie, "cycles": int(sa.size)}
+    if per_base:
+        ce_ties = 0
+        tie_rows = tie if duplex_ties else np.zeros(sa.shape, bool)
+        for i, ((_, ta), (_, tb)) in enumerate(zip(pa, pb)):
+            if not np.array_equal(ta[b"cd"], tb[b"cd"]):
+                raise AssertionError(f"record {i}: cd differs")
+            diff = ta[b"ce"] != tb[b"ce"]
+            if (diff & ~tie_rows[i, :len(diff)]).any():
+                raise AssertionError(f"record {i}: ce differs off a tie cycle")
+            ce_ties += int(diff.sum())
+        out.update(cd_identical=True, ce_tie_cycles=ce_ties)
+    return out
+
+
+class Tally:
+    """Wraps a function in a module namespace and records ``key(result)``
+    of every call (which codec ran, whether a parse was native)."""
+
+    def __init__(self, module, name: str, key):
+        self.module, self.name, self.key = module, name, key
+        self.inner = getattr(module, name)
+        self.seen = []
+
+    def __enter__(self):
+        def wrapped(*args, **kwargs):
+            out = self.inner(*args, **kwargs)
+            self.seen.append(self.key(out))
+            return out
+
+        setattr(self.module, self.name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.inner)
 
 
 def interval_union_ms(spans) -> float:
@@ -235,14 +318,18 @@ def main() -> int:
         return 2
     import numpy as np
 
+    from duplexumiconsensusreads_torch import native
     from duplexumiconsensusreads_torch.cli.main import params_for
-    from duplexumiconsensusreads_torch.io import read_bam, simulated_bam
+    from duplexumiconsensusreads_torch.io import bgzf, native_reader, read_bam, simulated_bam
     from duplexumiconsensusreads_torch.kernels import build, consensus
     from duplexumiconsensusreads_torch.kernels import segment_gemm as sg
     from duplexumiconsensusreads_torch.ops import pipeline
     from duplexumiconsensusreads_torch.runtime.executor import call_consensus_file
     from duplexumiconsensusreads_torch.simulate import SimConfig
 
+    # the smoke holds the native path; the portable codec runs only
+    # where a phase asks for it
+    os.environ.pop("DUT_NO_NATIVE", None)
     # the grouping Hamming product and the "matmul" method are f32
     # products; state the precision instead of inheriting it
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -256,12 +343,21 @@ def main() -> int:
         python=sys.version.split()[0], cpu_capability=torch.backends.cpu.get_cpu_capability(),
     )
 
+    # nvcc of every CUDA source and g++ of the native loader, started
+    # together
     t0 = time.monotonic()
+    nat_build = native.start_build()
     secs = build.build_all()
+    nat = native.finish_build(nat_build)
+    native.get_lib()
     emit("build", sources=list(build.SOURCES), seconds=round(time.monotonic() - t0, 3),
-         per_source=secs)
+         per_source=secs,
+         native_loader={"source": "duplexumiconsensusreads_torch/native/src/bamloader.cpp",
+                        "seconds": nat["seconds"], "zlib_h_found": nat["zlib_h"],
+                        "library": os.path.basename(nat["path"])})
 
     gp, cp, _ = params_for("config5")
+    launches = {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as td:
         # ---- e2e: the main path at the bench's one-dispatch size
         n_mol = N_READS // 9
@@ -282,16 +378,21 @@ def main() -> int:
         # pipeline's inputs and the reduction's ids (not its 1.85 GB
         # rows: holding them would change the run's device memory)
         with Capture(consensus, "_reduce", keep=(1,)) as cap_k, \
-                Capture(pipeline, "fused_pipeline") as cap_p:
+                Capture(pipeline, "fused_pipeline") as cap_p, \
+                Tally(native_reader, "read_bam_native", lambda r: r[2]["native"]) as t_read, \
+                Tally(bgzf, "compress_fast_tagged", lambda r: r[1]) as t_defl:
             rep = call_consensus_file(
                 in_bam, os.path.join(td, "out.bam"), gp, cp,
                 capacity=CAPACITY, device="cuda",
             )
         wall = time.monotonic() - t0
-        launches = {"segment_gemm": sg.segment_gemm.launches}
+        launches["whole_file"] = sg.segment_gemm.launches
         peak_mem = torch.cuda.max_memory_allocated()
-        if launches["segment_gemm"] == 0:
+        if launches["whole_file"] == 0:
             raise AssertionError("the main path launched segment_gemm no time")
+        if t_read.seen != [True] or set(t_defl.seen) != {"native"}:
+            raise AssertionError(f"the main path's codecs: reader {t_read.seen}, "
+                                 f"deflate {set(t_defl.seen)} (want native)")
         _, recs = read_bam(os.path.join(td, "out.bam"))
         if len(recs) != rep.n_consensus or rep.n_consensus == 0:
             raise AssertionError(f"output has {len(recs)} records, report {rep.n_consensus}")
@@ -308,8 +409,9 @@ def main() -> int:
             reads_per_s=round(rep.n_valid_reads / wall, 1),
             stage_seconds=stages,
             stage_reads_per_s={k: round(rep.n_valid_reads / v, 1) for k, v in rep.seconds.items() if v > 0},
+            native=True, deflate="native", deflate_calls=len(t_defl.seen),
             bytes_h2d=rep.bytes_h2d, bytes_d2h=rep.bytes_d2h,
-            max_memory_allocated=peak_mem, launches=launches,
+            max_memory_allocated=peak_mem, launches={"segment_gemm": launches["whole_file"]},
             segment_gemm_calls=[list(s) for s in cap_k.shapes],
             segment_gemm_span_ms=cap_k.span_ms(),
             # device spans of the per-class fused_pipeline calls (copies
@@ -318,6 +420,7 @@ def main() -> int:
             fused_pipeline_span_ms=pipe_ms,
             pipeline_span_share_of_wall=sum(pipe_ms) / 1e3 / wall,
         )
+        del recs, q
 
         # the same call on a small input, on the card and on the CPU
         # (plain versions everywhere): records agree, quals within one
@@ -332,6 +435,9 @@ def main() -> int:
                                 capacity=256, device=d)
             outs[d] = read_bam(os.path.join(td, f"small_{d}.bam"))[1]
         emit("e2e_small_reference", **compare_records(outs["cuda"], outs["cpu"], qual_tol=2))
+
+        reader_phase(in_bam)
+        cap_pk, cap_pp, launches["per_base"] = per_base_phase(in_bam, small_bam, td, gp, cp)
 
     # ---- stages: the largest class's fused_pipeline once more, warm,
     # with the device span of each stage function it calls (the rest
@@ -375,46 +481,44 @@ def main() -> int:
     for name, ids in cases.items():
         ids = ids.to(torch.int32).contiguous()
         x = big if name == "real_main_path" else torch.randn(nb, r, c, device=dev, generator=rng)
-        got = sg.segment_gemm(x, ids, f_max)
-        ref = sg.segment_gemm_plain(x, ids, f_max)
-        torch.cuda.synchronize()
-        err = (got - ref).abs().max().item()
-        rel = ((got - ref).abs() / ref.abs().clamp(min=1e-30)).max().item()
-        # same f32 adds in the same ascending row order: bit-identical
-        if not torch.equal(got, ref):
-            raise AssertionError(f"segment_gemm {name}: max abs err {err} (tolerance 0)")
-        kernel_rows.append({"case": name, "shape": [nb, r, c], "f_max": f_max,
-                            "max_abs_err": err, "max_rel_err": rel, "tolerance": 0.0})
-        del x, got, ref
+        kernel_rows.append(kernel_case(sg, name, x, ids, f_max))
+        del x
+    t_main = kernel_times(sg, big, fid, f_max, plain_reps=2, lib_reps=10)
+    del big, fid
 
-    # the bound counts what this run's ids need: the live rows of big
-    # once, every id once, every output element once
-    live = ((fid >= 0) & (fid < f_max)).sum().item()
-    need_bytes = live * c * 4 + fid.numel() * 4 + nb * f_max * c * 4
-    bytes_ms = need_bytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = live * c / F32_FLOPS * 1e3
-    k_ms = cuda_ms(lambda: sg.segment_gemm(big, fid, f_max), reps=20)
-    plain_ms = cuda_ms(lambda: sg.segment_gemm_plain(big, fid, f_max), reps=2)
-    base = torch.arange(nb, device=dev)[:, None] * (f_max + 1)
-    offs = torch.where((fid >= 0) & (fid < f_max), fid.long() + base, base + f_max).reshape(-1)
-    flat = big.reshape(-1, c)
-    acc = torch.zeros(nb * (f_max + 1), c, device=dev)
-    lib_ms = cuda_ms(lambda: acc.zero_().index_add_(0, offs, flat), reps=10)
+    # the per-base shape: the per_base call's largest class once more,
+    # its full ssc pass (C = 9L+1) captured whole; the ids must equal
+    # the per_base run's
+    args_pb, kw_pb = cap_pp.args
+    spec_pb = args_pb[7] if len(args_pb) > 7 else kw_pb["spec"]
+    with Capture(consensus, "segment_gemm") as cap_r:
+        pipeline.fused_pipeline(*args_pb[:7], spec_pb)
+    (big_pb, fid_pb, f_max_pb), _ = cap_r.args
+    del cap_r, args_pb, kw_pb
+    if not torch.equal(fid_pb, cap_pk.args[0][1]):
+        raise AssertionError("the per-base rerun's reduction ids differ from the run's")
+    pb_case = kernel_case(sg, "real_per_base_path", big_pb, fid_pb, f_max_pb)
+    t_pb = kernel_times(sg, big_pb, fid_pb, f_max_pb, plain_reps=1, lib_reps=5)
+    del big_pb, fid_pb, cap_pk, cap_pp
+    torch.cuda.empty_cache()
+    emit("kernel", name="segment_gemm", cases=kernel_rows + [pb_case], shape=[nb, r, c],
+         f_max=f_max, **t_main, library_call="index_add_",
+         per_base={"shape": pb_case["shape"], "f_max": f_max_pb, **t_pb}, nvidia_smi=smi)
+
+    def row_times(t):
+        return {"ms": t["kernel_ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                "bound_by": t["bound_by"], "library_ms": t["library_ms"]}
+
     seg_row = {
         "name": "segment_gemm", "route": "cuda",
         "source": "duplexumiconsensusreads_torch/csrc/segment_gemm.cu",
         "replaces": "duplexumiconsensusreads_tpu/kernels/pallas_ssc.py:67",
-        "launches": launches["segment_gemm"],
-        "max_abs_err": max(row["max_abs_err"] for row in kernel_rows),
-        "ms": k_ms, "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-        "library_ms": lib_ms,
+        "launches": launches["whole_file"],
+        "max_abs_err": max(row["max_abs_err"] for row in kernel_rows + [pb_case]),
+        **row_times(t_main),
+        # the same numbers at the per_base path's full-pass shape
+        "per_base_shape": {"shape": pb_case["shape"], **row_times(t_pb)},
     }
-    emit("kernel", name="segment_gemm", cases=kernel_rows, shape=[nb, r, c], f_max=f_max,
-         live_rows=live, bytes_needed=need_bytes, bytes_bound_ms=bytes_ms, ops_bound_ms=ops_ms,
-         kernel_ms=k_ms, plain_ms=plain_ms, library_ms=lib_ms, library_call="index_add_",
-         bound_fraction=max(bytes_ms, ops_ms) / k_ms, nvidia_smi=smi)
-    del big, fid, acc, flat, offs
 
     # ---- parity: >= 8 real buckets, kernel vs plain reduction
     n_par = min(8, full[0].shape[0])
@@ -443,7 +547,8 @@ def main() -> int:
     del out_k, out_p, sub, full, args, kw, cap_p
     torch.cuda.empty_cache()
     launches["stream"] = stream_phases(gp, smi)
-    seg_row["launches"] = {"whole_file": launches["segment_gemm"], "stream": launches["stream"]}
+    seg_row["launches"] = {"whole_file": launches["whole_file"], "stream": launches["stream"],
+                           "per_base": launches["per_base"]}
 
     print(smi, flush=True)
     print(json.dumps({"kernels": [seg_row]}), flush=True)
@@ -453,6 +558,162 @@ def main() -> int:
     return 0
 
 
+def kernel_case(sg, name: str, x, ids, f_max: int) -> dict:
+    """segment_gemm against its plain version on one input: the same
+    f32 adds in the same ascending row order, so bit-identical
+    (tolerance 0); raises otherwise."""
+    import torch
+
+    got = sg.segment_gemm(x, ids, f_max)
+    ref = sg.segment_gemm_plain(x, ids, f_max)
+    torch.cuda.synchronize()
+    err = (got - ref).abs().max().item()
+    rel = ((got - ref).abs() / ref.abs().clamp(min=1e-30)).max().item()
+    if not torch.equal(got, ref):
+        raise AssertionError(f"segment_gemm {name}: max abs err {err} (tolerance 0)")
+    return {"case": name, "shape": list(x.shape), "f_max": f_max,
+            "max_abs_err": err, "max_rel_err": rel, "tolerance": 0.0}
+
+
+def kernel_times(sg, big, fid, f_max: int, plain_reps: int, lib_reps: int) -> dict:
+    """Kernel, plain-version and library-call (index_add_) times on one
+    input, and the bound. The bound counts what this run's ids need:
+    the live rows of big once, every id once, every output element
+    once; the adds at the f32 rate outside the tensor cores."""
+    import torch
+
+    nb, _, c = big.shape
+    dev = big.device
+    live = ((fid >= 0) & (fid < f_max)).sum().item()
+    need_bytes = live * c * 4 + fid.numel() * 4 + nb * f_max * c * 4
+    bytes_ms = need_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = live * c / F32_FLOPS * 1e3
+    k_ms = cuda_ms(lambda: sg.segment_gemm(big, fid, f_max), reps=20)
+    plain_ms = cuda_ms(lambda: sg.segment_gemm_plain(big, fid, f_max), reps=plain_reps)
+    base = torch.arange(nb, device=dev)[:, None] * (f_max + 1)
+    offs = torch.where((fid >= 0) & (fid < f_max), fid.long() + base, base + f_max).reshape(-1)
+    flat = big.reshape(-1, c)
+    acc = torch.zeros(nb * (f_max + 1), c, device=dev)
+    lib_ms = cuda_ms(lambda: acc.zero_().index_add_(0, offs, flat), reps=lib_reps)
+    del acc, offs, flat
+    return {"live_rows": live, "bytes_needed": need_bytes, "bytes_bound_ms": bytes_ms,
+            "ops_bound_ms": ops_ms, "kernel_ms": k_ms, "plain_ms": plain_ms,
+            "library_ms": lib_ms, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bound_fraction": max(bytes_ms, ops_ms) / k_ms}
+
+
+def reader_phase(in_bam: str) -> None:
+    """The e2e input through the native and the portable load_input:
+    identical ReadBatch arrays and counters."""
+    import numpy as np
+
+    from duplexumiconsensusreads_torch.io import load_input
+
+    t0 = time.monotonic()
+    _, nb, ninfo = load_input(in_bam, duplex=True, warn_mixed=False)
+    nat_s = time.monotonic() - t0
+    os.environ["DUT_NO_NATIVE"] = "1"
+    try:
+        t0 = time.monotonic()
+        _, pb, pinfo = load_input(in_bam, duplex=True, warn_mixed=False)
+        port_s = time.monotonic() - t0
+    finally:
+        del os.environ["DUT_NO_NATIVE"]
+    for f in ("bases", "quals", "umi", "pos_key", "strand_ab", "frag_end", "valid"):
+        x, y = np.asarray(getattr(nb, f)), np.asarray(getattr(pb, f))
+        if x.dtype != y.dtype or not np.array_equal(x, y):
+            raise AssertionError(f"native and portable readers differ in {f}")
+    if not ninfo.get("native") or "native" in pinfo or any(
+            ninfo[k] != pinfo[k] for k in pinfo):
+        raise AssertionError("native and portable reader counters differ")
+    emit("reader", reads=ninfo["n_records"], valid_reads=ninfo["n_valid"],
+         native_seconds=round(nat_s, 3), portable_seconds=round(port_s, 3),
+         portable_over_native=round(port_s / nat_s, 2), identical=True)
+
+
+def per_base_phase(in_bam: str, small_bam: str, td: str, gp, cp):
+    """The e2e call with per_base_tags and write_index, at full width.
+    Returns (the segment_gemm capture holding the largest call's ids,
+    the fused_pipeline capture of the largest class, launches)."""
+    import numpy as np
+    import torch
+
+    from duplexumiconsensusreads_torch.io import read_bam
+    from duplexumiconsensusreads_torch.kernels import consensus
+    from duplexumiconsensusreads_torch.kernels import segment_gemm as sg
+    from duplexumiconsensusreads_torch.ops import pipeline
+    from duplexumiconsensusreads_torch.runtime.executor import call_consensus_file
+
+    out = os.path.join(td, "per_base.bam")
+    sg.segment_gemm.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    with Capture(consensus, "segment_gemm", keep=(1,)) as cap_k, \
+            Capture(pipeline, "fused_pipeline") as cap_p:
+        rep = call_consensus_file(in_bam, out, gp, cp, capacity=CAPACITY, device="cuda",
+                                  per_base_tags=True, write_index=True)
+    wall = time.monotonic() - t0
+    launches = sg.segment_gemm.launches
+    peak_mem = torch.cuda.max_memory_allocated()
+    widths = sorted({s[-1] for s in cap_k.shapes})
+    header, recs = read_bam(out)
+    l_max = int(np.asarray(recs.lengths).max())
+    c_full = 9 * l_max + 1
+    if launches == 0 or c_full not in widths:
+        raise AssertionError(f"per-base path: {launches} launches at widths {widths}, "
+                             f"want C = {c_full}")
+    if len(recs) != rep.n_consensus or rep.n_consensus == 0:
+        raise AssertionError(f"output has {len(recs)} records, report {rep.n_consensus}")
+    for i, aux in enumerate(recs.aux_raw):
+        tags = per_base_tags(aux)[1]
+        if set(tags) != {b"cd", b"ce"} or any(len(v) != recs.lengths[i] for v in tags.values()):
+            raise AssertionError(f"record {i} lacks per-base cd/ce of its length")
+    if not os.path.exists(out + ".bai"):
+        raise AssertionError("write_index wrote no .bai")
+    # one region through the port's CLI, against a filter of the output
+    on0 = np.nonzero(np.asarray(recs.ref_id) == 0)[0]
+    mid = int(np.median(np.asarray(recs.pos)[on0]))
+    beg, end = max(mid - 5000, 1), mid + 5000
+    region = f"{header.ref_names[0]}:{beg}-{end}"
+    sub = os.path.join(td, "per_base_region.bam")
+    t0 = time.monotonic()
+    r = subprocess.run([sys.executable, "-m", "duplexumiconsensusreads_torch", "view", out,
+                        region, "-o", sub, "--json"], cwd=HERE, capture_output=True,
+                       text=True, timeout=600)
+    view_s = time.monotonic() - t0
+    if r.returncode != 0:
+        raise AssertionError(f"view failed: {r.stderr[-2000:]}")
+    spans = np.array([sum(n for n, op in cg if op in "MDN=X") or 1 for cg in recs.cigars])
+    pos = np.asarray(recs.pos)
+    want = [recs.names[i] for i in np.nonzero(
+        (np.asarray(recs.ref_id) == 0) & (pos < end) & (pos + spans > beg - 1))[0]]
+    got = read_bam(sub)[1]
+    if got.names != want or json.loads(r.stdout)["n_records"] != len(want) or not want:
+        raise AssertionError(f"view {region}: {len(got)} records, the filter {len(want)}")
+    emit("per_base", config="config5", capacity=CAPACITY, reads_in=rep.n_records,
+         consensus_out=rep.n_consensus, wall_seconds=round(wall, 3),
+         read_input_seconds=round(rep.seconds["read_input"], 3),
+         stage_seconds={k: round(v, 3) for k, v in rep.seconds.items()},
+         max_memory_allocated=peak_mem, bytes_d2h=rep.bytes_d2h,
+         launches={"segment_gemm": launches}, segment_gemm_widths=widths,
+         full_pass_columns=c_full, every_record_has_cd_ce=True, bai=True,
+         view={"region": region, "records": len(want), "equal_to_filter": True,
+               "seconds": round(view_s, 3)})
+    del recs, got
+
+    # card against CPU on the small input, per-base tags and index on
+    outs = {}
+    for d in ("cuda", "cpu"):
+        path = os.path.join(td, f"small_pb_{d}.bam")
+        call_consensus_file(small_bam, path, gp, cp, capacity=256, device=d,
+                            per_base_tags=True, write_index=True)
+        outs[d] = read_bam(path)[1]
+    emit("per_base_small_reference", **compare_records(outs["cuda"], outs["cpu"], qual_tol=2,
+                                                       duplex_ties=True, per_base=True))
+    return cap_k, cap_p, launches
+
+
 def stream_phases(gp, smi: str) -> int:
     """The streaming path: the "stream", "stream_small_reference" and
     "stream_resume" phases. Returns segment_gemm's launches on the
@@ -460,7 +721,8 @@ def stream_phases(gp, smi: str) -> int:
     import numpy as np
     import torch
 
-    from duplexumiconsensusreads_torch.io import read_bam, simulated_bam
+    from duplexumiconsensusreads_torch.io import native_reader, read_bam, simulated_bam
+    from duplexumiconsensusreads_torch.io.bai import build_bai
     from duplexumiconsensusreads_torch.kernels import segment_gemm as sg
     from duplexumiconsensusreads_torch.ops import pipeline
     from duplexumiconsensusreads_torch.runtime import faults
@@ -479,6 +741,9 @@ def stream_phases(gp, smi: str) -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_stream_") as td:
         in_bam, out_bam = os.path.join(td, "in.bam"), os.path.join(td, "out.bam")
         trace = os.path.join(td, "stream.trace.jsonl")
+        # an explicit checkpoint keeps the manifest (and each shard's
+        # deflate codec) after the run
+        ckpt = os.path.join(td, "stream.ckpt")
         sim = simulate_bam_file(
             in_bam, STREAM_READS // 8,
             cfg=SimConfig(read_len=150, n_positions=1000, mean_family_size=4,
@@ -493,9 +758,10 @@ def stream_phases(gp, smi: str) -> int:
         t0 = time.monotonic()
         # keep no arguments: only each call's CUDA events (recorded on
         # the calling transfer worker's stream)
-        with Capture(pipeline, "fused_pipeline", keep=()) as cap:
+        with Capture(pipeline, "fused_pipeline", keep=()) as cap, \
+                Tally(native_reader, "batch_from_offsets", lambda r: r[1]["native"]) as t_read:
             rep = stream_call_consensus(in_bam, out_bam, gp, cp, device="cuda",
-                                        trace_path=trace, **settings)
+                                        trace_path=trace, checkpoint_path=ckpt, **settings)
         wall = time.monotonic() - t0
         launches = sg.segment_gemm.launches
         peak_mem = torch.cuda.max_memory_allocated()
@@ -503,6 +769,13 @@ def stream_phases(gp, smi: str) -> int:
             raise AssertionError("the streaming path launched segment_gemm no time")
         if rep.n_chunks < 4:
             raise AssertionError(f"{rep.n_chunks} chunks: the stream phase wants >= 4")
+        with open(ckpt) as f:
+            done = json.load(f)["done"]
+        codecs = sorted({e["codec"] for e in done.values()})
+        if len(done) != rep.n_chunks or codecs != ["native"]:
+            raise AssertionError(f"{len(done)} shards of {rep.n_chunks} chunks, codecs {codecs}")
+        if len(t_read.seen) < rep.n_chunks or not all(t_read.seen):
+            raise AssertionError(f"native chunk parses: {t_read.seen}")
         torch.cuda.synchronize()
         spans = [(ref_ev.elapsed_time(a), ref_ev.elapsed_time(b)) for a, b in cap.events]
         union_ms = interval_union_ms(spans)
@@ -546,7 +819,8 @@ def stream_phases(gp, smi: str) -> int:
             fused_pipeline_span_sum_ms=sum(b - a for a, b in spans),
             fused_pipeline_union_ms=union_ms,
             pipeline_union_share_of_wall=union_ms / 1e3 / wall,
-            trace_sum_check=check, nvidia_smi=smi,
+            native=True, native_chunk_parses=len(t_read.seen), deflate="native",
+            shard_codecs=codecs, trace_sum_check=check, nvidia_smi=smi,
         )
         del cap, recs, out_recs
 
@@ -578,9 +852,32 @@ def stream_phases(gp, smi: str) -> int:
             if b != ref_bytes:
                 raise AssertionError(f"stream output bytes moved with {knobs}")
             same[name] = {"identical": True, "bytes_h2d": r.bytes_h2d, "bytes_d2h": r.bytes_d2h}
+        # per-base tags + index: card against CPU, and the .bai is the
+        # one build_bai makes of the output
+        pb = {}
+        for d in ("cuda", "cpu"):
+            r, b, path = run(f"per_base_{d}", device=d, per_base_tags=True, write_index=True)
+            if read_bytes(path + ".bai") != read_bytes(build_bai(path, path + ".check.bai")):
+                raise AssertionError(f"the {d} run's .bai is not build_bai's")
+            pb[d] = (r, path)
+        per_base = compare_records(read_bam(pb["cuda"][1])[1], read_bam(pb["cpu"][1])[1],
+                                   qual_tol=2, duplex_ties=True, per_base=True)
+        # the portable codec: the same chunks and records as the native run
+        os.environ["DUT_NO_NATIVE"] = "1"
+        try:
+            r, _, path = run("no_native")
+        finally:
+            del os.environ["DUT_NO_NATIVE"]
+        a, b = read_bam(ref_path)[1], read_bam(path)[1]
+        if (r.n_chunks != ref_rep.n_chunks or a.names != b.names or list(a.aux_raw) != list(b.aux_raw)
+                or not np.array_equal(a.seq, b.seq) or not np.array_equal(a.qual, b.qual)):
+            raise AssertionError("DUT_NO_NATIVE=1 changed the streamed records")
         emit("stream_small_reference", chunks=ref_rep.n_chunks, card_vs_cpu=parity,
              byte_identical_to_default=same, bytes_h2d=ref_rep.bytes_h2d,
-             bytes_d2h=ref_rep.bytes_d2h)
+             bytes_d2h=ref_rep.bytes_d2h,
+             per_base_write_index={"card_vs_cpu": per_base, "bai_is_build_bai": True,
+                                   "bytes_d2h": pb["cuda"][0].bytes_d2h},
+             no_native={"chunks": r.n_chunks, "records_identical": True})
 
         # ---- stream_resume: killed at chunk 1's checkpoint mark (hit 1
         # is the fresh manifest, hit 2 chunk 0's mark), then resumed

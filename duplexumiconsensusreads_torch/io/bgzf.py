@@ -4,8 +4,9 @@ BGZF is the blocked-gzip container BAM files live in: a series of
 standard gzip members, each carrying an extra "BC" subfield with the
 compressed block size, terminated by a fixed 28-byte empty EOF block.
 Because each member is independently decompressible, the format
-supports random access and parallel decompression; this module is the
-portable implementation.
+supports random access and parallel decompression — the property the
+native C++ loader (duplexumiconsensusreads_torch.native) exploits; this
+module is the portable implementation.
 
 No pysam/htslib exists in this environment (SURVEY.md §7 "Hard parts"
 item 4), so the codec is built from the BGZF spec directly.
@@ -13,6 +14,7 @@ item 4), so the codec is built from the BGZF spec directly.
 
 from __future__ import annotations
 
+import functools
 import io as _io
 import struct
 import zlib
@@ -126,25 +128,51 @@ def compress(data: bytes, level: int = 6, eof: bool = True) -> bytes:
 
 
 def compress_fast(data: bytes, level: int = 6, eof: bool = True) -> bytes:
-    """BGZF-compress with the portable codec (this package carries no
-    native deflate library; kept under the reference's name so callers
-    read the same)."""
-    return compress(data, level=level, eof=eof)
+    """BGZF-compress via the native multithreaded library
+    (duplexumiconsensusreads_torch.native), or the portable codec under
+    DUT_NO_NATIVE=1 (the same switch as the native reader)."""
+    return compress_fast_tagged(data, level=level, eof=eof)[0]
 
 
 def compress_fast_tagged(
     data: bytes, level: int = 6, eof: bool = True
 ) -> tuple[bytes, str]:
-    """``compress_fast`` plus the codec used: (bytes, "python"). The
-    streaming executor persists the tag per checkpoint shard, so a
-    resume never splices shards deflated by another codec."""
-    return compress(data, level=level, eof=eof), "python"
+    """``compress_fast`` plus the codec used: (bytes, "native"|"python").
+    Native and pure-Python deflate produce different — both valid —
+    bytes for the same records, so the streaming executor persists the
+    tag per checkpoint shard and a resume never splices shards deflated
+    by another codec. A native failure raises: unlike the JAX package,
+    nothing falls back to the portable codec per shard."""
+    from duplexumiconsensusreads_torch import native
+
+    if not native.native_enabled():
+        return compress(data, level=level, eof=eof), "python"
+    out = native.bgzf_compress_native(data, level=level)
+    return out + (BGZF_EOF if eof else b""), "native"
+
+
+@functools.cache
+def _native_probe() -> bool:
+    from duplexumiconsensusreads_torch.native import bgzf_compress_native
+
+    return len(bgzf_compress_native(b"dut-probe")) > 0
+
+
+def native_compress_capable() -> bool:
+    """True when the native deflate is selected and works, probed by
+    compressing a tiny payload (once per process). A library that does
+    not build or whose compress entry point fails raises instead of
+    reading as incapable: there is no quiet fallback."""
+    from duplexumiconsensusreads_torch.native import native_enabled
+
+    return native_enabled() and _native_probe()
 
 
 def deflate_flavor() -> str:
-    """The deflate codec ``compress_fast`` uses: always "python" here
-    (no native library). Joins the streaming checkpoint fingerprint."""
-    return "python"
+    """The deflate codec ``compress_fast`` uses right now: "native" or
+    "python". Joins the streaming checkpoint fingerprint; per-shard
+    truth is ``compress_fast_tagged``'s return."""
+    return "native" if native_compress_capable() else "python"
 
 
 def is_bgzf(data: bytes) -> bool:

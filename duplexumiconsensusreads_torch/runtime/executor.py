@@ -3,11 +3,12 @@
 The host runtime around the device pipeline, the counterpart of the JAX
 package's runtime/executor.py (call_batch_tpu / call_consensus_file):
 
-  portable BAM parse -> build_buckets -> partition_buckets (byte-rung
-  packed H2D) -> stack_buckets -> ONE batched fused_pipeline call per
-  dispatch class -> non-blocking D2H into pinned host buffers -> a wait
-  on the event recorded after them -> scatter_bucket_outputs ->
-  sort_consensus_outputs -> consensus_to_records -> write_bam.
+  native BAM parse (io.load_input) -> build_buckets ->
+  partition_buckets (byte-rung packed H2D) -> stack_buckets -> ONE
+  batched fused_pipeline call per dispatch class -> non-blocking D2H
+  into pinned host buffers -> a wait on the event recorded after them
+  -> scatter_bucket_outputs -> sort_consensus_outputs ->
+  consensus_to_records -> write_bam (native deflate) [-> .bai/.csi].
 
 Also the pieces the streaming executor (runtime/stream.py) shares: the
 packed-D2H return path (compaction on the device, exact unpack on the
@@ -66,6 +67,18 @@ class RunReport:
     n_rescued_cigar: int = 0
     n_dropped_cigar_ab: int = 0
     n_dropped_cigar_ba: int = 0
+    # ref_projected: reads realigned onto reference columns vs groups
+    # (and their reads) that kept the cycle layout + modal-CIGAR policy
+    n_projected_reads: int = 0
+    n_projection_fallback_reads: int = 0
+    n_projection_fallback_groups: int = 0
+    # reads whose CIGAR consumes no reference (soft-clip+insertion
+    # only): projected rows stay PAD, contributing no evidence
+    n_projection_unanchored_reads: int = 0
+    # umi_whitelist (CorrectUmis analogue): reads whose UMI was snapped
+    # to a whitelist entry / invalidated (too far or ambiguous)
+    n_umi_corrected: int = 0
+    n_dropped_whitelist: int = 0
     mate_aware: bool = False  # resolved mate-aware mode of this run
     # streaming: True when ingest ran as the bounded background
     # producer (scheduling only: never changes output bytes)
@@ -245,13 +258,17 @@ def scatter_bucket_outputs(
     batch: ReadBatch,
     duplex: bool,
     pair_base: int = 0,  # global bucket index of buckets[0]
+    want_depth: bool = False,  # also return per-base depth AND err rows
 ):
     """Map per-bucket outputs back to source-batch coordinates.
 
     Returns (cons_base, cons_qual, cons_dstats, fam_pos, fam_umi,
     cons_mate, cons_pair, cons_end) concatenated over buckets, holding
-    only valid consensus rows below each bucket's real output count.
-    cons_pair is globally unique across buckets (bucket-offset int64).
+    only valid consensus rows below each bucket's real output count,
+    plus the (n, L) cons_depth and cons_err rows with ``want_depth``
+    (which needs them in ``out``: a per_base_counts spec, fetched with
+    ``start_fetch(extra=PER_BASE_KEYS)``). cons_pair is globally unique
+    across buckets (bucket-offset int64).
     """
     src_pos = np.asarray(batch.pos_key)
     src_umi = np.asarray(batch.umi)
@@ -288,7 +305,7 @@ def scatter_bucket_outputs(
         pair_local + ((pair_base + np.arange(nb, dtype=np.int64))[:, None] << 33),
         -1,
     )
-    return (
+    res = (
         out["cons_base"][:nb][keep],
         out["cons_qual"][:nb][keep],
         np.stack(
@@ -301,10 +318,15 @@ def scatter_bucket_outputs(
         pair_glob[keep],
         out["cons_end"][:nb][keep],
     )
+    if want_depth:
+        res = res + (out["cons_depth"][:nb][keep], out["cons_err"][:nb][keep])
+    return res
 
 
-# Device outputs the executor consumes; cons_depth (the padded (F, L)
-# matrix) and n_overflow stay on the device.
+# Device outputs the executor consumes; cons_depth and cons_err (the
+# padded (F, L) matrices) stay on the device unless per-base tags ask
+# for them (PER_BASE_KEYS, fetched as extras), and n_overflow always
+# does.
 FETCH_KEYS = (
     "family_id",
     "molecule_id",
@@ -319,6 +341,7 @@ FETCH_KEYS = (
     "cons_pair",
     "cons_end",
 )
+PER_BASE_KEYS = ("cons_depth", "cons_err")
 
 
 class Fetch(dict):
@@ -333,14 +356,15 @@ class Fetch(dict):
     staging = ()
 
 
-def start_fetch(out: dict, keys: tuple = FETCH_KEYS, staging=()) -> Fetch:
-    """Select ``keys`` and start their device->host copies NOW into
+def start_fetch(out: dict, keys: tuple = FETCH_KEYS, staging=(), extra: tuple = ()) -> Fetch:
+    """Select ``keys`` (+ ``extra``, e.g. PER_BASE_KEYS for per-base
+    tags) and start their device->host copies NOW into
     pinned host buffers (non-blocking, on the current stream), so every
     copy is queued before any is awaited; then record the event the
     waiter blocks on. CPU tensors pass through."""
     sel = Fetch()
     stream = None
-    for k in keys:
+    for k in (*keys, *extra):
         v = out[k]
         if v.is_cuda:
             h = torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
@@ -798,12 +822,16 @@ def call_batch(
     capacity: int = 2048,
     report: RunReport | None = None,
     device="cuda",
+    per_base_tags: bool = False,
 ):
     """Run one host ReadBatch through the bucketed pipeline on one device.
 
     Returns (cons_base, cons_qual, cons_dstats, cons_valid, fam_pos,
     fam_umi, cons_mate, cons_pair, cons_end) over all buckets, sorted
     by (pos_key, UMI) — the counterpart of the JAX call_batch_tpu.
+    per_base_tags=True appends TWO elements, the (n, L) per-base depth
+    and disagreement-count matrices (the pipeline's full ssc pass then
+    reduces the err columns too, and both matrices cross the wire).
     """
     from duplexumiconsensusreads_torch.bucketing import build_buckets, stack_buckets
     from duplexumiconsensusreads_torch.interop import ARRAY_KEYS, stacked_from_numpy
@@ -824,14 +852,16 @@ def call_batch(
     if not buckets:
         l, u = batch.read_len, batch.umi_len
         z = np.zeros
-        return (
+        empty = (
             z((0, l), np.uint8), z((0, l), np.uint8), z((0, 2), np.int32),
             z((0,), bool), z((0,), np.int64), z((0, u), np.uint8),
             z((0,), np.uint8), z((0,), np.int64), z((0,), np.uint8),
         )
+        return empty + ((z((0, l), np.int32),) * 2 if per_base_tags else ())
 
     part = partition_buckets(
-        buckets, grouping, consensus, packed_io=packed_io_ok(consensus)
+        buckets, grouping, consensus, packed_io=packed_io_ok(consensus),
+        per_base_counts=per_base_tags,
     )
     rep.n_size_classes = len(part)
     pending = []
@@ -847,7 +877,8 @@ def call_batch(
         args = stacked_from_numpy(stacked, dev, pin=True, keep=staging)
         out = fused_pipeline(*(args[k] for k in ARRAY_KEYS), cspec)
         del args
-        sel = start_fetch(out, staging=staging)
+        sel = start_fetch(out, staging=staging,
+                          extra=PER_BASE_KEYS if per_base_tags else ())
         del out
         rep.bytes_d2h += sum(int(v.nbytes) for v in sel.values())
         pending.append((cbuckets, sel))
@@ -863,7 +894,8 @@ def call_batch(
         n_real = len(cbuckets)
         rep.n_families += int(out["n_families"][:n_real].sum())
         rep.n_molecules += int(out["n_molecules"][:n_real].sum())
-        parts.append(scatter_bucket_outputs(out, cbuckets, batch, duplex, pair_base))
+        parts.append(scatter_bucket_outputs(out, cbuckets, batch, duplex, pair_base,
+                                            want_depth=per_base_tags))
         pair_base += n_real
         _add(rep, "scatter", time.monotonic() - t1)
 
@@ -908,15 +940,21 @@ def call_consensus_file(
     capacity: int = 2048,
     report_path: str | None = None,
     mate_aware: str = "auto",
+    max_reads: int = 0,
+    per_base_tags: bool = False,
     read_group: str = "A",
+    write_index: bool = False,
+    ref_projected: bool = False,
+    umi_whitelist=None,  # (W, U) u8 codes (io.convert.load_umi_whitelist)
+    umi_max_mismatches: int = 1,
     device="cuda",
 ) -> RunReport:
     """End-to-end: read BAM/npz -> consensus -> write consensus BAM.
 
-    Output is coordinate-sorted by construction and the header says so.
     The counterpart of the JAX package's whole-file call_consensus_file
-    (``chunk_reads`` 0); streaming, ref projection, UMI whitelists,
-    downsampling, per-base tags and BAI/CSI indexes are not ported.
+    (``chunk_reads`` 0). Output is coordinate-sorted by construction and
+    the header says so; write_index=True also writes the standard .bai
+    beside it (.csi when a contig exceeds BAI's 2^29 coordinate space).
     """
     from duplexumiconsensusreads_torch.io import (
         consensus_to_records,
@@ -925,6 +963,7 @@ def call_consensus_file(
     )
     from duplexumiconsensusreads_torch.io.bam import (
         derive_output_header,
+        reorder_records,
         unique_read_group_id,
     )
 
@@ -933,10 +972,20 @@ def call_consensus_file(
     duplex = consensus.mode == "duplex"
 
     t0 = time.monotonic()
+    # the mixed-mate warning only applies when mate-aware stays off
     header, batch, info = load_input(
-        in_path, duplex=duplex, warn_mixed=(mate_aware == "off"), mate_aware=mate_aware,
+        in_path, duplex=duplex, warn_mixed=(mate_aware == "off"),
+        ref_projected=ref_projected, mate_aware=mate_aware,
+        umi_whitelist=umi_whitelist, umi_max_mismatches=umi_max_mismatches,
     )
     grouping = resolve_mate_aware(grouping, info, mate_aware)
+    proj = info.get("ref_projection")
+    if proj is not None and proj.mate_split != grouping.mate_aware:
+        # both sides derive the decision from the same mixed-mates
+        # signal; a divergence would mis-key every emission lookup
+        raise RuntimeError(
+            "ref-projection mate split diverged from resolved grouping"
+        )
     rep.mate_aware = grouping.mate_aware
     rep.n_records = info["n_records"]
     rep.n_dropped = (
@@ -945,26 +994,44 @@ def call_consensus_file(
         + info.get("n_dropped_flag", 0)
         + info.get("n_dropped_cigar", 0)
     )
-    rep.n_mixed_mate_families = info.get("n_mixed_mate_families", 0)
-    rep.n_rescued_cigar = info.get("n_rescued_cigar", 0)
-    rep.n_dropped_cigar_ab = info.get("n_dropped_cigar_ab", 0)
-    rep.n_dropped_cigar_ba = info.get("n_dropped_cigar_ba", 0)
+    for key in ("n_mixed_mate_families", "n_rescued_cigar", "n_dropped_cigar_ab",
+                "n_dropped_cigar_ba", "n_projected_reads", "n_projection_fallback_reads",
+                "n_projection_fallback_groups", "n_projection_unanchored_reads",
+                "n_umi_corrected", "n_dropped_whitelist"):
+        setattr(rep, key, info.get(key, 0))
     rep.n_valid_reads = int(np.asarray(batch.valid).sum())
+    if max_reads > 0:
+        from duplexumiconsensusreads_torch.io.convert import downsample_families
+
+        rep.n_downsampled_reads = downsample_families(batch, max_reads)
     rep.seconds["read_input"] = time.monotonic() - t0
 
-    cb, cq, cd, cv, fp, fu, mate, pair, end = call_batch(
-        batch, grouping, consensus, capacity, rep, dev
+    cb, cq, cd, cv, fp, fu, mate, pair, end, *rest = call_batch(
+        batch, grouping, consensus, capacity, rep, dev, per_base_tags=per_base_tags,
     )
 
     t0 = time.monotonic()
+    # collision-free id FIRST: the RG:Z tags must match the header @RG
     read_group = unique_read_group_id(header.text, read_group)
     out_recs = consensus_to_records(
         cb, cq, cd, cv, fp, fu, duplex=duplex,
         cons_mate=mate, cons_pair=pair, paired_out=grouping.mate_aware,
-        read_group=read_group, cons_end=end,
+        cons_pdepth=rest[0] if rest else None,
+        cons_perr=rest[1] if rest else None,
+        read_group=read_group, proj=proj, cons_end=end,
     )
+    if proj is not None:
+        # projected POS moves to the first called reference column, so
+        # family-id emission order is no longer coordinate order —
+        # restore it (stable: equal positions keep UMI order)
+        out_recs = reorder_records(
+            out_recs,
+            np.lexsort((np.asarray(out_recs.pos), np.asarray(out_recs.ref_id))),
+        )
     header_out = derive_output_header(header, sort_order="coordinate", rg_id=read_group)
     write_bam(out_path, header_out, out_recs)
+    if write_index:
+        write_bam_index(out_path, header_out.ref_lengths)
     rep.n_consensus = len(out_recs)
     rep.n_consensus_pairs = count_consensus_pairs(out_recs)
     rep.seconds["write_output"] = time.monotonic() - t0
@@ -972,3 +1039,16 @@ def call_consensus_file(
     if report_path:
         write_report(rep, report_path)
     return rep
+
+
+def write_bam_index(path: str, ref_lengths) -> str:
+    """The standard index of a coordinate-sorted BAM: .bai, unless a
+    contig exceeds BAI's 2^29 coordinate space, then the CSI
+    generalization (depth sized to the contig). Returns its path."""
+    if max(ref_lengths, default=0) > (1 << 29):
+        from duplexumiconsensusreads_torch.io.csi import build_csi
+
+        return build_csi(path)
+    from duplexumiconsensusreads_torch.io.bai import build_bai
+
+    return build_bai(path)

@@ -4,8 +4,10 @@ The counterpart of the JAX package's runtime/stream.py, on one CUDA
 device (or the CPU when the caller asks for it). A coordinate-sorted
 BAM runs as a pipeline of chunks:
 
-  BGZF blocks -> rolling inflate -> record chunks (the trailing pos_key
-  group held back so no family straddles a boundary) -> buckets ->
+  BGZF blocks -> rolling inflate and native record parse (the C++
+  loader of native/; the portable Python codec under DUT_NO_NATIVE=1)
+  -> record chunks (the trailing pos_key group held back so no family
+  straddles a boundary) -> buckets ->
   dispatch classes, each with its H2D wire rung (sub-byte, byte or
   off) -> transfer workers (H2D copy, the batched fused pipeline, the
   packed-D2H compaction on the device, pinned D2H copies — all on the
@@ -13,7 +15,7 @@ BAM runs as a pipeline of chunks:
   workers (wait on that event -> unpack -> scatter -> serialize -> BGZF
   deflate -> durable shard write) -> an ordered commit frontier
   (checkpoint marks and incremental finalise appends strictly in chunk
-  order) -> one atomic fsync+rename of the consensus BAM.
+  order) -> one atomic fsync+rename of the consensus BAM [-> .bai/.csi].
 
 Concurrency comes from the transfer threads: the pipeline blocks its
 calling thread (the grouping fixpoint syncs its stream once per
@@ -83,6 +85,7 @@ from duplexumiconsensusreads_torch.runtime.executor import (
     DRAIN_PHASES,
     IDS16_FETCH_KEYS,
     PACKED_FETCH_KEYS,
+    PER_BASE_KEYS,
     XFER_WORKERS,
     D2hCompactionOverflow,
     RunReport,
@@ -99,6 +102,7 @@ from duplexumiconsensusreads_torch.runtime.executor import (
     sort_consensus_outputs,
     start_fetch,
     unpack_fetch_outputs,
+    write_bam_index,
 )
 from duplexumiconsensusreads_torch.runtime.faults import (
     InjectedFault,
@@ -191,6 +195,18 @@ def _complete_prefix(buf: bytes) -> int:
     return off
 
 
+def _inflate_native(lib, buf: bytes, n_threads: int) -> bytes:
+    """Parallel-inflate a byte string of complete BGZF blocks."""
+    src = np.frombuffer(buf, np.uint8)
+    usize = lib.dut_bgzf_usize(src, len(src))
+    if usize < 0:
+        raise ValueError("malformed BGZF block batch")
+    out = np.empty(max(usize, 1), np.uint8)
+    if lib.dut_bgzf_decompress(src, len(src), out, usize, n_threads) != usize:
+        raise ValueError("BGZF decompression failed")
+    return out[:usize].tobytes()
+
+
 def _inflate_python(block: bytes) -> bytes:
     """Per-block inflate of a batch of complete blocks."""
     return b"".join(
@@ -199,9 +215,11 @@ def _inflate_python(block: bytes) -> bytes:
     )
 
 
-def _iter_bgzf_stream(f, read_size=4 << 20):
+def _iter_bgzf_stream(f, read_size=4 << 20, native_lib=None, n_threads=0):
     """Yield decompressed byte chunks from a BGZF (or raw BAM) file
-    object, inflating each batch of complete blocks as it arrives."""
+    object, inflating each batch of complete blocks as it arrives: in
+    one multithreaded call of ``native_lib`` (the ctypes-bound loader),
+    else block by block in Python."""
     head = _read_ingest(f, 18)
     if head[:2] == b"\x1f\x8b":
         buf = head
@@ -211,9 +229,15 @@ def _iter_bgzf_stream(f, read_size=4 << 20):
                 buf += data
             off = _complete_prefix(buf)
             if off:
-                yield _io_retry(
-                    "bgzf.inflate", _inflate_python, "BGZF inflate", buf[:off]
-                )
+                if native_lib is not None:
+                    yield _io_retry(
+                        "bgzf.inflate", _inflate_native, "BGZF inflate",
+                        native_lib, buf[:off], n_threads,
+                    )
+                else:
+                    yield _io_retry(
+                        "bgzf.inflate", _inflate_python, "BGZF inflate", buf[:off]
+                    )
             buf = buf[off:]
             if not data:
                 if buf:
@@ -231,12 +255,48 @@ def _iter_bgzf_stream(f, read_size=4 << 20):
 class BamStreamReader:
     """Incremental BAM record reader over a rolling decompressed buffer."""
 
-    def __init__(self, path: str, read_size: int = 8 << 20):
+    def __init__(
+        self,
+        path: str,
+        read_size: int = 8 << 20,
+        use_native: bool | None = None,
+        start: tuple[int, int] | None = None,
+    ):
+        """use_native: inflate and walk records with the native loader
+        (None = unless DUT_NO_NATIVE is set; a build failure raises).
+
+        start=(coffset, uoffset): begin the record stream at that BGZF
+        virtual offset (from a BAI/CSI query or a BamLinearIndex entry)
+        instead of the first record; the header is still parsed from
+        the file start."""
+        from duplexumiconsensusreads_torch import native
+
+        if use_native is None:
+            use_native = native.native_enabled()
+        native_lib = native.get_lib() if use_native else None
+        self._native_lib = native_lib
         self._f = open(path, "rb")
         self._buf = bytearray()
         self._eof = False
-        self._gen = _iter_bgzf_stream(self._f, read_size)
-        self.header = self._read_header()
+        self._consumed = 0  # decompressed bytes consumed (header incl.)
+        if start is None:
+            self._gen = _iter_bgzf_stream(
+                self._f, read_size, native_lib=native_lib, n_threads=native.N_THREADS
+            )
+            self.header = self._read_header()
+        else:
+            tmp = BamStreamReader(path, read_size, use_native)
+            self.header = tmp.header
+            tmp.close()
+            coff, uoff = start
+            self._f.seek(coff)
+            self._gen = _iter_bgzf_stream(
+                self._f, read_size, native_lib=native_lib, n_threads=native.N_THREADS
+            )
+            if uoff:
+                if not self._fill(uoff):
+                    raise ValueError("index start offset past EOF")
+                del self._buf[:uoff]
 
     def close(self):
         self._f.close()
@@ -281,10 +341,13 @@ class BamStreamReader:
             off += 4
             lengths.append(l_ref)
         del self._buf[:off]
+        self._consumed += off
         return BamHeader(text=text, ref_names=names, ref_lengths=lengths)
 
     def read_raw_records(self, n: int) -> bytes | None:
         """Raw bytes of up to n whole records; None at EOF."""
+        if self._native_lib is not None:
+            return self._read_raw_records_native(n)
         count = 0
         off = 0
         while count < n:
@@ -303,6 +366,45 @@ class BamStreamReader:
             return None
         out = bytes(self._buf[:off])
         del self._buf[:off]
+        self._consumed += off
+        return out
+
+    def _read_raw_records_native(self, n: int) -> bytes | None:
+        """read_raw_records via the C record-chain walker: no per-record
+        Python loop."""
+        import ctypes
+
+        lib = self._native_lib
+        count = 0
+        off = 0
+        while count < n:
+            # the frombuffer view must not outlive the iteration: a live
+            # export would block the bytearray resize below
+            buf_arr = np.frombuffer(self._buf, np.uint8)
+            end = ctypes.c_long()
+            c = lib.dut_bam_chain(buf_arr, len(buf_arr), off, n - count, ctypes.byref(end))
+            del buf_arr
+            if c < 0:
+                bad = int(end.value)  # the chain reports the offending record
+                bsz = (struct.unpack_from("<i", self._buf, bad)[0]
+                       if len(self._buf) >= bad + 4 else -1)
+                raise ValueError(f"malformed BAM: record block_size {bsz}")
+            count += c
+            off = int(end.value)
+            if count >= n:
+                break
+            if not self._fill(len(self._buf) + 1):
+                break  # EOF: return what there is; a partial tail errors next call
+        if count == 0:
+            if self._buf and self._eof:
+                raise ValueError("truncated BAM: trailing partial record at EOF")
+            return None
+        # one copy: memoryview slices are zero-copy views
+        mv = memoryview(self._buf)
+        out = bytes(mv[:off])
+        mv.release()
+        del self._buf[:off]
+        self._consumed += off
         return out
 
 
@@ -398,12 +500,75 @@ def iter_record_chunks(path: str, chunk_reads: int):
 
 
 def iter_batch_chunks(path: str, chunk_reads: int, duplex: bool, warn_mixed: bool = True):
-    """Yield (header, ReadBatch, info) chunks with the hold-back of
-    iter_record_chunks (the JAX package's portable branch; its native
-    reader is not ported)."""
-    for header, recs in iter_record_chunks(path, chunk_reads):
-        batch, info = records_to_readbatch(recs, duplex=duplex, warn_mixed=warn_mixed)
-        yield header, batch, info
+    """Yield (header, ReadBatch, info) chunks with the family-integrity
+    hold-back of iter_record_chunks, parsed NATIVELY: record fields go
+    straight from raw BAM bytes into NumPy arrays (io/native_reader),
+    with no per-record Python loop.
+
+    Chunk boundaries are byte-identical to iter_record_chunks' (the same
+    hold-back and sentinel-flush rule on the same pos_keys), so
+    checkpoint manifests stay valid whichever path wrote them. Under
+    DUT_NO_NATIVE=1 this is the portable iterator. The JAX package's
+    range arguments (start/key_lo/key_hi/first_read, open_fn) belong to
+    the serve and live slices and are not ported."""
+    from duplexumiconsensusreads_torch import native
+
+    if not native.native_enabled():
+        for header, recs in iter_record_chunks(path, chunk_reads):
+            batch, info = records_to_readbatch(recs, duplex=duplex, warn_mixed=warn_mixed)
+            yield header, batch, info
+        return
+
+    from duplexumiconsensusreads_torch.io.native_reader import (
+        batch_from_offsets,
+        region_pos_keys,
+        scan_region,
+    )
+
+    lib = native.get_lib()
+    reader = BamStreamReader(path, use_native=True)
+    header = reader.header
+    shell = _header_shell(header)
+    carry = b""
+    prev_last = None
+
+    def emit(data, offs, lm, rm):
+        return (
+            header,
+            *batch_from_offsets(
+                lib, data, offs, lm, rm, duplex=duplex, n_threads=native.N_THREADS,
+                warn_mixed=warn_mixed,
+            ),
+        )
+
+    try:
+        while True:
+            raw = reader.read_raw_records(chunk_reads)
+            if raw is None:
+                if carry:
+                    data = np.frombuffer(shell + carry, np.uint8)
+                    _, lm, rm, off = scan_region(lib, data, path)
+                    if len(off):
+                        yield emit(data, off, lm, rm)
+                return
+            # one join: shell + carry + raw; the carry slices index this
+            # blob directly (offsets are absolute)
+            blob = b"".join((shell, carry, raw))
+            data = np.frombuffer(blob, np.uint8)
+            _, lm, rm, rec_off = scan_region(lib, data, path)
+            keys = region_pos_keys(data, rec_off)
+            cut, prev_last = _resolve_chunk_boundary(keys, prev_last)
+            if cut == 0:
+                carry = blob[int(rec_off[0]):]  # one group: keep growing
+                continue
+            if cut == len(keys):  # sentinel tail: flush, no hold-back
+                carry = b""
+                yield emit(data, rec_off, lm, rm)
+                continue
+            carry = blob[int(rec_off[cut]):]
+            yield emit(data, rec_off[:cut], lm, rm)
+    finally:
+        reader.close()
 
 
 def _slice_records(recs: BamRecords, a: int, b: int) -> BamRecords:
@@ -545,11 +710,11 @@ class Checkpoint:
 
 def _fingerprint(
     in_path: str, grouping, consensus, capacity, chunk_reads,
-    mate_aware: str = "auto", max_reads: int = 0, read_group: str = "A",
+    mate_aware: str = "auto", max_reads: int = 0, per_base_tags: bool = False,
+    read_group: str = "A",
 ) -> str:
     """The checkpoint key: everything that changes output bytes, in the
-    JAX package's order (no input range, per-base tags off), plus the
-    engine. Scheduling knobs (workers, depths, wire rungs) stay out, so
+    JAX package's order (no input range), plus the engine. Scheduling knobs (workers, depths, wire rungs) stay out, so
     a resume may change them. The mate_aware SETTING joins rather than
     its resolution, so the manifest can be initialised before any input
     byte is read."""
@@ -565,7 +730,7 @@ def _fingerprint(
             chunk_reads,
             mate_aware,
             max_reads,
-            False,  # per_base_tags
+            per_base_tags,
             read_group,
             [],  # input range
             "any",  # iterator flavor of a run without a range
@@ -591,8 +756,6 @@ _UNPORTED = {
     "finalize_on": "eof",
     "live_poll_s": 0.25,
     "snapshot_chunks": 0,
-    "per_base_tags": False,
-    "write_index": False,  # BAI/CSI
     "devices": None,  # multi-GPU dispatch
     "cycle_shards": 1,
 }
@@ -618,7 +781,9 @@ def stream_call_consensus(
     name_tag: str = "",
     mate_aware: str = "auto",
     max_reads: int = 0,
+    per_base_tags: bool = False,
     read_group: str = "A",
+    write_index: bool = False,
     packed: str = "auto",
     d2h_packed: str = "auto",
     prefetch_depth: int = 2,
@@ -682,7 +847,8 @@ def stream_call_consensus(
             progress=progress, commit_guard=commit_guard,
             max_retries=max_retries, name_tag=name_tag,
             mate_aware=mate_aware, max_reads=max_reads,
-            read_group=read_group, packed=packed, d2h_packed=d2h_packed,
+            per_base_tags=per_base_tags, read_group=read_group,
+            write_index=write_index, packed=packed, d2h_packed=d2h_packed,
             prefetch_depth=prefetch_depth, ingest_overlap=ingest_overlap,
             tr=tr, heartbeat_s=heartbeat_s, hb_box=hb_box,
             provenance_cl=provenance_cl, dev=dev,
@@ -723,7 +889,9 @@ def _stream_call(
     name_tag: str,
     mate_aware: str,
     max_reads: int,
+    per_base_tags: bool,
     read_group: str,
+    write_index: bool,
     packed: str,
     d2h_packed: str,
     prefetch_depth: int,
@@ -746,7 +914,13 @@ def _stream_call(
 
     mate_aware="auto" resolves against the FIRST chunk (mates share a
     canonical fragment pos_key, so any chunk with paired templates holds
-    both their mates); the resolved mode holds for the whole run."""
+    both their mates); the resolved mode holds for the whole run.
+
+    per_base_tags=True emits the cd/ce per-base arrays on every record
+    (the full ssc pass reduces the err columns too, and the return path
+    fetches the two (F, L) matrices, so the packed-D2H rung is off);
+    write_index=True writes the .bai (or .csi past 2^29) after the
+    atomic rename, inside the finalise stage."""
     from duplexumiconsensusreads_torch.bucketing import build_buckets, stack_buckets
     from duplexumiconsensusreads_torch.interop import ARRAY_KEYS, stacked_from_numpy
     from duplexumiconsensusreads_torch.io.bam import serialize_bam
@@ -788,7 +962,8 @@ def _stream_call(
         checkpoint_path = out_path + ".ckpt"
     fp = _fingerprint(
         in_path, grouping, consensus, capacity, chunk_reads,
-        mate_aware=mate_aware, max_reads=max_reads, read_group=read_group,
+        mate_aware=mate_aware, max_reads=max_reads,
+        per_base_tags=per_base_tags, read_group=read_group,
     )
     ckpt = Checkpoint.load_or_create(
         checkpoint_path, fp, verify=resume, expect_codec=bgzf.deflate_flavor(),
@@ -871,14 +1046,23 @@ def _stream_call(
     dev_compiled: set = set()
 
     # the packed return path: one run-level decision (the per-class
-    # capacity is re-checked at dispatch)
-    d2h_on = packed != "off" and d2h_packed != "off" and d2h_pack_ok(capacity, False)
+    # capacity is re-checked at dispatch); per-base tags fetch the full
+    # (F, L) depth/err matrices, which the compact layout does not carry
+    d2h_on = (
+        packed != "off" and d2h_packed != "off"
+        and d2h_pack_ok(capacity, per_base_tags)
+    )
     ids16_want = packed != "off" and d2h_packed != "off"
     if ids16_want and not d2h_on:
         telemetry.emit_event(
-            "packed_fallback", scope="d2h", reason="ids-overflow-u16",
+            "packed_fallback", scope="d2h",
+            reason=(
+                "per-base-tags-fetch-full-matrices" if per_base_tags
+                else "ids-overflow-u16"
+            ),
             capacity=capacity,
         )
+    fetch_extra = PER_BASE_KEYS if per_base_tags else ()
     # bounded H2D prefetch window: one permit per dispatched chunk,
     # taken by the main loop before its transfers are submitted and
     # returned by the drain worker once the chunk's device results are
@@ -917,7 +1101,7 @@ def _stream_call(
                 if first_call:
                     dev_compiled.add(spec)
         rung, fallback = d2h_rung_for_class(
-            d2h_on, ids16_want, buckets[0].capacity, False
+            d2h_on, ids16_want, buckets[0].capacity, per_base_tags
         )
         if fallback is not None:
             telemetry.emit_event(
@@ -948,10 +1132,10 @@ def _stream_call(
             elif rung == "ids16":
                 out = start_fetch(
                     pack_ids_u16(out, duplex), keys=IDS16_FETCH_KEYS,
-                    staging=staging,
+                    staging=staging, extra=fetch_extra,
                 )
             else:
-                out = start_fetch(out, staging=staging)
+                out = start_fetch(out, staging=staging, extra=fetch_extra)
         disp_dt = time.monotonic() - t0
         with phase_lock:
             phase["dispatch"] += disp_dt
@@ -1149,7 +1333,8 @@ def _stream_call(
                 _io_retry(
                     "drain.scatter",
                     lambda: scatter_bucket_outputs(
-                        out, cbuckets, batch, duplex, pair_base=pair_base
+                        out, cbuckets, batch, duplex, pair_base=pair_base,
+                        want_depth=per_base_tags,
                     ),
                     f"chunk {k} scatter",
                 )
@@ -1493,7 +1678,8 @@ def _stream_call(
             entries = []
             for cbuckets, cspec in partition_buckets(
                 buckets, grouping, consensus,
-                packed_io=(packed != "off"), qual_alphabet=alpha,
+                packed_io=(packed != "off"), per_base_counts=per_base_tags,
+                qual_alphabet=alpha,
             ):
                 spec_cache[cspec] = True
                 # submit never raises: failures surface in materialize
@@ -1573,9 +1759,12 @@ def _stream_call(
                 rm()
             except OSError:
                 pass
+    if write_index:
+        write_bam_index(out_path, header_out.ref_lengths)
     dt_fin = time.monotonic() - t_fin
     phase["finalise"] += dt_fin
     if tr is not None:
+        # terminal EOF/fsync/rename (+ optional index): chunkless span
         tr.span("finalise", t_fin, dt_fin)
     rep.n_chunks_skipped = n_skipped
     rep.n_pipeline_compiles = len(spec_cache)
@@ -1701,6 +1890,8 @@ def _finish_chunk(
         cons_mate=mate,
         cons_pair=pair,
         paired_out=paired_out,
+        cons_pdepth=cols[8] if len(cols) > 8 else None,
+        cons_perr=cols[9] if len(cols) > 9 else None,
         read_group=read_group,
         cons_end=end,
     )

@@ -122,13 +122,26 @@ def test_cuda_default_raises_without_a_card(bams, monkeypatch):
 
 
 def test_unported_input_options_raise(bams):
+    """ref_projected and umi_whitelist are ported (tests/
+    test_torch_per_base.py); what load_input still refuses, it refuses
+    as the JAX package does: a ref projection of the .npz interchange,
+    which carries no CIGARs."""
+    from duplexumiconsensusreads_tpu.io import load_input as jax_load_input
+    from duplexumiconsensusreads_tpu.io import load_readbatch, save_readbatch
     from duplexumiconsensusreads_torch.io import load_input
 
     d, paths = bams
-    with pytest.raises(NotImplementedError):
-        load_input(paths["single"], duplex=True, ref_projected=True)
-    with pytest.raises(NotImplementedError):
-        load_input(paths["single"], duplex=True, umi_whitelist=np.zeros((1, 12), np.uint8))
+    npz = str(d / "single.npz")
+    save_readbatch(npz, jax_load_input(paths["single"], duplex=True)[1])
+    with pytest.raises(ValueError) as theirs:
+        jax_load_input(npz, duplex=True, ref_projected=True)
+    with pytest.raises(ValueError) as ours:
+        load_input(npz, duplex=True, ref_projected=True)
+    assert str(ours.value) == str(theirs.value)
+    # the interchange itself loads the same batch on both sides
+    a, b = load_readbatch(npz), load_input(npz, duplex=True)[1]
+    for f in ("bases", "quals", "umi", "pos_key", "valid"):
+        np.testing.assert_array_equal(np.asarray(getattr(a, f)), getattr(b, f))
 
 
 def test_empty_input_writes_an_empty_bam(tmp_path):

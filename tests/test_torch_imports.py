@@ -69,6 +69,35 @@ def test_every_module_imports_without_jax():
     assert r.stdout.startswith("ok")
 
 
+def test_native_library_loads_from_the_port_build_dir(tmp_path):
+    """The native loader the port's reader, streaming iterator and
+    deflate run is the port's own build (its _build/), never the JAX
+    package's native/libdutbam.so, and using it imports no jax."""
+    code = (
+        "import sys\n"
+        "from duplexumiconsensusreads_torch.io import load_input, simulated_bam\n"
+        "from duplexumiconsensusreads_torch.io.bgzf import compress_fast_tagged\n"
+        "from duplexumiconsensusreads_torch.runtime.stream import iter_batch_chunks\n"
+        "from duplexumiconsensusreads_torch.simulate import SimConfig\n"
+        f"p = {str(tmp_path / 'x.bam')!r}\n"
+        "simulated_bam(SimConfig(n_molecules=20, seed=2), path=p, sort=True)\n"
+        "assert load_input(p, duplex=True)[2]['native'] is True\n"
+        "assert all(i['native'] for _, _, i in iter_batch_chunks(p, 50, True))\n"
+        "assert compress_fast_tagged(b'x' * 1000)[1] == 'native'\n"
+        "libs = {l.split()[-1] for l in open('/proc/self/maps') if 'libdutbam' in l}\n"
+        f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
+        "assert not bad, bad\n"
+        "print('\\n'.join(sorted(libs)))\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k not in ("PYTHONPATH", "DUT_NO_NATIVE")}
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    libs = r.stdout.split()
+    assert len(libs) == 1, libs
+    assert libs[0].startswith(os.path.join(PORT, "_build", "libdutbam-"))
+
+
 def test_chip_smoke_refuses_without_a_card_or_without_the_port(tmp_path):
     import shutil
 
