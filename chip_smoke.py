@@ -3,15 +3,16 @@
 
     python3 chip_smoke.py
 
-Drives the port's three paths on the card — the config5 whole-file call
+Drives the port's paths on the card — the config5 whole-file call
 (adjacency grouping, paired duplex, per-cycle error model) through
 ``call_consensus_file`` on a simulated ~600k-read BAM, one dispatch of
-the bench's size; the same call with per-base tags and a BAI; and the
+the bench's size; the same call with per-base tags and a BAI; the
 config5 streaming call through ``stream_call_consensus`` on the bench's
-~2M-read e2e workload in 500k-read chunks — all reading through the
-native BAM loader and deflating through it, and holds every
-hand-written kernel of those paths against its plain PyTorch version on
-the card. Phases, each printed as one JSON line:
+~2M-read e2e workload in 500k-read chunks; the CLI workflow (simulate,
+call, filter, validate, group) on the whole-file input; and the
+UmiGrouper/ConsensusCaller operators — reading through the native BAM
+loader and deflating through it, and holds every hand-written kernel of
+those paths against its plain PyTorch version on the card. Phases, each printed as one JSON line:
 
   env     the card (nvidia-smi name + power limit), torch and CUDA
   build   nvcc of every csrc/ source and g++ of the native BAM loader,
@@ -56,11 +57,26 @@ the card. Phases, each printed as one JSON line:
           packed auto/off, d2h_packed auto/off, drain_workers 1/2 and
           ingest_overlap on/off must give byte-identical files, and
           DUT_NO_NATIVE=1 (the portable codec) the same records
+  workflow  the fgbio-style chain through the port's CLI
+          (``cli.main.main``) on the card at full width: ``simulate``
+          with every e2e SimConfig value as a flag (bytes equal to the
+          e2e input), ``call`` with a JSON ``--config-file`` setting
+          every config5 parameter plus per-base tags and an index,
+          ``filter``, ``validate`` of both outputs (error rate below a
+          tenth of the simulator's base error), ``group --duplex``
+          (batched group_kernel launches, fewer than its buckets); each
+          step's seconds. Then on the small input: ``group`` and ``call``
+          (config3) on the card against ``--backend cpu`` (the same
+          read partition; records under compare_records), and ``stats``
+  operators  UmiGrouper + ConsensusCaller, cuda backend against the cpu
+          (oracle) backend on a small duplex batch with the cycle model:
+          ids identical, consensus at the parity bar
   stream_resume  a run killed at a checkpoint mark after one committed
           chunk, resumed, gives the uninterrupted run's bytes
 
 Then the nvidia-smi line, the ``kernels`` JSON line (segment_gemm's
-launches per path: whole_file, stream, per_base), and last
+launches per path: whole_file, stream, per_base, workflow, operators),
+and last
 ``{"ok": true, "device": {...}}``. Any failed phase raises and exits
 non-zero; with no CUDA device, or without the package beside this
 file, it exits non-zero before printing any result.
@@ -438,6 +454,8 @@ def main() -> int:
 
         reader_phase(in_bam)
         cap_pk, cap_pp, launches["per_base"] = per_base_phase(in_bam, small_bam, td, gp, cp)
+        launches["workflow"] = workflow_phase(in_bam, cfg, small_bam, td)
+    launches["operators"] = operators_phase()
 
     # ---- stages: the largest class's fused_pipeline once more, warm,
     # with the device span of each stage function it calls (the rest
@@ -547,8 +565,8 @@ def main() -> int:
     del out_k, out_p, sub, full, args, kw, cap_p
     torch.cuda.empty_cache()
     launches["stream"] = stream_phases(gp, smi)
-    seg_row["launches"] = {"whole_file": launches["whole_file"], "stream": launches["stream"],
-                           "per_base": launches["per_base"]}
+    seg_row["launches"] = {k: launches[k] for k in ("whole_file", "stream", "per_base",
+                                                    "workflow", "operators")}
 
     print(smi, flush=True)
     print(json.dumps({"kernels": [seg_row]}), flush=True)
@@ -712,6 +730,201 @@ def per_base_phase(in_bam: str, small_bam: str, td: str, gp, cp):
     emit("per_base_small_reference", **compare_records(outs["cuda"], outs["cpu"], qual_tol=2,
                                                        duplex_ties=True, per_base=True))
     return cap_k, cap_p, launches
+
+
+def cli(*argv) -> tuple[str, float]:
+    """One in-process run of the port's CLI: (its stdout, its seconds).
+    Raises when it does not return 0."""
+    import io
+
+    from duplexumiconsensusreads_torch.cli.main import main as cli_main
+
+    buf = io.StringIO()
+    t0 = time.monotonic()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_main([str(a) for a in argv])
+    if rc != 0:
+        raise AssertionError(f"{argv[0]} exited {rc}")
+    return buf.getvalue(), time.monotonic() - t0
+
+
+def mi_partition(path: str) -> set:
+    """The read partition of a ``group`` output: the sets of record
+    indices that share an MI value (the labels themselves left out)."""
+    from duplexumiconsensusreads_torch.io import read_bam
+    from duplexumiconsensusreads_torch.io.bam import iter_aux_fields
+
+    groups: dict = {}
+    for i, aux in enumerate(read_bam(path)[1].aux_raw):
+        mi = [aux[vs:end] for _, tag, _, vs, end in iter_aux_fields(aux) if tag == b"MI"]
+        groups.setdefault(mi[0] if mi else None, []).append(i)
+    return {frozenset(v) for k, v in groups.items() if k is not None}
+
+
+def workflow_phase(in_bam: str, cfg, small_bam: str, td: str) -> int:
+    """The fgbio-style workflow through ``cli.main.main`` on the card, at
+    full width: simulate -> call (a JSON --config-file setting every
+    config5 parameter, per-base tags, index) -> filter -> validate (call
+    and filter outputs) -> group. Then, on the small input, group and
+    call on the card against the cpu backend, and stats. Returns
+    segment_gemm's launches on the full-width chain."""
+    import torch
+
+    from duplexumiconsensusreads_torch.io import read_bam
+    from duplexumiconsensusreads_torch.kernels import segment_gemm as sg
+    from duplexumiconsensusreads_torch.runtime.executor import resolve_device
+    from duplexumiconsensusreads_torch.simulate import SimConfig
+
+    # the CLI's simulate flags must express the e2e input in full
+    free = {"qual_lo", "qual_hi", "n_frac"}
+    if any(getattr(cfg, f) != getattr(SimConfig(), f) for f in free):
+        raise AssertionError("the e2e SimConfig sets a field simulate has no flag for")
+    t_phase = time.monotonic()
+    w = os.path.join(td, "wf")
+    os.makedirs(w)
+    conf = os.path.join(w, "config5.json")
+    with open(conf, "w") as f:
+        json.dump({"config": "config5", "grouping": "adjacency", "mode": "duplex",
+                   "error_model": "cycle", "max_hamming": 1, "count_ratio": 2,
+                   "min_reads": 1, "min_duplex_reads": 1, "max_qual": 90,
+                   "max_input_qual": 50, "min_input_qual": 0, "capacity": CAPACITY,
+                   "backend": "cuda", "mate_aware": "auto", "read_group_id": "A"}, f)
+    p = {k: os.path.join(w, k) for k in ("in.bam", "truth.npz", "call.bam", "filter.bam",
+                                        "group.bam")}
+    secs = {}
+    torch.cuda.synchronize()
+    sg.segment_gemm.launches = 0
+    _, secs["simulate"] = cli(
+        "simulate", "-o", p["in.bam"], "--truth", p["truth.npz"], "--sorted",
+        "--molecules", cfg.n_molecules, "--read-len", cfg.read_len, "--umi-len", cfg.umi_len,
+        "--positions", cfg.n_positions, "--family-size", cfg.mean_family_size,
+        "--max-family-size", cfg.max_family_size, "--base-error", cfg.base_error,
+        "--cycle-error-slope", cfg.cycle_error_slope, "--umi-error", cfg.umi_error,
+        "--indel-error", cfg.indel_error, "--seed", cfg.seed,
+        *([] if cfg.duplex else ["--single-strand"]),
+        *(["--paired-reads"] if cfg.paired_reads else []),
+    )
+    if read_bytes(p["in.bam"]) != read_bytes(in_bam):
+        raise AssertionError("simulate's BAM differs from the e2e phase's input")
+    rep_out, secs["call"] = cli("call", p["in.bam"], "-o", p["call.bam"], "--config-file", conf,
+                                "--per-base-tags", "--write-index", "--report", "-")
+    rep = json.loads(rep_out)
+    call_launches = sg.segment_gemm.launches
+    if call_launches == 0 or rep["backend"] != "cuda" or rep["device"] != str(resolve_device()):
+        raise AssertionError(f"call: {call_launches} segment_gemm launches on "
+                             f"{rep['backend']}/{rep['device']}")
+    if not os.path.exists(p["call.bam"] + ".bai"):
+        raise AssertionError("call --write-index wrote no .bai")
+    _, secs["filter"] = cli("filter", p["call.bam"], "-o", p["filter.bam"],
+                            "--min-base-depth", 2, "--max-base-error-rate", 0.1)
+    val = {}
+    for name in ("call.bam", "filter.bam"):
+        out, secs[f"validate_{name[:-4]}"] = cli("validate", p[name], "--truth",
+                                                 p["truth.npz"], "--json")
+        val[name[:-4]] = v = json.loads(out)
+        if not (v["n_matched_to_truth"] > 0 and v["error_rate"] < cfg.base_error / 10):
+            raise AssertionError(f"validate {name}: {v}")
+    out, secs["group"] = cli("group", p["in.bam"], "-o", p["group.bam"], "--duplex", "--json")
+    grp = json.loads(out)
+    if not 0 < grp["group_kernel_launches"] < grp["buckets"] or grp["device"] != "cuda":
+        raise AssertionError(f"group: {grp}")
+    launches = sg.segment_gemm.launches
+    n_filtered = len(read_bam(p["filter.bam"])[1])
+
+    # the small input: the card against the cpu backend, then stats
+    small = {}
+    for backend in ("cuda", "cpu"):
+        out = os.path.join(w, f"small_group_{backend}.bam")
+        _, small[f"group_{backend}_seconds"] = cli("group", small_bam, "-o", out, "--duplex",
+                                                   "--capacity", 256, "--backend", backend)
+        small[f"group_{backend}"] = mi_partition(out)
+    if small.pop("group_cuda") != small.pop("group_cpu"):
+        raise AssertionError("group: the card's read partition differs from the cpu backend's")
+    # config3: the device path fits config5's cycle model per bucket and
+    # the oracle per file, in the JAX package too (ROADMAP Faults found
+    # 5), so only a model-free call compares across the two backends
+    outs = {}
+    for backend in ("cuda", "cpu"):
+        outs[backend] = os.path.join(w, f"small_call_{backend}.bam")
+        _, small[f"call_{backend}_seconds"] = cli(
+            "call", small_bam, "-o", outs[backend], "--config", "config3", "--capacity", 256,
+            "--backend", backend)
+    small["call_card_vs_cpu_backend"] = compare_records(
+        read_bam(outs["cuda"])[1], read_bam(outs["cpu"])[1], qual_tol=2, duplex_ties=True)
+    out, small["stats_seconds"] = cli("stats", small_bam, "--duplex", "--json")
+    small["stats_molecules"] = json.loads(out)["n_molecules"]
+    emit("workflow", config="config5 (JSON --config-file)", reads_in=rep["n_records"],
+         consensus_out=rep["n_consensus"], filtered_records=n_filtered,
+         step_seconds={k: round(v, 3) for k, v in secs.items()},
+         chain_seconds=round(sum(secs.values()), 3), simulate_bytes_equal_e2e_input=True,
+         call_stage_seconds={k: round(v, 3) for k, v in rep["seconds"].items()},
+         launches={"segment_gemm": launches}, validate=val, group=grp,
+         base_error=cfg.base_error, small_input=small,
+         phase_seconds=round(time.monotonic() - t_phase, 3))
+    return launches
+
+
+def operators_phase() -> int:
+    """UmiGrouper + ConsensusCaller with the cuda backend against the cpu
+    (oracle) backend on a small duplex batch with the cycle model.
+    Returns segment_gemm's launches in the cuda run."""
+    import numpy as np
+    import torch
+
+    from duplexumiconsensusreads_torch.kernels import segment_gemm as sg
+    from duplexumiconsensusreads_torch.ops import ConsensusCaller, UmiGrouper
+    from duplexumiconsensusreads_torch.simulate import SimConfig, simulate_batch
+    from duplexumiconsensusreads_torch.types import ConsensusParams, GroupingParams
+
+    t_phase = time.monotonic()
+    batch, _ = simulate_batch(SimConfig(n_molecules=200, read_len=150, n_positions=10,
+                                        umi_error=0.01, cycle_error_slope=0.001,
+                                        duplex=True, seed=5))
+    gp = GroupingParams(strategy="adjacency", paired=True)
+    cp = ConsensusParams(mode="duplex", error_model="cycle")
+    torch.cuda.synchronize()
+    sg.segment_gemm.launches = 0
+    t0 = time.monotonic()
+    fams = UmiGrouper(gp, backend="cuda")(batch)
+    cons = ConsensusCaller(cp, backend="cuda")(batch, fams)
+    cuda_s = time.monotonic() - t0
+    launches = sg.segment_gemm.launches
+    t0 = time.monotonic()
+    ofams = UmiGrouper(gp, backend="cpu")(batch)
+    ocons = ConsensusCaller(cp, backend="cpu")(batch, ofams)
+    cpu_s = time.monotonic() - t0
+    for f in ("family_id", "molecule_id", "pair_id", "n_families", "n_molecules"):
+        if not np.array_equal(np.asarray(getattr(fams, f)), np.asarray(getattr(ofams, f))):
+            raise AssertionError(f"operators: UmiGrouper {f} differs between backends")
+    if launches == 0:
+        raise AssertionError("the cuda ConsensusCaller launched segment_gemm no time")
+    for f in ("valid", "depth"):
+        if not np.array_equal(np.asarray(getattr(cons, f)), np.asarray(getattr(ocons, f))):
+            raise AssertionError(f"operators: ConsensusCaller {f} differs between backends")
+    sa, sb = np.asarray(cons.bases), np.asarray(ocons.bases)
+    qa, qb = np.asarray(cons.quals).astype(int), np.asarray(ocons.quals).astype(int)
+    dq = np.abs(qa - qb)
+    # a near-tie (a strand tie, or two strands of near-equal quality that
+    # disagree) may call another base, both sides at qual <= 2 * TIE_QUAL;
+    # a strand tie under an agreeing call moves the duplex qual by at most
+    # 2 * TIE_QUAL + 2
+    tie = (((sa != sb) & (qa <= 2 * TIE_QUAL) & (qb <= 2 * TIE_QUAL))
+           | ((sa == sb) & (dq > 2) & (dq <= 2 * TIE_QUAL + 2)))
+    if ((sa != sb) & ~tie).any() or (np.where(tie, 0, dq) > 2).any():
+        raise AssertionError("operators: consensus outside the parity bar")
+    # f32 against the oracle's f64 under the cycle model's capped quals:
+    # near-ties are far more frequent than between two f32 runs (the JAX
+    # package's own tpu and cpu operators show ~1 in 700 cycles here)
+    if int(tie.sum()) * 200 > sa.size:
+        raise AssertionError(f"operators: {int(tie.sum())} tie cycles of {sa.size}: "
+                             f"more than 1 in 200")
+    emit("operators", reads=int(np.asarray(batch.valid).sum()),
+         families=int(fams.n_families), molecules=int(fams.n_molecules),
+         consensus=int(np.asarray(cons.valid).sum()), ids_identical=True,
+         tie_cycles=int(tie.sum()), cycles=int(sa.size), max_qual_diff=int(dq.max(initial=0)),
+         launches={"segment_gemm": launches}, cuda_seconds=round(cuda_s, 3),
+         cpu_backend_seconds=round(cpu_s, 3), phase_seconds=round(time.monotonic() - t_phase, 3))
+    return launches
 
 
 def stream_phases(gp, smi: str) -> int:

@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import time
 
 import numpy as np
@@ -905,6 +906,82 @@ def call_batch(
     return (*cols[:3], np.ones(len(cols[0]), bool), *cols[3:])
 
 
+def call_batch_cpu(
+    batch: ReadBatch,
+    grouping: GroupingParams,
+    consensus: ConsensusParams,
+    report: RunReport | None = None,
+    per_base_tags: bool = False,
+):
+    """The NumPy oracle over the whole batch (no device): the operators'
+    cpu backends, then the host twin of the pipeline's per-row mate/pair
+    epilogue. Returns what :func:`call_batch` returns, in family-id
+    order, which is (pos_key, UMI) order."""
+    from duplexumiconsensusreads_torch.io.convert import depth_stats
+    from duplexumiconsensusreads_torch.ops import ConsensusCaller, UmiGrouper
+
+    rep = report or RunReport()
+    t0 = time.monotonic()
+    fams = UmiGrouper(grouping, backend="cpu")(batch)
+    cons = ConsensusCaller(consensus, backend="cpu")(batch, fams)
+    rep.seconds["cpu_pipeline"] = time.monotonic() - t0
+    rep.n_families = int(fams.n_families)
+    rep.n_molecules = int(fams.n_molecules)
+
+    duplex = consensus.mode == "duplex"
+    ids = np.asarray(fams.molecule_id if duplex else fams.family_id)
+    n_out = int(fams.n_molecules if duplex else fams.n_families)
+    fam_pos, fam_umi = representative_per_family(
+        ids,
+        np.asarray(batch.valid, bool),
+        np.asarray(batch.pos_key),
+        np.asarray(batch.umi),
+        n_fam=n_out,
+    )
+    cv = np.asarray(cons.valid, bool)
+    # per-output-row mate/pair metadata (constant within a row's reads)
+    e2 = np.asarray(batch.frag_end, bool)
+    s = np.asarray(batch.strand_ab, bool)
+    pid = np.asarray(fams.pair_id).astype(np.int64)
+    if duplex:
+        mate_read = e2.astype(np.int64)
+        pair_read = pid
+    elif grouping.paired:
+        mate_read = (e2 ^ ~s).astype(np.int64)
+        pair_read = pid * 2 + (~s).astype(np.int64)
+    else:
+        # unpaired ss families (molecule, end) can mix strands: label
+        # rows by fragment end, as the device pipeline does
+        mate_read = e2.astype(np.int64)
+        pair_read = pid
+    sel = np.asarray(batch.valid, bool) & (ids >= 0)
+    big = np.iinfo(np.int64).max
+    mate = np.full(n_out, big, np.int64)
+    pair = np.full(n_out, big, np.int64)
+    np.minimum.at(mate, ids[sel], mate_read[sel])
+    np.minimum.at(pair, ids[sel], pair_read[sel])
+    mate = np.where(cv, np.minimum(mate, 1), 0).astype(np.uint8)
+    pair = np.where(cv & (pair < big), pair, -1)
+    endv = np.full(n_out, big, np.int64)
+    np.minimum.at(endv, ids[sel], e2[sel].astype(np.int64))
+    endv = np.where(cv, np.minimum(endv, 1), 0).astype(np.uint8)
+
+    res = (
+        np.asarray(cons.bases)[cv],
+        np.asarray(cons.quals)[cv],
+        depth_stats(np.asarray(cons.depth))[cv],
+        np.ones(int(cv.sum()), bool),
+        fam_pos[cv],
+        fam_umi[cv],
+        mate[cv],
+        pair[cv],
+        endv[cv],
+    )
+    if per_base_tags:
+        res = res + (np.asarray(cons.depth)[cv], np.asarray(cons.err)[cv])
+    return res
+
+
 def resolve_mate_aware(
     grouping: GroupingParams, info: dict, setting: str = "auto"
 ) -> GroupingParams:
@@ -948,13 +1025,20 @@ def call_consensus_file(
     umi_whitelist=None,  # (W, U) u8 codes (io.convert.load_umi_whitelist)
     umi_max_mismatches: int = 1,
     device="cuda",
+    backend: str = "cuda",
+    profile_dir: str | None = None,
 ) -> RunReport:
     """End-to-end: read BAM/npz -> consensus -> write consensus BAM.
 
     The counterpart of the JAX package's whole-file call_consensus_file
-    (``chunk_reads`` 0). Output is coordinate-sorted by construction and
-    the header says so; write_index=True also writes the standard .bai
-    beside it (.csi when a contig exceeds BAI's 2^29 coordinate space).
+    (``chunk_reads`` 0). ``backend="cuda"`` runs the bucketed device
+    pipeline on ``device``; ``backend="cpu"`` runs the NumPy oracle
+    (:func:`call_batch_cpu`) and touches no device. Output is
+    coordinate-sorted by construction and the header says so;
+    write_index=True also writes the standard .bai beside it (.csi when
+    a contig exceeds BAI's 2^29 coordinate space). ``profile_dir``
+    writes a ``torch.profiler`` trace of the consensus stage there
+    (``trace.json``).
     """
     from duplexumiconsensusreads_torch.io import (
         consensus_to_records,
@@ -967,8 +1051,10 @@ def call_consensus_file(
         unique_read_group_id,
     )
 
-    dev = resolve_device(device)
-    rep = RunReport(device=str(dev))
+    if backend not in ("cuda", "cpu"):
+        raise ValueError(f"unknown backend {backend!r} (cuda or cpu)")
+    dev = resolve_device(device) if backend == "cuda" else torch.device("cpu")
+    rep = RunReport(device=str(dev), backend=backend)
     duplex = consensus.mode == "duplex"
 
     t0 = time.monotonic()
@@ -1006,9 +1092,27 @@ def call_consensus_file(
         rep.n_downsampled_reads = downsample_families(batch, max_reads)
     rep.seconds["read_input"] = time.monotonic() - t0
 
-    cb, cq, cd, cv, fp, fu, mate, pair, end, *rest = call_batch(
-        batch, grouping, consensus, capacity, rep, dev, per_base_tags=per_base_tags,
-    )
+    prof = None
+    if profile_dir:
+        from torch.profiler import ProfilerActivity, profile
+
+        acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if dev.type == "cuda" else [])
+        prof = profile(activities=acts)
+        prof.start()
+    try:
+        if backend == "cuda":
+            cb, cq, cd, cv, fp, fu, mate, pair, end, *rest = call_batch(
+                batch, grouping, consensus, capacity, rep, dev, per_base_tags=per_base_tags,
+            )
+        else:
+            cb, cq, cd, cv, fp, fu, mate, pair, end, *rest = call_batch_cpu(
+                batch, grouping, consensus, rep, per_base_tags=per_base_tags,
+            )
+    finally:
+        if prof is not None:
+            prof.stop()
+            os.makedirs(profile_dir, exist_ok=True)
+            prof.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
 
     t0 = time.monotonic()
     # collision-free id FIRST: the RG:Z tags must match the header @RG
