@@ -8,11 +8,14 @@ Drives the port's paths on the card — the config5 whole-file call
 ``call_consensus_file`` on a simulated ~600k-read BAM, one dispatch of
 the bench's size; the same call with per-base tags and a BAI; the
 config5 streaming call through ``stream_call_consensus`` on the bench's
-~2M-read e2e workload in 500k-read chunks; the CLI workflow (simulate,
-call, filter, validate, group) on the whole-file input; and the
-UmiGrouper/ConsensusCaller operators — reading through the native BAM
-loader and deflating through it, and holds every hand-written kernel of
-those paths against its plain PyTorch version on the card. Phases, each printed as one JSON line:
+~2M-read e2e workload in 500k-read chunks, also under the bucket
+ladder, with its captures read back by the port's analysers and tools;
+the CLI workflow (simulate, call, filter, validate, group) on the
+whole-file input; the UmiGrouper/ConsensusCaller operators; and the
+ssc-method race — reading through the native BAM loader and deflating
+through it, and holds every hand-written kernel of those paths against
+its plain PyTorch version on the card. Phases, each printed as one JSON
+line:
 
   env     the card (nvidia-smi name + power limit), torch and CUDA
   build   nvcc of every csrc/ source and g++ of the native BAM loader,
@@ -73,9 +76,40 @@ those paths against its plain PyTorch version on the card. Phases, each printed 
           ids identical, consensus at the parity bar
   stream_resume  a run killed at a checkpoint mark after one committed
           chunk, resumed, gives the uninterrupted run's bytes
+  ladder  the stream phase's input and settings streamed again with
+          bucket_ladder="auto" and "256,512,2048": per run the wall,
+          the tuner verdict (ladder, predicted and off fill factors,
+          predicted speedup), the measured fill (n_rows_real /
+          n_rows_padded) and the segment_gemm launch shapes, which hold
+          every explicit rung; records equal to the ladder-off output
+          in every field but seq/qual, whose differing cycles are
+          counted (config5's cycle model is fit per bucket, in the JAX
+          package too). Then, under the model-free duplex config, ladder
+          off, auto and explicit give identical bytes, and a run killed
+          at a checkpoint mark under "auto", resumed under the explicit
+          ladder, gives them too
+  capture the port's analysers on the stream and ladder captures: the
+          time, byte, output and device sum-checks pass; the devstat
+          per-class table (MFU against the resolved peak entry, which
+          must be an h100 one; intensity; roofline verdict); the wire
+          floor fraction and the measured H2D/D2H bandwidth; each tool's
+          main exits 0 on every capture and 1 on its tampered copy
+  kernel_rungs  segment_gemm against its plain version (tolerance 0)
+          at each explicit rung's largest launch of the ladder run,
+          with the kernel, plain, library and bound ms
+  race    race_ssc_methods() on the card at its defaults (22k
+          molecules, L 150, capacity 2048) with blockseg T 64/128/256:
+          step seconds and reads/s per method and the winner; then on
+          the same buckets every method's fused-pipeline outputs
+          against segment_gemm's (integers identical, bases identical
+          except at counted ties, quals within 1 per strand; runsum
+          within the JAX package's runsum tolerance), and blockseg run
+          twice gives identical bytes
 
 Then the nvidia-smi line, the ``kernels`` JSON line (segment_gemm's
-launches per path: whole_file, stream, per_base, workflow, operators),
+launches per path: whole_file, stream, per_base, workflow, operators,
+ladder, race; a ``rung_shapes`` sub-row with the kernel, plain,
+library and bound ms at each explicit ladder rung's largest launch),
 and last
 ``{"ok": true, "device": {...}}``. Any failed phase raises and exits
 non-zero; with no CUDA device, or without the package beside this
@@ -107,6 +141,12 @@ STREAM_CHUNK_READS = 500_000
 # flip there moves the duplex qual between qa+qb and |qa-qb| (see
 # compare_records)
 TIE_QUAL = 3
+# the explicit ladder of the ladder phase (auto is the other run)
+LADDER = "256,512,2048"
+# the JAX package's runsum tolerance at the pipeline level
+# (tests/test_perf_kernels.py): bases off on under 1e-3 of cycles,
+# quals off on under 10 % with a largest gap of 15
+RUNSUM_BASE_FRAC, RUNSUM_QUAL_FRAC, RUNSUM_QUAL_GAP = 1e-3, 0.10, 15
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (data sheet)
 F32_FLOPS = 67e12  # H100 SXM f32 rate outside the tensor cores (data sheet)
 
@@ -564,9 +604,26 @@ def main() -> int:
 
     del out_k, out_p, sub, full, args, kw, cap_p
     torch.cuda.empty_cache()
-    launches["stream"] = stream_phases(gp, smi)
+    launches["stream"], launches["ladder"], rung_calls = stream_phases(gp, smi)
+    # each explicit rung's largest launch of the ladder run: the kernel
+    # against its plain version (tolerance 0), and its times
+    rung_shapes = {}
+    for rung, (big_r, fid_r, f_max_r) in sorted(rung_calls.items()):
+        case = kernel_case(sg, f"ladder_rung_{rung}", big_r, fid_r, f_max_r)
+        kernel_rows.append(case)
+        t_r = kernel_times(sg, big_r, fid_r, f_max_r, plain_reps=1, lib_reps=5)
+        rung_shapes[str(rung)] = {"shape": case["shape"], "f_max": f_max_r, **row_times(t_r),
+                                  "live_rows": t_r["live_rows"],
+                                  "bound_fraction": t_r["bound_fraction"]}
+    del rung_calls, big_r, fid_r
+    torch.cuda.empty_cache()
+    emit("kernel_rungs", name="segment_gemm", rungs=rung_shapes, library_call="index_add_",
+         nvidia_smi=smi)
+    launches["race"] = race_phase(smi)
+    seg_row["max_abs_err"] = max(row["max_abs_err"] for row in kernel_rows + [pb_case])
+    seg_row["rung_shapes"] = rung_shapes
     seg_row["launches"] = {k: launches[k] for k in ("whole_file", "stream", "per_base",
-                                                    "workflow", "operators")}
+                                                    "workflow", "operators", "ladder", "race")}
 
     print(smi, flush=True)
     print(json.dumps({"kernels": [seg_row]}), flush=True)
@@ -927,10 +984,11 @@ def operators_phase() -> int:
     return launches
 
 
-def stream_phases(gp, smi: str) -> int:
-    """The streaming path: the "stream", "stream_small_reference" and
-    "stream_resume" phases. Returns segment_gemm's launches on the
-    full-width streaming run."""
+def stream_phases(gp, smi: str):
+    """The streaming path: the "stream", "stream_small_reference",
+    "stream_resume", "ladder" and "capture" phases. Returns segment_gemm's
+    launches on the full-width streaming run and on the ladder runs,
+    and the ladder run's largest launch at each explicit rung."""
     import numpy as np
     import torch
 
@@ -1113,6 +1171,361 @@ def stream_phases(gp, smi: str) -> int:
                 raise AssertionError("resumed output differs from the uninterrupted run")
         emit("stream_resume", kill="ckpt.save:3:kill", committed_before_kill=committed,
              chunks_skipped=r.n_chunks_skipped, chunks=r.n_chunks, identical=True)
+
+        ladder_launches, rung_calls, captures = ladder_phase(
+            in_bam, out_bam, gp, cp, settings, td, smi)
+        capture_phase({"stream": (trace, out_bam), **captures}, td, smi)
+    return launches, ladder_launches, rung_calls
+
+
+class RungKeeper:
+    """Wraps consensus.segment_gemm and keeps, for each row count R (a
+    ladder rung), the arguments of its call with the most elements."""
+
+    def __init__(self, module):
+        self.module, self.inner = module, module.segment_gemm
+        self.calls: dict = {}
+        self.shapes: set = set()
+
+    def __enter__(self):
+        def wrapped(big, fid, f_max):
+            self.shapes.add(tuple(big.shape))
+            r = big.shape[1]
+            if r not in self.calls or big.numel() > self.calls[r][0].numel():
+                self.calls[r] = (big, fid, f_max)
+            return self.inner(big, fid, f_max)
+
+        self.module.segment_gemm = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        self.module.segment_gemm = self.inner
+
+
+def ladder_phase(in_bam: str, out_bam: str, gp, cp, settings: dict, td: str, smi: str):
+    """The stream phase's input and settings with bucket_ladder "auto"
+    and LADDER.
+
+    The main path (config5): verdicts, fills, walls and launch shapes,
+    and the records against the ladder-off output of the stream phase.
+    config5's quals move with the ladder, in the JAX package too: its
+    cycle error model is fit per bucket, and a ladder regroups the
+    buckets (ROADMAP Faults found); those cycles are counted, and every
+    other field must be identical. Byte identity is held where the
+    output does not depend on the bucket composition: the same input
+    under the model-free duplex config, ladder off, auto and LADDER,
+    then a kill under auto and a resume under LADDER. Returns the
+    launches of the two config5 ladder runs, the explicit run's largest
+    launch per rung, and {name: (trace, output)} of their captures."""
+    import numpy as np
+    import torch
+
+    from duplexumiconsensusreads_torch.io import read_bam
+    from duplexumiconsensusreads_torch.kernels import consensus
+    from duplexumiconsensusreads_torch.kernels import segment_gemm as sg
+    from duplexumiconsensusreads_torch.runtime import faults
+    from duplexumiconsensusreads_torch.runtime.stream import stream_call_consensus
+
+    t_phase = time.monotonic()
+    off = read_bam(out_bam)[1]
+    runs, captures = {}, {}
+    torch.cuda.synchronize()
+    sg.segment_gemm.launches = 0
+    for name, ladder in (("auto", "auto"), ("explicit", LADDER)):
+        out = os.path.join(td, f"ladder_{name}.bam")
+        trace = os.path.join(td, f"ladder_{name}.trace.jsonl")
+        with RungKeeper(consensus) as keep:
+            t0 = time.monotonic()
+            rep = stream_call_consensus(in_bam, out, gp, cp, device="cuda", trace_path=trace,
+                                        bucket_ladder=ladder, **settings)
+            wall = time.monotonic() - t0
+        recs = [json.loads(line) for line in open(trace)]
+        verdicts = [{k: r[k] for k in ("chunk", "ladder", "fill_factor", "fill_factor_off",
+                                       "predicted_speedup", "n_groups", "source")}
+                    for r in recs if r.get("name") == "tuner_verdict"]
+        if (name == "auto") != bool(verdicts) or len(verdicts) > 1:
+            raise AssertionError(f"{name}: tuner verdicts {verdicts}")
+        # against the ladder-off output: every field but seq/qual equal
+        got = read_bam(out)[1]
+        if len(got) != len(off) or got.names != off.names or any(
+                not np.array_equal(np.asarray(getattr(got, f)), np.asarray(getattr(off, f)))
+                for f in ("flags", "ref_id", "pos", "lengths")) or got.cigars != off.cigars:
+            raise AssertionError(f"bucket_ladder={ladder!r} changed the consensus records")
+        sa, sb = np.asarray(got.seq), np.asarray(off.seq)
+        dq = np.abs(np.asarray(got.qual).astype(int) - np.asarray(off.qual).astype(int))
+        rows = sorted({s[1] for s in keep.shapes})
+        runs[name] = {
+            "bucket_ladder": rep.bucket_ladder, "wall_seconds": round(wall, 3),
+            "reads_per_s": round(rep.n_valid_reads / wall, 1), "verdict": verdicts,
+            "fill_measured": rep.n_rows_real / rep.n_rows_padded,
+            "n_rows_real": rep.n_rows_real, "n_rows_padded": rep.n_rows_padded,
+            "buckets": rep.n_buckets, "dispatch_specs": rep.n_pipeline_compiles,
+            "segment_gemm_shapes": sorted(list(s) for s in keep.shapes),
+            "segment_gemm_rows": rows, "bytes_h2d": rep.bytes_h2d, "bytes_d2h": rep.bytes_d2h,
+            "stage_seconds": rep.seconds,
+            "vs_ladder_off": {"records": len(got), "other_fields_identical": True,
+                              "cycles": int(sa.size), "bases_differ": int((sa != sb).sum()),
+                              "quals_differ": int((dq > 0).sum()),
+                              "max_qual_diff": int(dq.max(initial=0))},
+        }
+        captures[f"ladder_{name}"] = (trace, out)
+        if name == "explicit":
+            want = [int(r) for r in LADDER.split(",")]
+            if rep.bucket_ladder != want or not set(want) <= set(rows):
+                raise AssertionError(f"explicit ladder {rep.bucket_ladder}: launch rows {rows}")
+            torch.cuda.synchronize()
+            rung_calls = {r: keep.calls[r] for r in want}
+        del keep, got
+    launches = sg.segment_gemm.launches
+    if launches == 0:
+        raise AssertionError("the ladder runs launched segment_gemm no time")
+    del off
+
+    # byte identity where the output cannot depend on the buckets' make-up
+    cp_free = dataclasses.replace(cp, error_model=None)
+    ident = {}
+    ref_path = os.path.join(td, "ladder_free_off.bam")
+    t0 = time.monotonic()
+    rep = stream_call_consensus(in_bam, ref_path, gp, cp_free, device="cuda", **settings)
+    ident["off"] = {"wall_seconds": round(time.monotonic() - t0, 3),
+                    "n_rows_padded": rep.n_rows_padded}
+    ref_bytes = read_bytes(ref_path)
+    for name, ladder in (("auto", "auto"), ("explicit", LADDER)):
+        path = os.path.join(td, f"ladder_free_{name}.bam")
+        t0 = time.monotonic()
+        rep = stream_call_consensus(in_bam, path, gp, cp_free, device="cuda",
+                                    bucket_ladder=ladder, **settings)
+        if read_bytes(path) != ref_bytes:
+            raise AssertionError(f"bucket_ladder={ladder!r} changed the model-free bytes")
+        ident[name] = {"bucket_ladder": rep.bucket_ladder, "identical": True,
+                       "wall_seconds": round(time.monotonic() - t0, 3),
+                       "n_rows_padded": rep.n_rows_padded}
+    # killed at chunk 1's checkpoint mark under auto, resumed under LADDER
+    killed = os.path.join(td, "ladder_killed.bam")
+    faults.install(faults.FaultPlan.parse("ckpt.save:3:kill"))
+    try:
+        stream_call_consensus(in_bam, killed, gp, cp_free, device="cuda", bucket_ladder="auto",
+                              **settings)
+        raise AssertionError("the injected kill did not fire")
+    except faults.InjectedKill:
+        pass
+    finally:
+        faults.uninstall()
+    with open(killed + ".ckpt") as f:
+        committed = len(json.load(f)["done"])
+    if committed < 1 or os.path.exists(killed):
+        raise AssertionError(f"killed ladder run: {committed} committed chunks")
+    r = stream_call_consensus(in_bam, killed, gp, cp_free, device="cuda", bucket_ladder=LADDER,
+                              resume=True, **settings)
+    if read_bytes(killed) != ref_bytes:
+        raise AssertionError("the resume under another ladder changed the bytes")
+    emit("ladder", config="config5 (min_duplex_reads=1)",
+         ladders={"auto": "auto", "explicit": LADDER}, runs=runs,
+         launches={"segment_gemm": launches},
+         byte_identity={"config": "config5 with error_model=None", "runs": ident,
+                        "resume": {"kill": "ckpt.save:3:kill", "killed_under": "auto",
+                                   "resumed_under": LADDER, "committed_before_kill": committed,
+                                   "chunks_skipped": r.n_chunks_skipped, "identical": True}},
+         phase_seconds=round(time.monotonic() - t_phase, 3), nvidia_smi=smi)
+    return launches, rung_calls, captures
+
+
+def _tamper(src: str, dst: str, pick, change) -> str:
+    """A copy of a capture with the first record ``pick`` accepts
+    changed by ``change``."""
+    done = False
+    with open(src) as f, open(dst, "w") as g:
+        for line in f:
+            rec = json.loads(line)
+            if not done and pick(rec):
+                change(rec)
+                done = True
+            g.write(json.dumps(rec) + "\n")
+    if not done:
+        raise AssertionError(f"nothing to tamper in {src}")
+    return dst
+
+
+def run_tool(name: str, argv: list) -> tuple[int, str, str]:
+    """One in-process run of a port tool's main: (exit code, stdout,
+    stderr)."""
+    import importlib
+    import io
+
+    mod = importlib.import_module(f"duplexumiconsensusreads_torch.tools.{name}")
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = mod.main([str(a) for a in argv])
+    return rc, out.getvalue(), err.getvalue()
+
+
+def capture_phase(captures: dict, td: str, smi: str) -> None:
+    """The port's analysers on each capture ({name: (trace, output)}):
+    the time, byte, output and device sum-checks; the per-class device
+    ledger against the resolved peak (an h100 entry); the wire floor and
+    measured bandwidth; every tool exits 0 on each capture and 1 on its
+    tampered copy."""
+    from duplexumiconsensusreads_torch.telemetry import devledger, ledger, report
+    from duplexumiconsensusreads_torch.telemetry.device import device_peak_flops
+
+    peak, entry = device_peak_flops()
+    if not entry.startswith("h100"):
+        raise AssertionError(f"the device table resolved {entry!r} on this card")
+    out = {}
+    for name, (trace, bam) in captures.items():
+        recs = report.load_trace(trace)
+        problems = report.validate_trace(recs)
+        t_rows, t_ok = report.sum_check(recs)
+        b_rows, b_ok = ledger.sum_check_bytes(recs)
+        o_problems, o_ok = ledger.output_check(recs)
+        d_rows, d_ok = devledger.sum_check_dev(recs)
+        fill = ledger.fill_stats(recs)
+        if problems or not (t_ok and b_ok and o_ok and d_ok and fill.get("sum_check_ok", True)):
+            raise AssertionError(f"{name}: problems {problems[:5]}, sum-checks time {t_ok} "
+                                 f"bytes {b_ok} output {o_ok} {o_problems} device {d_ok}")
+        exits = {}
+        for tool, flags in (("trace_report", []), ("check_trace", ["--require-summary"]),
+                            ("wirestat", ["--out", bam]), ("devstat", [])):
+            rc, text, err = run_tool(tool, [trace, *flags])
+            if rc != 0:
+                raise AssertionError(f"{tool} exited {rc} on {name}: {err[-1000:]}")
+            exits[tool] = rc
+            if tool == "devstat":
+                devstat_table = text.splitlines()
+        roof = devledger.roofline(recs)
+        out[name] = {
+            "sum_checks": {"time": t_ok, "bytes": b_ok, "output": o_ok, "device": d_ok,
+                           "fill": fill.get("sum_check_ok", True)},
+            "device_sum_check_rows": d_rows,
+            "classes": {k: {f: d[f] for f in ("n", "buckets", "flops", "busy_s", "mfu",
+                                              "intensity")}
+                        | {"verdict": roof["classes"][k]["verdict"]}
+                        for k, d in devledger.class_stats(recs).items()},
+            "totals": devledger.device_totals(recs),
+            "roofline": {k: v for k, v in roof.items() if k != "classes"},
+            "wire_floor": ledger.wire_floor(recs), "bandwidth": ledger.bandwidth_stats(recs),
+            "fill": fill, "packing": ledger.packing_stats(recs),
+            "devstat_table": devstat_table, "tool_exits": exits,
+        }
+    # tampered copies of the stream capture: each tool refuses its own
+    trace = captures["stream"][0]
+    tampered = {
+        "xfer_wire": ("wirestat", _tamper(
+            trace, os.path.join(td, "t_wire.jsonl"),
+            lambda r: r.get("type") == "xfer" and r.get("dir") == "shard",
+            lambda r: r.update(wire=r["wire"] + 12345))),
+        "dev_flops": ("devstat", _tamper(
+            trace, os.path.join(td, "t_flops.jsonl"), lambda r: r.get("type") == "dev",
+            lambda r: r.update(flops=-1.0))),
+        "dev_dur": ("devstat", _tamper(
+            trace, os.path.join(td, "t_dur.jsonl"), lambda r: r.get("type") == "dev",
+            lambda r: r.update(dur=round(r["dur"] + 1.5, 6)))),
+        "span_dur": ("trace_report", _tamper(
+            trace, os.path.join(td, "t_span.jsonl"),
+            lambda r: r.get("type") == "span" and r.get("stage") == "scatter",
+            lambda r: r.update(dur=round(r["dur"] + 1.5, 6)))),
+        "float_wire": ("check_trace", _tamper(
+            trace, os.path.join(td, "t_fwire.jsonl"), lambda r: r.get("type") == "xfer",
+            lambda r: r.update(wire=1.5))),
+    }
+    refused = {}
+    for case, (tool, path) in tampered.items():
+        rc, _, err = run_tool(tool, [path])
+        if rc != 1:
+            raise AssertionError(f"{tool} exited {rc} on the {case} tamper")
+        refused[case] = {"tool": tool, "exit": rc, "message": err.strip().splitlines()[-1][:160]}
+    emit("capture", peak_entry=entry, peak_flops=peak, captures=out, tampered=refused,
+         nvidia_smi=smi)
+
+
+def race_phase(smi: str) -> int:
+    """race_ssc_methods() on the card at its defaults with blockseg T
+    64/128/256, then every method's fused-pipeline outputs on the same
+    buckets against segment_gemm's, and blockseg run to run. Returns
+    segment_gemm's launches in the race."""
+    import numpy as np
+    import torch
+
+    from duplexumiconsensusreads_torch.bucketing import stack_buckets
+    from duplexumiconsensusreads_torch.interop import ARRAY_KEYS, stacked_from_numpy
+    from duplexumiconsensusreads_torch.kernels import segment_gemm as sg
+    from duplexumiconsensusreads_torch.ops.pipeline import fused_pipeline
+    from duplexumiconsensusreads_torch.runtime.executor import partition_buckets, resolve_device
+    from duplexumiconsensusreads_torch.tuning import race_ssc_methods
+    from duplexumiconsensusreads_torch.tuning.tuner import race_workload
+
+    t_phase = time.monotonic()
+    dev = resolve_device("cuda")
+    torch.cuda.synchronize()
+    sg.segment_gemm.launches = 0
+    race = race_ssc_methods(blockseg_ts=(64, 128, 256))
+    launches = sg.segment_gemm.launches
+    race_s = time.monotonic() - t_phase
+    if launches == 0 or race["backend"] != dev.type:
+        raise AssertionError(f"race: {launches} segment_gemm launches on {race['backend']}")
+
+    gp, cp, n_reads, buckets = race_workload()
+
+    def run(method, t=None):
+        res = []
+        for cb, spec in partition_buckets(buckets, gp, cp, method, blockseg_t=t):
+            args = stacked_from_numpy(stack_buckets(cb, multiple_of=1), dev)
+            o = fused_pipeline(*(args[k] for k in ARRAY_KEYS), spec)
+            res.append({k: v.cpu() for k, v in o.items()})
+        torch.cuda.synchronize()
+        return res
+
+    ref = run("segment_gemm")
+    parity = {}
+    for label, row in race["methods"].items():
+        if row["method"] == "segment_gemm":
+            continue
+        got = run(row["method"], row["blockseg_t"])
+        runsum = row["method"] == "runsum"
+        n_tie = n_cyc = n_base = n_qual = max_dq = 0
+        for a, b in zip(ref, got):
+            for key in a:
+                if key not in ("cons_base", "cons_qual") and not torch.equal(a[key], b[key]):
+                    raise AssertionError(f"race parity: {label} {key} differs from segment_gemm")
+            sa, sb = a["cons_base"].numpy(), b["cons_base"].numpy()
+            qa, qb = a["cons_qual"].numpy().astype(int), b["cons_qual"].numpy().astype(int)
+            dq = np.abs(qa - qb)
+            n_cyc += sa.size
+            n_base += int((sa != sb).sum())
+            n_qual += int((dq > 0).sum())
+            if not runsum:
+                # within one per strand (a duplex qual sums two), except at
+                # evidence ties: a strand tie may call another base (both
+                # sides at qual <= 2 * TIE_QUAL) or move an agreeing duplex
+                # qual by up to 2 * TIE_QUAL + 2
+                tie = (((sa != sb) & (qa <= 2 * TIE_QUAL) & (qb <= 2 * TIE_QUAL))
+                       | ((sa == sb) & (dq > 2) & (dq <= 2 * TIE_QUAL + 2)))
+                if ((sa != sb) & ~tie).any() or (np.where(tie, 0, dq) > 2).any():
+                    raise AssertionError(f"race parity: {label} outside the parity bar")
+                n_tie += int(tie.sum())
+            max_dq = max(max_dq, int(dq.max(initial=0)))
+        if runsum:
+            ok = (n_base < RUNSUM_BASE_FRAC * n_cyc and n_qual < RUNSUM_QUAL_FRAC * n_cyc
+                  and max_dq <= RUNSUM_QUAL_GAP)
+        else:
+            ok = n_tie * 10_000 <= n_cyc
+        if not ok:
+            raise AssertionError(f"race parity: {label}: {n_base} bases, {n_qual} quals, "
+                                 f"{n_tie} ties of {n_cyc}, largest qual gap {max_dq}")
+        parity[label] = {"integers_identical": True, "cycles": n_cyc, "bases_differ": n_base,
+                         "quals_differ": n_qual, "tie_cycles": n_tie, "max_qual_diff": max_dq,
+                         "tolerance": "jax runsum" if runsum else "parity bar"}
+        del got
+    again = [run("blockseg", 128) for _ in range(2)]
+    for a, b in zip(*again):
+        for key in a:
+            if a[key].numpy().tobytes() != b[key].numpy().tobytes():
+                raise AssertionError(f"blockseg run to run: {key} differs")
+    emit("race", n_reads=race["n_reads"], capacity=race["capacity"], reps=race["reps"],
+         methods=race["methods"], winner=race["winner"], winner_method=race["winner_method"],
+         race_seconds=round(race_s, 3), launches={"segment_gemm": launches},
+         parity_vs_segment_gemm=parity, blockseg_run_to_run_identical=True,
+         classes=len(ref), phase_seconds=round(time.monotonic() - t_phase, 3), nvidia_smi=smi)
     return launches
 
 

@@ -17,8 +17,8 @@ The JAX package's CLI on one host, flag for flag. ``call`` resolves
 every parameter as the JAX CLI does — explicit flag > ``--config-file``
 (TOML/JSON, keys from runtime/knobs.py) > ``--config`` preset > default
 — and refuses what it refuses in its words. Flags of the JAX CLI whose
-machinery is not ported (serving, multi-host, several devices, the
-bucket ladder, follow mode, ``bench``) are refused by name.
+machinery is not ported (serving, multi-host, several devices, follow
+mode, ``bench``) are refused by name.
 """
 
 from __future__ import annotations
@@ -58,7 +58,6 @@ _UNPORTED_KNOBS = {
     "devices": ("dispatch across several devices", 5),
     "mesh": ("dispatch across several devices", 5),
     "cycle_shards": ("dispatch across several devices", 5),
-    "bucket_ladder": ("the bucket ladder (tuning/)", 8),
     "follow": ("follow-mode ingest (live/)", 10),
     "finalize_on": ("follow-mode ingest (live/)", 10),
     "live_poll_s": ("follow-mode ingest (live/)", 10),
@@ -150,6 +149,14 @@ def build_parser() -> argparse.ArgumentParser:
                    help="chunks dispatched ahead of the drain (default 2)")
     s.add_argument("--ingest-overlap", choices=["auto", "on", "off"], default=None,
                    help="BGZF read + decode + bucketing on a background thread")
+    s.add_argument("--bucket-ladder", default=None, metavar="{auto,off,R1,R2,..}",
+                   help="mixed-capacity bucket ladder: 'auto' profiles the first "
+                   "chunk's family sizes and picks 1-3 pow2 bucket capacities by "
+                   "the tuner's cost model (tuning/); an ascending pow2 list like "
+                   "'256,2048' pins the rungs (the top rung replaces --capacity); "
+                   "'off' (default) keeps the single --capacity. A shape choice: "
+                   "single-end input without an error model gives the same bytes at "
+                   "every setting")
     s.add_argument("--trace", default=None, metavar="TRACE_JSONL",
                    help="per-chunk span/event capture (JSONL)")
     s.add_argument("--heartbeat", type=float, default=0.0, metavar="SECONDS",
@@ -165,7 +172,7 @@ def build_parser() -> argparse.ArgumentParser:
         ("--deadline", dict(type=float)), ("--shards", dict(type=int)),
         ("--shard-bytes", dict(type=int)), ("--n-hosts", dict(type=int)),
         ("--host-id", dict(type=int)), ("--index", {}), ("--devices", dict(type=int)),
-        ("--mesh", {}), ("--cycle-shards", dict(type=int)), ("--bucket-ladder", {}),
+        ("--mesh", {}), ("--cycle-shards", dict(type=int)),
         ("--follow", dict(action="store_true", default=None)), ("--finalize-on", {}),
         ("--live-poll-s", dict(type=float)), ("--snapshot-chunks", dict(type=int)),
     ):
@@ -423,6 +430,12 @@ def _cmd_call(args) -> int:
             raise SystemExit(f"--mesh must be >= 1 (got {mesh})")
         if devices is not None and devices != mesh:
             raise SystemExit(f"--mesh {mesh} conflicts with --devices {devices}")
+    from duplexumiconsensusreads_torch.tuning import normalize_bucket_ladder
+
+    try:
+        ladder_norm = normalize_bucket_ladder(bucket_ladder)
+    except ValueError as e:
+        raise SystemExit(f"--bucket-ladder: {e}")
     if packed not in ("auto", "byte", "off"):
         raise SystemExit(
             f"invalid packed value {packed!r} (allowed: ['auto', 'byte', 'off'])"
@@ -509,7 +522,6 @@ def _cmd_call(args) -> int:
     # what this package does not implement, by its resolved value
     supported = {"devices": devices in (None, 1), "mesh": mesh in ("auto", 1),
                  "cycle_shards": cycle_shards == 1,
-                 "bucket_ladder": str(bucket_ladder).strip().lower() == "off",
                  "follow": not follow, "finalize_on": finalize_on == "eof",
                  "live_poll_s": live_poll_s == 0.25, "snapshot_chunks": snapshot_chunks == 0}
     for name, ok in supported.items():
@@ -522,7 +534,9 @@ def _cmd_call(args) -> int:
     if chunk_reads <= 0:
         _refuse_streaming_only(args, {
             "packed": packed, "prefetch_depth": prefetch_depth,
-            "ingest_overlap": ingest_overlap, "mesh": mesh, "bucket_ladder": "off",
+            # the ladder by its NORMALISED value, so a cosmetic "OFF"
+            # cannot slip past
+            "ingest_overlap": ingest_overlap, "mesh": mesh, "bucket_ladder": ladder_norm,
             "follow": follow, "finalize_on": finalize_on, "live_poll_s": live_poll_s,
             "snapshot_chunks": snapshot_chunks,
         })
@@ -595,7 +609,8 @@ def _cmd_call(args) -> int:
                 per_base_tags=per_base_tags, read_group=read_group,
                 write_index=write_index, packed=packed,
                 prefetch_depth=prefetch_depth, ingest_overlap=ingest_overlap,
-                trace_path=args.trace, heartbeat_s=args.heartbeat, device=device,
+                bucket_ladder=ladder_norm, trace_path=args.trace,
+                heartbeat_s=args.heartbeat, device=device,
             )
         finally:
             if plan is not None:

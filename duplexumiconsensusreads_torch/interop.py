@@ -49,13 +49,15 @@ def stacked_from_numpy(
 _METHOD_NAMES = {
     "matmul": "matmul",
     "segment": "segment",
+    "blockseg": "blockseg",
+    "runsum": "runsum",
     "pallas": "segment_gemm",
     "pallas_interpret": "segment_gemm",
     "segment_gemm": "segment_gemm",
 }
 
 # JAX spec fields the port does not carry, each with the only value it
-# takes (blockseg_t sizes the unported blockseg method and is dropped)
+# takes
 _FIXED_FIELDS = {"fit_impl": "gather"}
 
 
@@ -71,10 +73,9 @@ def spec_from_fields(**fields) -> PipelineSpec:
     """The port's PipelineSpec from the field values of a JAX
     PipelineSpec (grouping/consensus may be dataclass instances of
     either package or plain dicts). Raises on a field value the port
-    does not implement (the counts fit, blockseg) or that is
-    inconsistent (a sub-byte width without its dictionary)."""
+    does not implement (the counts fit) or that is inconsistent (a
+    sub-byte width without its dictionary)."""
     fields = dict(fields)
-    fields.pop("blockseg_t", None)
     for k, implied in _FIXED_FIELDS.items():
         v = fields.pop(k, implied)
         if v != implied:

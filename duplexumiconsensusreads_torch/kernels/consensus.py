@@ -2,10 +2,14 @@
 log-likelihood calling and the duplex merges (strided and gather-based).
 
 Per-read per-cycle log-likelihood contributions are built as one
-(N, R, C) f32 evidence block and reduced into per-family rows by
-``kernels/segment_gemm.py`` (the default method: the hand-written
-kernel on CUDA, its plain version on the CPU). Numerics mirror the JAX
-package's kernels/consensus.py in f32:
+(N, R, C) f32 evidence block and reduced into per-family rows by one of
+the ssc methods (``SSC_METHODS``): ``segment_gemm`` (the default: the
+hand-written kernel of ``kernels/segment_gemm.py`` on CUDA, its plain
+version on the CPU), ``matmul`` (the dense one-hot product),
+``segment`` (the plain version on any device), and the two
+family-sorted methods ``blockseg`` (block-local one-hot products) and
+``runsum`` (prefix sums). Numerics mirror the JAX package's
+kernels/consensus.py in f32:
 
   loglik[b] = sum_i [ base_i==b ? log1p(-e_i) : log(e_i/3) ]
   err       = (sum of non-max exp) / (1 + sum of non-max exp)
@@ -32,9 +36,16 @@ from duplexumiconsensusreads_torch.kernels.segment_gemm import (
 )
 
 # the port's reduction methods (ops/pipeline.SSC_METHOD_COSTS holds a
-# cost function for each): the kernel, the dense one-hot product, and
-# the plain ascending-row reduction on any device
-SSC_METHODS = ("segment_gemm", "matmul", "segment")
+# cost function for each): the kernel, the dense one-hot product, the
+# plain ascending-row reduction on any device, and the two methods that
+# reduce family-sorted rows
+SSC_METHODS = ("segment_gemm", "matmul", "segment", "blockseg", "runsum")
+_SORTED_METHODS = ("blockseg", "runsum")
+
+# blockseg tile height default: sorted rows per block-local one-hot
+# product (PipelineSpec.blockseg_t / ssc_kernel(blockseg_t=...));
+# tools/tune_ssc.py sweeps it
+BLOCKSEG_T = 128
 
 
 def _phred_from_err(err: torch.Tensor, max_qual: int) -> torch.Tensor:
@@ -89,9 +100,81 @@ def _evidence_columns(
     return torch.cat(cols, dim=-1)
 
 
-def _reduce(big: torch.Tensor, fid: torch.Tensor, f_max: int, method: str) -> torch.Tensor:
+def _reduce_runsum(big: torch.Tensor, sfid: torch.Tensor, f_max: int) -> torch.Tensor:
+    """Family sums of id-sorted rows as differences of prefix sums: one
+    cumsum over the rows and a boundary gather per family. Each family
+    sum is the difference of two large prefixes, so f32 cancellation
+    moves quals at floor boundaries (the reason the method is not a
+    default)."""
+    n, _, c = big.shape
+    z = torch.cat(
+        [torch.zeros(n, 1, c, dtype=torch.float32, device=big.device), torch.cumsum(big, dim=1)],
+        dim=1,
+    )
+    ids = torch.arange(f_max + 1, dtype=sfid.dtype, device=sfid.device).expand(n, -1)
+    starts = torch.searchsorted(sfid, ids.contiguous(), side="left")
+    return (
+        torch.take_along_dim(z, starts[:, 1:, None], dim=1)
+        - torch.take_along_dim(z, starts[:, :-1, None], dim=1)
+    )
+
+
+def _reduce_blockseg(
+    big: torch.Tensor, sfid: torch.Tensor, f_max: int, blockseg_t: int
+) -> torch.Tensor:
+    """Family sums of id-sorted rows by block-local one-hot products.
+
+    Within each block of T sorted rows, ``local`` is a row's RANK among
+    the block's distinct ids (a cumsum of change flags), which fits in
+    [0, T) however sparse the id values are (the strided duplex ids
+    leave gaps). A (T, T) one-hot product reduces each block exactly;
+    the block partials are then added into their family rows block by
+    block, in block order: each family row receives at most one partial
+    per block, so every output element is a fixed sequence of f32 adds
+    and the result does not depend on the order of atomic adds (a
+    family longer than T spans three or more blocks). Unused rank slots
+    and the overflow id f_max land in a sentinel row that is sliced
+    off. 2*R*T*C FLOPs against the dense product's 2*R*F*C."""
+    n, r, c = big.shape
+    dev = big.device
+    t = min(blockseg_t, r)
+    nb = -(-r // t)
+    pad = nb * t - r
+    if pad:
+        big = torch.cat([big, torch.zeros(n, pad, c, dtype=torch.float32, device=dev)], dim=1)
+        sfid = torch.cat(
+            [sfid, torch.full((n, pad), f_max, dtype=sfid.dtype, device=dev)], dim=1
+        )
+    sfid2 = sfid.reshape(n, nb, t).long()
+    chg = torch.zeros(n, nb, t, dtype=torch.int64, device=dev)
+    chg[..., 1:] = (sfid2[..., 1:] != sfid2[..., :-1]).long()
+    local = torch.cumsum(chg, dim=-1)  # (n, nb, t) ranks in [0, t)
+    onehot = (local[..., None] == torch.arange(t, device=dev)).to(torch.float32)
+    # (n, nb, rank, C): partial sum of each rank's rows in each block
+    partials = torch.matmul(onehot.transpose(-1, -2), big.reshape(n, nb, t, c))
+    del onehot
+    # the id occupying each rank slot (unused slots keep f_max); rows of
+    # one rank all carry the same id, so the duplicate writes agree
+    dest = torch.full((n, nb, t), f_max, dtype=torch.int64, device=dev)
+    dest.scatter_(-1, local, sfid2)
+    dest = dest + torch.arange(n, device=dev)[:, None, None] * (f_max + 1)
+    out = torch.zeros(n * (f_max + 1), c, dtype=torch.float32, device=dev)
+    for k in range(nb):
+        # distinct destinations within one block (ranks are distinct
+        # ids), bar the sentinel rows
+        out.index_add_(0, dest[:, k].reshape(-1), partials[:, k].reshape(-1, c))
+    return out.reshape(n, f_max + 1, c)[:, :f_max]
+
+
+def _reduce(big: torch.Tensor, fid: torch.Tensor, f_max: int, method: str,
+            blockseg_t: int = BLOCKSEG_T) -> torch.Tensor:
     """(N, R, C) rows -> (N, f_max, C) family sums; fid == f_max is the
-    overflow id and contributes nowhere."""
+    overflow id and contributes nowhere. ``blockseg``/``runsum`` want
+    rows sorted by id (ssc_kernel sorts them)."""
+    if method == "runsum":
+        return _reduce_runsum(big, fid, f_max)
+    if method == "blockseg":
+        return _reduce_blockseg(big, fid, f_max, blockseg_t)
     if method == "segment_gemm":
         return segment_gemm(big, fid, f_max)
     if method == "segment":
@@ -118,6 +201,7 @@ def ssc_kernel(
     method: str = "segment_gemm",
     want_err: bool = False,
     columns: str = "full",
+    blockseg_t: int = BLOCKSEG_T,
 ):
     """Single-strand consensus for all families of all buckets.
 
@@ -131,27 +215,48 @@ def ssc_kernel(
     contributed: every contributing read's loglik terms are strictly
     negative and exact per-family f32 sums of negatives never reach
     zero, so max(loglik) < 0 iff the family has evidence at that cycle).
-    The caller applies fam_valid itself.
+    The caller applies fam_valid itself. Exception: method="runsum"
+    keeps its depth columns in fit mode — its prefix differences can
+    cancel a tiny loglik to exact 0.0, so the sign test is unsound
+    there, and the (exact, integer) depth > 0 test is used instead.
+
+    ``blockseg``/``runsum`` first sort the rows of each bucket by id (a
+    stable argsort; the u8 inputs are permuted, so the f32 evidence is
+    built directly in id order); ``blockseg_t`` is blockseg's tile
+    height.
     """
     n, r, l = bases.shape
     if columns not in ("full", "fit"):
         raise ValueError(f"unknown ssc columns mode {columns!r} (ported: full, fit)")
+    if method not in SSC_METHODS:
+        raise ValueError(f"unknown ssc method {method!r} (ported: {SSC_METHODS})")
     fit_mode = columns == "fit"
     if fit_mode and want_err:
         raise ValueError("columns='fit' is incompatible with want_err")
+    want_depth = (not fit_mode) or method == "runsum"
     ok = valid & (family_id >= 0)
     fid = torch.where(ok, family_id, torch.full_like(family_id, f_max))
+    if method in _SORTED_METHODS:
+        perm = torch.argsort(fid, dim=1, stable=True)
+        fid = torch.take_along_dim(fid, perm, dim=1)
+        ok = torch.take_along_dim(ok, perm, dim=1)
+        bases = torch.take_along_dim(bases, perm[..., None], dim=1)
+        quals = torch.take_along_dim(quals, perm[..., None], dim=1)
 
     big = _evidence_columns(
-        bases, quals, ok, max_input_qual, min_input_qual, want_err, not fit_mode
+        bases, quals, ok, max_input_qual, min_input_qual, want_err, want_depth
     )
-    out = _reduce(big.contiguous(), fid.contiguous(), f_max, method)
+    out = _reduce(big.contiguous(), fid.contiguous(), f_max, method, blockseg_t=blockseg_t)
     del big
 
     loglik = out[..., : 4 * l].reshape(n, f_max, l, 4)
     if fit_mode:
-        fam_size = out[..., 4 * l].to(torch.int32)
-        has_evidence = loglik.amax(dim=-1) < 0
+        if want_depth:  # runsum: exact integer depth, a sound mask
+            fam_size = out[..., 5 * l].to(torch.int32)
+            has_evidence = out[..., 4 * l : 5 * l] > 0
+        else:
+            fam_size = out[..., 4 * l].to(torch.int32)
+            has_evidence = loglik.amax(dim=-1) < 0
         cons_base = torch.where(
             has_evidence, loglik.argmax(dim=-1), torch.full_like(has_evidence, BASE_N, dtype=torch.int64)
         ).to(torch.int32)

@@ -60,9 +60,12 @@ def segment_gemm(big: torch.Tensor, fid: torch.Tensor, f_max: int) -> torch.Tens
     """(N, R, C) f32 rows + (N, R) i32 ids -> (N, f_max, C) f32 sums.
 
     CUDA tensors launch the hand-written kernel (and raise if it cannot
-    launch); CPU tensors take the plain version. Every launch adds one
-    to ``segment_gemm.launches`` (under a lock: several threads launch
-    at once in the streaming executor)."""
+    launch); CPU tensors take the plain version. The kernel's grid
+    carries the bucket axis in z, which CUDA caps at MAX_GRID_Z, so a
+    class of more buckets (a small ladder rung of a large chunk) runs as
+    several launches over consecutive bucket ranges. Every launch adds
+    one to ``segment_gemm.launches`` (under a lock: several threads
+    launch at once in the streaming executor)."""
     _check(big, fid, f_max)
     if big.device.type == "cpu":
         return segment_gemm_plain(big, fid, f_max)
@@ -80,13 +83,18 @@ def segment_gemm(big: torch.Tensor, fid: torch.Tensor, f_max: int) -> torch.Tens
     fn.restype = ctypes.c_int
     with torch.cuda.device(big.device):
         stream = torch.cuda.current_stream(big.device).cuda_stream
-        rc = fn(big.data_ptr(), fid.data_ptr(), out.data_ptr(), nb, r, c, f_max, stream)
-    if rc != 0:
-        raise RuntimeError(f"segment_gemm kernel launch failed (cudaError {rc})")
-    with _COUNT_LOCK:
-        segment_gemm.launches += 1
+        for b0 in range(0, nb, MAX_GRID_Z):
+            n = min(MAX_GRID_Z, nb - b0)
+            rc = fn(big[b0].data_ptr(), fid[b0].data_ptr(), out[b0].data_ptr(),
+                    n, r, c, f_max, stream)
+            if rc != 0:
+                raise RuntimeError(f"segment_gemm kernel launch failed (cudaError {rc})")
+            with _COUNT_LOCK:
+                segment_gemm.launches += 1
     return out
 
 
+# the largest z extent of a CUDA grid (the kernel's bucket axis)
+MAX_GRID_Z = 65535
 segment_gemm.launches = 0
 _COUNT_LOCK = threading.Lock()

@@ -20,6 +20,7 @@ import torch
 
 from duplexumiconsensusreads_torch.constants import BASE_N
 from duplexumiconsensusreads_torch.kernels.consensus import (
+    BLOCKSEG_T,
     SSC_METHODS,
     duplex_kernel,
     duplex_merge_strided,
@@ -48,6 +49,9 @@ class PipelineSpec:
     f_max: int | None = None  # family-axis rows for the ssc reduction
     m_max: int | None = None  # molecule-axis rows for the duplex merge
     ssc_method: str = "segment_gemm"
+    # blockseg tile height (sorted rows per block-local one-hot
+    # product): only read when ssc_method == "blockseg"
+    blockseg_t: int = BLOCKSEG_T
     # True asserts reads are sorted by (pos, UMI) with padding at the
     # tail — the bucketing layer's output contract
     presorted: bool = False
@@ -211,6 +215,7 @@ def spec_for_buckets(
     per_base_counts: bool = False,
     packed_qbits: int | None = None,
     qual_lut: tuple | None = None,
+    blockseg_t: int = BLOCKSEG_T,
 ) -> PipelineSpec:
     """Size the static axes from bucket statistics, exactly as the JAX
     package does: directional adjacency can only MERGE exact families,
@@ -220,8 +225,8 @@ def spec_for_buckets(
     all rounded to powers of two and capped at the read capacity R."""
     if not buckets:
         return PipelineSpec(
-            grouping, consensus, ssc_method=ssc_method, packed_io=packed_io,
-            per_base_counts=per_base_counts,
+            grouping, consensus, ssc_method=ssc_method, blockseg_t=blockseg_t,
+            packed_io=packed_io, per_base_counts=per_base_counts,
         )
     umi_len = int(buckets[0].umi.shape[1]) if packed_io else None
     cycles_len = int(buckets[0].bases.shape[1]) if packed_qbits else None
@@ -237,6 +242,7 @@ def spec_for_buckets(
         f_max=min(_pow2(f_mult * max_u), r),
         m_max=min(_pow2(m_mult * max_u), r),
         ssc_method=ssc_method,
+        blockseg_t=blockseg_t,
         presorted=True,  # bucketing's output contract
         packed_io=packed_io,
         umi_len=umi_len,
@@ -252,17 +258,25 @@ def _ssc_cost_matmul(spec: PipelineSpec, r: int, cols: int) -> float:
     return 2.0 * f * r * cols  # dense one-hot product
 
 
+def _ssc_cost_blockseg(spec: PipelineSpec, r: int, cols: int) -> float:
+    t = min(spec.blockseg_t, r)
+    return 2.0 * r * t * cols  # block-local rank one-hot products
+
+
 def _ssc_cost_reduction(spec: PipelineSpec, r: int, cols: int) -> float:
     return 1.0 * r * cols  # one f32 add per evidence element
 
 
 # Per-method ssc reduction cost functions, keyed on the port's method
 # names (kernels/consensus.SSC_METHODS): a method without an entry
-# cannot be costed, and analytic_flops raises on it.
+# cannot be costed, and analytic_flops raises on it. runsum's prefix sum
+# is one add per evidence element, like the segmented reductions.
 SSC_METHOD_COSTS = {
     "segment_gemm": _ssc_cost_reduction,
     "segment": _ssc_cost_reduction,
     "matmul": _ssc_cost_matmul,
+    "blockseg": _ssc_cost_blockseg,
+    "runsum": _ssc_cost_reduction,
 }
 
 
@@ -401,6 +415,7 @@ def fused_pipeline(
             method=spec.ssc_method,
             want_err=want_err,
             columns=columns,
+            blockseg_t=spec.blockseg_t,
         )
 
     quals_eff = quals

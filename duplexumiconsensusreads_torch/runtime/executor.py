@@ -102,6 +102,9 @@ class RunReport:
     # (always 0 on one device; kept so the counters read as the JAX
     # package's)
     n_mesh_pad_buckets: int = 0
+    # resolved bucket ladder of the run ([] = single-capacity): explicit
+    # rungs verbatim, or the tuner verdict an auto run settled on
+    bucket_ladder: list = dataclasses.field(default_factory=list)
     seconds: dict = dataclasses.field(default_factory=dict)
 
     def to_json(self) -> str:
@@ -734,6 +737,7 @@ def partition_buckets(
     packed_io: bool = False,
     per_base_counts: bool = False,
     qual_alphabet: tuple | None = None,
+    blockseg_t: int | None = None,
 ):
     """Split buckets into dispatch classes of identical geometry+strategy.
 
@@ -753,7 +757,11 @@ def partition_buckets(
       off       bucket-local pos ids would overflow the u16 lane
                 (capacity > 2**16), or no lossless rung exists — with a
                 ``packed_fallback`` trace event
+
+    ``blockseg_t`` sets every class spec's blockseg tile height (None:
+    the spec default).
     """
+    from duplexumiconsensusreads_torch.kernels.consensus import BLOCKSEG_T
     from duplexumiconsensusreads_torch.ops.pipeline import (
         spec_for_buckets,
         subbyte_qbits_for,
@@ -794,6 +802,7 @@ def partition_buckets(
                     cbuckets, g, consensus, ssc_method, packed_io=packed,
                     per_base_counts=per_base_counts,
                     packed_qbits=qbits, qual_lut=lut,
+                    blockseg_t=BLOCKSEG_T if blockseg_t is None else blockseg_t,
                 ),
             )
         )

@@ -751,7 +751,6 @@ _UNPORTED = {
     "input_range": None,  # multi-host / serve shard partitions
     "chunk_base": 0,  # serve shard chunk grid
     "first_read": None,
-    "bucket_ladder": "off",  # tuning/
     "follow": False,  # live/ follow-mode ingest
     "finalize_on": "eof",
     "live_poll_s": 0.25,
@@ -788,6 +787,7 @@ def stream_call_consensus(
     d2h_packed: str = "auto",
     prefetch_depth: int = 2,
     ingest_overlap: str = "auto",
+    bucket_ladder="off",
     trace_path: str | None = None,
     heartbeat_s: float = 0.0,
     trace_max_events: int = 1_000_000,
@@ -802,6 +802,19 @@ def stream_call_consensus(
     raises, nothing falls back). ``n_devices`` other than None/1 and
     every option in ``_UNPORTED`` set to another value than its default
     raise NotImplementedError naming the option.
+
+    ``bucket_ladder`` is the mixed-capacity bucket ladder (tuning/):
+    "off" = the single ``capacity``; "auto" = profile the first
+    non-empty chunk's position-group sizes and pick a 1-3 rung ladder
+    by the tuner's cost model (a ``tuner_verdict`` trace event), pinned
+    for the run; or an explicit ascending pow2 rung tuple / "r1,r2"
+    string whose top rung REPLACES ``capacity``. A shape choice: where
+    the output does not depend on which position groups share a bucket
+    (single-end input without the error model) the bytes are identical
+    at every setting; the per-bucket cycle-model fit and the mate-pair
+    numbering move with it, as in the JAX package. As there, the ladder
+    stays OUT of the checkpoint fingerprint, so a resume may run under
+    another ladder than the committed chunks.
 
     A telemetry wrapper around :func:`_stream_call`: the trace recorder
     and heartbeat are owned here, so they are torn down on every exit
@@ -850,6 +863,7 @@ def stream_call_consensus(
             per_base_tags=per_base_tags, read_group=read_group,
             write_index=write_index, packed=packed, d2h_packed=d2h_packed,
             prefetch_depth=prefetch_depth, ingest_overlap=ingest_overlap,
+            bucket_ladder=bucket_ladder,
             tr=tr, heartbeat_s=heartbeat_s, hb_box=hb_box,
             provenance_cl=provenance_cl, dev=dev,
         )
@@ -896,6 +910,7 @@ def _stream_call(
     d2h_packed: str,
     prefetch_depth: int,
     ingest_overlap: str,
+    bucket_ladder,
     tr: TraceRecorder | None,
     heartbeat_s: float,
     hb_box: list,
@@ -921,6 +936,7 @@ def _stream_call(
     fetches the two (F, L) matrices, so the packed-D2H rung is off);
     write_index=True writes the .bai (or .csi past 2^29) after the
     atomic rename, inside the finalise stage."""
+    from duplexumiconsensusreads_torch import tuning
     from duplexumiconsensusreads_torch.bucketing import build_buckets, stack_buckets
     from duplexumiconsensusreads_torch.interop import ARRAY_KEYS, stacked_from_numpy
     from duplexumiconsensusreads_torch.io.bam import serialize_bam
@@ -947,7 +963,20 @@ def _stream_call(
     # auto == on: the producer is pure scheduling (byte-identical output)
     overlap_on = ingest_overlap != "off"
     on_cuda = dev.type == "cuda"
+    # bucket-ladder resolution: an explicit ladder is known now (its top
+    # rung replaces capacity as the bucket capacity, fingerprint
+    # included); "auto" resolves ONCE against the first non-empty
+    # chunk's profile in _prep_chunk, so the dispatch classes stay
+    # stable for the whole run
+    ladder_mode = tuning.normalize_bucket_ladder(bucket_ladder)
+    run_ladder: tuple | None = None
+    ladder_auto = ladder_mode == "auto"
+    if isinstance(ladder_mode, tuple):
+        run_ladder = ladder_mode if len(ladder_mode) > 1 else None
+        capacity = ladder_mode[-1]
     rep = RunReport(backend="torch-stream", device=str(dev))
+    if isinstance(ladder_mode, tuple):
+        rep.bucket_ladder = [int(r) for r in ladder_mode]
     rep.n_drain_workers = drain_workers
     rep.ingest_overlap = overlap_on
     duplex = consensus.mode == "duplex"
@@ -1453,15 +1482,39 @@ def _stream_call(
         _advance_frontier()
 
     def _prep_chunk(k, batch):
-        """Per-chunk host prep: family downsample -> build_buckets ->
-        qual-alphabet union. One caller at a time, in chunk order
-        (inline on the main thread, or the ingest producer), so the
-        alphabet decisions — and the bytes — match across modes."""
-        nonlocal alpha_seen
+        """Per-chunk host prep: family downsample -> (one-shot) ladder
+        resolution -> build_buckets -> qual-alphabet union. One caller at
+        a time, in chunk order (inline on the main thread, or the ingest
+        producer), so the ladder and alphabet decisions — and the bytes
+        — match across modes."""
+        nonlocal alpha_seen, run_ladder, ladder_auto
         n_down = downsample_families(batch, max_reads) if max_reads > 0 else 0
         fb: dict = {}
         t0 = time.monotonic()
-        buckets = build_buckets(batch, capacity=capacity, grouping=grouping, counters=fb)
+        if ladder_auto:
+            # profile pass (host only, once per run): the first
+            # non-empty chunk's position-group sizes feed the tuner's
+            # cost model; the verdict is pinned for the run and
+            # ledgered in the capture
+            sizes = tuning.group_sizes(batch)
+            if len(sizes):
+                verdict = tuning.choose_ladder(sizes, capacity, pack_mult=1)
+                run_ladder = verdict.ladder if len(verdict.ladder) > 1 else None
+                ladder_auto = False
+                rep.bucket_ladder = [int(r) for r in verdict.ladder]
+                if tr is not None:
+                    tr.event(
+                        "tuner_verdict", chunk=k,
+                        ladder=list(verdict.ladder),
+                        fill_factor=verdict.fill_factor,
+                        fill_factor_off=verdict.fill_factor_off,
+                        predicted_speedup=verdict.predicted_speedup,
+                        n_groups=verdict.n_groups,
+                        source=verdict.source,
+                    )
+        buckets = build_buckets(
+            batch, capacity=capacity, grouping=grouping, counters=fb, ladder=run_ladder,
+        )
         alpha = None
         if packed == "auto" and buckets and alpha_seen is not None:
             alpha_seen.update(qual_alphabet(buckets))

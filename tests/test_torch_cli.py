@@ -274,12 +274,12 @@ def test_config_file_and_flag_refusals_use_the_jax_words(inputs, tmp_path, conf,
     ({}, ["--n-hosts", "2", "--host-id", "0"], "--n-hosts"), ({}, ["--index", "x"], "--index"),
     ({}, ["--devices", "2"], "--devices"), ({}, ["--mesh", "2", "--chunk-reads", "99"], "--mesh"),
     ({}, ["--cycle-shards", "2"], "--cycle-shards"),
-    ({}, ["--bucket-ladder", "auto"], "--bucket-ladder"), ({}, ["--follow"], "--follow"),
+    ({}, ["--follow"], "--follow"),
     ({}, ["--finalize-on", "marker"], "--finalize-on"),
     ({}, ["--live-poll-s", "1"], "--live-poll-s"),
     ({}, ["--snapshot-chunks", "2"], "--snapshot-chunks"),
     ({"follow": True}, [], "--follow"), ({"mesh": 4}, [], "--mesh"),
-    ({"bucket_ladder": "256,2048"}, [], "--bucket-ladder"), ({"devices": 8}, [], "--devices"),
+    ({"devices": 8}, [], "--devices"),
     ({"backend": "tpu"}, [], "--backend cuda"), ({}, ["--backend", "tpu"], "--backend cuda"),
     ({}, ["--backend", "cpu", "--chunk-reads", "50"], "requires --backend=cuda"),
     ({}, ["--backend", "cpu", "--device", "cuda"], "--device applies to --backend cuda"),

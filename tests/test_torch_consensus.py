@@ -112,7 +112,7 @@ def test_argmax_ties_go_to_the_first_maximum():
 def test_unknown_method_and_columns_raise():
     x = _inputs(4)
     with pytest.raises(ValueError):
-        _port(*x, f_max=F_MAX, method="blockseg")
+        _port(*x, f_max=F_MAX, method="bogus")
     with pytest.raises(ValueError):
         _port(*x, f_max=F_MAX, columns="fit_counts")
 

@@ -152,3 +152,47 @@ def test_cuda_stream_is_invariant_and_packs_like_the_cpu(cuda, tmp_path):
         keys=executor.PACKED_FETCH_KEYS))
     for k in executor.PACKED_FETCH_KEYS:
         assert got[k].dtype == want[k].dtype and got[k].tobytes() == want[k].tobytes(), k
+
+
+@pytest.mark.cuda
+def test_cuda_blockseg_is_identical_run_to_run(cuda):
+    # blockseg adds a family's block partials in block order (no
+    # order-dependent atomic adds): two runs give the same bytes, and
+    # the integers equal the CPU run's
+    from duplexumiconsensusreads_torch.kernels.consensus import ssc_kernel
+
+    rng = np.random.default_rng(7)
+    n_b, r, l = 6, 512, 40
+    # families of up to 90 reads span three or more blocks of T=32
+    fid = np.sort(rng.integers(0, 12, (n_b, r)), axis=1).astype(np.int32)
+    bases = rng.integers(0, 5, (n_b, r, l)).astype(np.uint8)
+    quals = rng.integers(2, 41, (n_b, r, l)).astype(np.uint8)
+    valid = rng.random((n_b, r)) < 0.95
+    args = [torch.from_numpy(x) for x in (bases, quals, fid, valid)]
+    kw = dict(f_max=32, method="blockseg", blockseg_t=32, want_err=True)
+    runs = [[o.cpu() for o in ssc_kernel(*(a.to(cuda) for a in args), **kw)] for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert a.numpy().tobytes() == b.numpy().tobytes()
+    cpu = ssc_kernel(*args, **kw)
+    for i, (g, w) in enumerate(zip(runs[0], cpu)):
+        if i == 1:  # cons_qual: CUDA and CPU transcendentals differ by ULPs
+            assert (g.int() - w.int()).abs().max() <= 1
+        else:
+            assert torch.equal(g, w), i
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_runs_a_class_past_the_grid_z_limit(cuda):
+    # a rung-32 class of more buckets than a CUDA grid's z extent runs
+    # as consecutive launches, bit-identical to the plain version
+    n_b, r, c, f = sg.MAX_GRID_Z + 4465, 32, 8, 16
+    g = torch.Generator(device=cuda).manual_seed(3)
+    big = torch.randn(n_b, r, c, device=cuda, generator=g)
+    fid = torch.sort(torch.randint(-1, f + 1, (n_b, r), device=cuda, generator=g), 1).values
+    fid = fid.to(torch.int32).contiguous()
+    before = sg.segment_gemm.launches
+    got = sg.segment_gemm(big, fid, f)
+    torch.cuda.synchronize()
+    assert sg.segment_gemm.launches == before + 2
+    assert torch.equal(got, sg.segment_gemm_plain(big, fid, f))

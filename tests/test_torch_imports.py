@@ -69,6 +69,39 @@ def test_every_module_imports_without_jax():
     assert r.stdout.startswith("ok")
 
 
+@pytest.mark.parametrize("module", [
+    "duplexumiconsensusreads_torch.telemetry.device",
+    "duplexumiconsensusreads_torch.telemetry.report",
+    "duplexumiconsensusreads_torch.telemetry.ledger",
+    "duplexumiconsensusreads_torch.telemetry.devledger",
+    "duplexumiconsensusreads_torch.telemetry.chrome",
+    "duplexumiconsensusreads_torch.tuning",
+    "duplexumiconsensusreads_torch.tuning.tuner",
+    "duplexumiconsensusreads_torch.tuning.store",
+    "duplexumiconsensusreads_torch.tools",
+    "duplexumiconsensusreads_torch.tools.trace_report",
+    "duplexumiconsensusreads_torch.tools.check_trace",
+    "duplexumiconsensusreads_torch.tools.wirestat",
+    "duplexumiconsensusreads_torch.tools.devstat",
+    "duplexumiconsensusreads_torch.tools.tune_ssc",
+])
+def test_analysers_tuning_and_tools_are_scanned_and_import_alone(module):
+    """The capture analysers, tuning/ and the tools are among the modules
+    both checks above cover, and each imports in a fresh interpreter
+    without jax (the tools run offline, on a machine without jax)."""
+    assert module in _modules()
+    code = (
+        "import importlib, sys\n"
+        f"importlib.import_module({module!r})\n"
+        f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
+        "assert not bad, bad\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+
+
 def test_native_library_loads_from_the_port_build_dir(tmp_path):
     """The native loader the port's reader, streaming iterator and
     deflate run is the port's own build (its _build/), never the JAX
@@ -149,6 +182,6 @@ def test_spec_from_fields_maps_jax_specs():
     assert ps.ssc_method == "segment_gemm"
     assert (ps.u_max, ps.f_max, ps.m_max, ps.presorted) == (64, 128, 64, True)
     assert ps.grouping.strategy == "adjacency" and ps.consensus.error_model == "cycle"
-    for bad in ({"ssc_method": "blockseg"}, {"fit_impl": "counts"}, {"packed_qbits": 5}):
+    for bad in ({"ssc_method": "bogus"}, {"fit_impl": "counts"}, {"packed_qbits": 5}):
         with pytest.raises(ValueError):
             spec_from_fields(**{**fields, **bad})

@@ -204,7 +204,7 @@ def test_default_backend_needs_a_card(monkeypatch):
         with pytest.raises(ValueError, match="unknown backend 'tpu'"):
             cls(backend="tpu")
     with pytest.raises(ValueError, match="unknown ssc method"):
-        ConsensusCaller(method="blockseg")
+        ConsensusCaller(method="bogus")
 
 
 @pytest.mark.cuda

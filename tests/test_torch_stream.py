@@ -278,7 +278,7 @@ def test_jax_manifest_is_not_resumed(bams, tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("name, value", [
     ("input_range", (0, 0, None)), ("chunk_base", 4), ("first_read", 10),
-    ("bucket_ladder", "auto"), ("follow", True), ("finalize_on", "idle:5"),
+    ("follow", True), ("finalize_on", "idle:5"),
     ("live_poll_s", 1.0), ("snapshot_chunks", 2),
     ("devices", (0,)), ("cycle_shards", 2), ("n_devices", 2),
 ])
