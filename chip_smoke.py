@@ -24,8 +24,9 @@ line:
           seconds, peak device memory, kernel launch counts (each must
           be > 0), device spans of the pipeline calls, the reader and
           deflate codecs that ran (native), and a small input called
-          on the card and on the CPU (plain versions) that must agree
-          record by record
+          on the card and on the CPU (plain versions, the CPU's own
+          reduction) that must agree record by record, bases except at
+          counted ties
   reader  the e2e input through the native and the portable
           load_input: identical ReadBatch arrays, each one's seconds
   per_base  the e2e call again with per_base_tags and write_index:
@@ -105,11 +106,29 @@ line:
           except at counted ties, quals within 1 per strand; runsum
           within the JAX package's runsum tolerance), and blockseg run
           twice gives identical bytes
+  bench   the port's bench (``benchmark.main(device="cuda")``, what
+          ``python -m duplexumiconsensusreads_torch bench`` runs) with
+          its legs cut to fit: the compute leg at its default size,
+          per_config at its default, the tuner leg, the wire probe, the
+          e2e leg on the stream phase's input (reused from the bench's
+          cache), the packed / d2h / ingest-overlap A/B legs at one
+          chunk and the CPU e2e denominator at one chunk, one rep; then
+          ``tools.profile_components`` and ``tools.profile_phases`` at
+          BENCH_PROF_READS. Its compact and full result lines, checked:
+          value > 0, peak entry h100-sxm-f32, five per_config rows, the
+          e2e, A/B and tuner keys, the wire probe's MB/s, every
+          ``*_skipped`` string, no ``*_error`` key, a consensus error
+          rate below a tenth of the simulator's base error
+  kernel_bench  the bench phase's largest segment_gemm launch at each
+          (rows, columns, f_max): the kernel against its plain version
+          (tolerance 0), and the kernel, plain, index_add_ and bound ms
 
 Then the nvidia-smi line, the ``kernels`` JSON line (segment_gemm's
 launches per path: whole_file, stream, per_base, workflow, operators,
-ladder, race; a ``rung_shapes`` sub-row with the kernel, plain,
-library and bound ms at each explicit ladder rung's largest launch),
+ladder, race, bench; a ``rung_shapes`` sub-row with the kernel, plain,
+library and bound ms at each explicit ladder rung's largest launch,
+and a ``bench_shapes`` sub-row with the same at the bench phase's
+largest launch of each (rows, columns, f_max) it gave the kernel),
 and last
 ``{"ok": true, "device": {...}}``. Any failed phase raises and exits
 non-zero; with no CUDA device, or without the package beside this
@@ -141,6 +160,9 @@ STREAM_CHUNK_READS = 500_000
 # flip there moves the duplex qual between qa+qb and |qa-qb| (see
 # compare_records)
 TIE_QUAL = 3
+# reads of the profile tools' workload in the bench phase (their
+# defaults are the compute leg's ~600k)
+BENCH_PROF_READS = 200_000
 # the explicit ladder of the ladder phase (auto is the other run)
 LADDER = "256,512,2048"
 # the JAX package's runsum tolerance at the pipeline level
@@ -153,6 +175,21 @@ F32_FLOPS = 67e12  # H100 SXM f32 rate outside the tensor cores (data sheet)
 
 def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}, sort_keys=True), flush=True)
+
+
+@contextlib.contextmanager
+def environ(**knobs):
+    """``os.environ`` with ``knobs`` set, restored after."""
+    old = {k: os.environ.get(k) for k in knobs}
+    os.environ.update(knobs)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 
 
 def nvidia_smi() -> str:
@@ -479,9 +516,11 @@ def main() -> int:
         del recs, q
 
         # the same call on a small input, on the card and on the CPU
-        # (plain versions everywhere): records agree, quals within one
-        # per strand (CPU and CUDA transcendentals differ by ULPs, and a
-        # duplex qual is the sum of two strand quals)
+        # (plain versions everywhere, and the CPU's own reduction,
+        # blockseg, which adds the same evidence in another order):
+        # records agree, quals within one per strand (CPU and CUDA
+        # transcendentals differ by ULPs, and a duplex qual is the sum
+        # of two strand quals), bases except at counted evidence ties
         small_bam = os.path.join(td, "small.bam")
         simulated_bam(dataclasses.replace(cfg, n_molecules=400, n_positions=10, seed=3),
                       path=small_bam, sort=True)
@@ -490,7 +529,8 @@ def main() -> int:
             call_consensus_file(small_bam, os.path.join(td, f"small_{d}.bam"), gp, cp,
                                 capacity=256, device=d)
             outs[d] = read_bam(os.path.join(td, f"small_{d}.bam"))[1]
-        emit("e2e_small_reference", **compare_records(outs["cuda"], outs["cpu"], qual_tol=2))
+        emit("e2e_small_reference", **compare_records(outs["cuda"], outs["cpu"], qual_tol=2,
+                                                      duplex_ties=True))
 
         reader_phase(in_bam)
         cap_pk, cap_pp, launches["per_base"] = per_base_phase(in_bam, small_bam, td, gp, cp)
@@ -604,7 +644,10 @@ def main() -> int:
 
     del out_k, out_p, sub, full, args, kw, cap_p
     torch.cuda.empty_cache()
-    launches["stream"], launches["ladder"], rung_calls = stream_phases(gp, smi)
+    # the bench's input cache: the stream phase simulates its input
+    # there, and the bench phase's e2e leg reuses it
+    bench_cache = tempfile.TemporaryDirectory(prefix="chip_smoke_bench_")
+    launches["stream"], launches["ladder"], rung_calls = stream_phases(gp, smi, bench_cache.name)
     # each explicit rung's largest launch of the ladder run: the kernel
     # against its plain version (tolerance 0), and its times
     rung_shapes = {}
@@ -620,10 +663,32 @@ def main() -> int:
     emit("kernel_rungs", name="segment_gemm", rungs=rung_shapes, library_call="index_add_",
          nvidia_smi=smi)
     launches["race"] = race_phase(smi)
+    launches["bench"], bench_calls = bench_phase(bench_cache.name, smi)
+    bench_cache.cleanup()
+    # the bench's largest launch at each (rows, columns, f_max) it gave
+    # the kernel (per_config's capacity 4096, the profile tools'
+    # ablations, the e2e legs): the kernel against its plain version
+    # (tolerance 0), and its times
+    if not bench_calls:
+        raise AssertionError("the bench phase held no segment_gemm launch on the card")
+    bench_shapes = {}
+    for (r_b, c_b, f_b), (big_b, fid_b, _) in sorted(bench_calls.items()):
+        case = kernel_case(sg, f"bench_{r_b}x{c_b}_f{f_b}", big_b, fid_b, f_b)
+        kernel_rows.append(case)
+        t_b = kernel_times(sg, big_b, fid_b, f_b, plain_reps=1, lib_reps=5)
+        bench_shapes[f"{r_b}x{c_b}/f{f_b}"] = {
+            "shape": case["shape"], "f_max": f_b, **row_times(t_b),
+            "live_rows": t_b["live_rows"], "bound_fraction": t_b["bound_fraction"]}
+    del bench_calls, big_b, fid_b
+    torch.cuda.empty_cache()
+    emit("kernel_bench", name="segment_gemm", shapes=bench_shapes, library_call="index_add_",
+         nvidia_smi=smi)
     seg_row["max_abs_err"] = max(row["max_abs_err"] for row in kernel_rows + [pb_case])
     seg_row["rung_shapes"] = rung_shapes
+    seg_row["bench_shapes"] = bench_shapes
     seg_row["launches"] = {k: launches[k] for k in ("whole_file", "stream", "per_base",
-                                                    "workflow", "operators", "ladder", "race")}
+                                                    "workflow", "operators", "ladder", "race",
+                                                    "bench")}
 
     print(smi, flush=True)
     print(json.dumps({"kernels": [seg_row]}), flush=True)
@@ -984,14 +1049,16 @@ def operators_phase() -> int:
     return launches
 
 
-def stream_phases(gp, smi: str):
+def stream_phases(gp, smi: str, bench_cache: str):
     """The streaming path: the "stream", "stream_small_reference",
-    "stream_resume", "ladder" and "capture" phases. Returns segment_gemm's
+    "stream_resume", "ladder" and "capture" phases, on the bench's e2e
+    input simulated into ``bench_cache``. Returns segment_gemm's
     launches on the full-width streaming run and on the ladder runs,
     and the ladder run's largest launch at each explicit rung."""
     import numpy as np
     import torch
 
+    from duplexumiconsensusreads_torch import benchmark
     from duplexumiconsensusreads_torch.io import native_reader, read_bam, simulated_bam
     from duplexumiconsensusreads_torch.io.bai import build_bai
     from duplexumiconsensusreads_torch.kernels import segment_gemm as sg
@@ -1000,27 +1067,20 @@ def stream_phases(gp, smi: str):
     from duplexumiconsensusreads_torch.runtime.executor import busy_wall_table
     from duplexumiconsensusreads_torch.runtime.stream import stream_call_consensus
     from duplexumiconsensusreads_torch.simulate import SimConfig
-    from duplexumiconsensusreads_torch.simulate.bigsim import simulate_bam_file
-    from duplexumiconsensusreads_torch.types import ConsensusParams
 
     # the bench's e2e workload (benchmark.py _e2e_params / _e2e_input):
     # config5 with min_duplex_reads=1, ~8 reads per molecule
-    cp = ConsensusParams(mode="duplex", error_model="cycle", min_duplex_reads=1)
+    _, cp = benchmark._e2e_params()
     settings = dict(capacity=CAPACITY, chunk_reads=STREAM_CHUNK_READS, max_inflight=4,
                     drain_workers=2, prefetch_depth=2, packed="auto", d2h_packed="auto",
                     ingest_overlap="auto")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_stream_") as td:
-        in_bam, out_bam = os.path.join(td, "in.bam"), os.path.join(td, "out.bam")
+        out_bam = os.path.join(td, "out.bam")
         trace = os.path.join(td, "stream.trace.jsonl")
         # an explicit checkpoint keeps the manifest (and each shard's
         # deflate codec) after the run
         ckpt = os.path.join(td, "stream.ckpt")
-        sim = simulate_bam_file(
-            in_bam, STREAM_READS // 8,
-            cfg=SimConfig(read_len=150, n_positions=1000, mean_family_size=4,
-                          umi_error=0.01, duplex=True),
-            chunk_molecules=25_000, seed=7,
-        )
+        in_bam, sim_s = benchmark._e2e_input(STREAM_READS, bench_cache)
         torch.cuda.synchronize()
         sg.segment_gemm.launches = 0
         torch.cuda.reset_peak_memory_stats()
@@ -1075,7 +1135,7 @@ def stream_phases(gp, smi: str):
         emit(
             "stream", config="config5 (min_duplex_reads=1)", settings=settings,
             reads_in=rep.n_records, valid_reads=rep.n_valid_reads,
-            consensus_out=rep.n_consensus, sim_reads=sim["n_reads"], sim_seconds=sim["seconds"],
+            consensus_out=rep.n_consensus, sim_seconds=sim_s,
             n_chunks=rep.n_chunks, buckets=rep.n_buckets, dispatch_specs=rep.n_pipeline_compiles,
             wall_seconds=round(wall, 3), reads_per_s=round(rep.n_valid_reads / wall, 1),
             stage_seconds=rep.seconds, busy_wall_table=table,
@@ -1179,20 +1239,21 @@ def stream_phases(gp, smi: str):
 
 
 class RungKeeper:
-    """Wraps consensus.segment_gemm and keeps, for each row count R (a
-    ladder rung), the arguments of its call with the most elements."""
+    """Wraps consensus.segment_gemm and keeps, for each key of a call on
+    the card (``key(big, f_max)``; by default the row count R, a ladder
+    rung), the arguments of its call with the most elements."""
 
-    def __init__(self, module):
-        self.module, self.inner = module, module.segment_gemm
+    def __init__(self, module, key=lambda big, f_max: big.shape[1]):
+        self.module, self.inner, self.key = module, module.segment_gemm, key
         self.calls: dict = {}
         self.shapes: set = set()
 
     def __enter__(self):
         def wrapped(big, fid, f_max):
             self.shapes.add(tuple(big.shape))
-            r = big.shape[1]
-            if r not in self.calls or big.numel() > self.calls[r][0].numel():
-                self.calls[r] = (big, fid, f_max)
+            k = self.key(big, f_max)
+            if big.is_cuda and (k not in self.calls or big.numel() > self.calls[k][0].numel()):
+                self.calls[k] = (big, fid, f_max)
             return self.inner(big, fid, f_max)
 
         self.module.segment_gemm = wrapped
@@ -1527,6 +1588,93 @@ def race_phase(smi: str) -> int:
          parity_vs_segment_gemm=parity, blockseg_run_to_run_identical=True,
          classes=len(ref), phase_seconds=round(time.monotonic() - t_phase, 3), nvidia_smi=smi)
     return launches
+
+
+def bench_phase(bench_cache: str, smi: str):
+    """The bench through ``benchmark.main(device="cuda")`` (what the
+    CLI's ``bench`` runs) with its env knobs cut to fit the smoke's
+    time, then the profile tools once each; every result checked.
+    Returns segment_gemm's launches over the phase, and the largest
+    launch at each (R, C, f_max) the phase gave the kernel."""
+    import io
+
+    import torch
+
+    from duplexumiconsensusreads_torch import benchmark
+    from duplexumiconsensusreads_torch.kernels import consensus
+    from duplexumiconsensusreads_torch.kernels import segment_gemm as sg
+    from duplexumiconsensusreads_torch.tools import profile_components, profile_phases
+
+    knobs = dict(
+        DUT_BENCH_CACHE=bench_cache,
+        # the stream phase's input: the bench finds it in its cache
+        DUT_BENCH_E2E_READS=str(STREAM_READS),
+        # the A/B legs and the CPU denominator at one chunk, one rep
+        DUT_BENCH_E2E_AB=str(STREAM_CHUNK_READS),
+        DUT_BENCH_CPU_E2E_READS=str(STREAM_CHUNK_READS),
+        DUT_BENCH_CPU_E2E_REPS="1",
+        DUT_BENCH_GATE="0",
+        DUT_PROF_READS=str(BENCH_PROF_READS),
+    )
+    torch.cuda.synchronize()
+    sg.segment_gemm.launches = 0
+    t0 = time.monotonic()
+    with environ(**knobs), \
+            RungKeeper(consensus, key=lambda big, f_max: (*big.shape[1:], f_max)) as keep:
+        with contextlib.redirect_stdout(io.StringIO()) as buf:
+            benchmark.main(device="cuda")
+        bench_s = time.monotonic() - t0
+        lines = buf.getvalue().splitlines()
+        t1 = time.monotonic()
+        tools = {}
+        for tool in (profile_components, profile_phases):
+            with contextlib.redirect_stdout(io.StringIO()) as out:
+                if tool.main([]) != 0:
+                    raise AssertionError(f"{tool.__name__} failed")
+            tools[tool.__name__.rsplit(".", 1)[1]] = json.loads(out.getvalue().splitlines()[-1])
+        tools_s = time.monotonic() - t1
+    launches = sg.segment_gemm.launches
+    if len(lines[-1]) >= 1400:
+        raise AssertionError(f"the bench's compact line is {len(lines[-1])} bytes")
+    compact, full = json.loads(lines[-1]), json.loads(lines[-2])
+    problems = [k for k in full if k.endswith("_error")]
+    if compact["value"] <= 0 or full["value"] != compact["value"]:
+        problems.append(f"value {compact['value']}")
+    if full["peak_entry"] != "h100-sxm-f32" or full["device"] != torch.cuda.get_device_name(0):
+        problems.append(f"peak entry {full['peak_entry']} on {full['device']}")
+    if sorted(full.get("per_config", {})) != [f"config{i}" for i in range(1, 6)]:
+        problems.append(f"per_config rows {sorted(full.get('per_config', {}))}")
+    want = ("vs_baseline", "vs_vectorized_cpu", "mfu", "tflops", "e2e_fill_factor",
+            "bucket_tuner_fill_factor_off", "tuner_predicted_speedup", "tuner_ladder",
+            "e2e_reads_per_sec", "e2e_wall_s", "e2e_wire_floor_frac",
+            "e2e_wire_floor_frac_measured", "e2e_bytes_per_read", "e2e_mfu",
+            "e2e_packed_speedup", "e2e_d2h_packed_speedup", "e2e_ingest_overlap",
+            "cpu_e2e_reads_per_sec", "e2e_vs_cpu_e2e")
+    problems += [f"no {k}" for k in want if k not in full]
+    for probe in ("wire_before_e2e", "wire_after_e2e"):
+        p = full.get(probe, {})
+        if not (p.get("wire_h2d_mb_s", 0) > 0 and p.get("wire_d2h_mb_s", 0) > 0):
+            problems.append(f"{probe} {p}")
+    if {k: full.get(k) for k in benchmark.SKIPPED_LEGS} != benchmark.SKIPPED_LEGS:
+        problems.append("the *_skipped strings")
+    if full.get("e2e_reads", 0) < 0.9 * STREAM_READS or full.get("e2e_consensus", 0) == 0:
+        problems.append(f"e2e streamed {full.get('e2e_reads')} reads")
+    if not full["consensus_error_rate"] < 1e-3:
+        problems.append(f"consensus error rate {full['consensus_error_rate']}")
+    for name, res in tools.items():
+        if res["device"] != "cuda" or not all(r["step_s"] > 0 for r in res["rows"].values()):
+            problems.append(f"{name} {res}")
+    if launches == 0:
+        problems.append("the bench launched segment_gemm no time")
+    if problems:
+        raise AssertionError(f"bench: {problems}")
+    emit("bench", compact=compact, full=full, profile_components=tools["profile_components"],
+         profile_phases=tools["profile_phases"], launches={"segment_gemm": launches},
+         segment_gemm_shapes=sorted(list(sh) for sh in keep.shapes),
+         bench_seconds=round(bench_s, 3), tools_seconds=round(tools_s, 3), knobs=knobs,
+         nvidia_smi=smi)
+    torch.cuda.synchronize()
+    return launches, keep.calls
 
 
 if __name__ == "__main__":

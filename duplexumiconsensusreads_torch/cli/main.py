@@ -12,13 +12,15 @@
   group     annotate reads with MI molecule ids (GroupReadsByUmi)
   index     the linear .dlix, or the standard .bai / .csi
   view      records overlapping a region, through the .bai/.csi
+  bench     the reads/s benchmark (benchmark.py), on the card unless
+            ``--device cpu``
 
 The JAX package's CLI on one host, flag for flag. ``call`` resolves
 every parameter as the JAX CLI does — explicit flag > ``--config-file``
 (TOML/JSON, keys from runtime/knobs.py) > ``--config`` preset > default
 — and refuses what it refuses in its words. Flags of the JAX CLI whose
 machinery is not ported (serving, multi-host, several devices, follow
-mode, ``bench``) are refused by name.
+mode) are refused by name.
 """
 
 from __future__ import annotations
@@ -261,9 +263,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="match records to same-UMI truth molecules within this many "
                    "bp when the exact-POS lookup misses (ref-projected output)")
 
-    b = sub.add_parser("bench", help="the reads/sec benchmark (not ported yet)")
+    b = sub.add_parser("bench", help="run the reads/sec benchmark")
     b.add_argument("--reads", type=int, default=None)
     b.add_argument("--capacity", type=int, default=None)
+    b.add_argument("--device", choices=["cuda", "cpu"], default=None,
+                   help="where the bench runs (default cuda; cpu runs every kernel's "
+                   "plain version)")
 
     g = sub.add_parser("group", help="annotate reads with MI molecule ids without calling "
                        "consensus (the UmiGrouper operator; GroupReadsByUmi)")
@@ -1088,8 +1093,16 @@ def _cmd_stats(args) -> int:
 
 
 def _cmd_bench(args) -> int:
-    raise SystemExit("not supported by the torch port: bench is not ported yet "
-                     "(ROADMAP queue 1 item 9)")
+    import os
+
+    if args.reads:
+        os.environ["DUT_BENCH_READS"] = str(args.reads)
+    if args.capacity:
+        os.environ["DUT_BENCH_CAPACITY"] = str(args.capacity)
+    from duplexumiconsensusreads_torch.benchmark import main as bench_main
+
+    bench_main(device=args.device)
+    return 0
 
 
 def group_molecules(batch, gp, capacity: int, device, counters: dict):

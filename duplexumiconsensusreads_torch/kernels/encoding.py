@@ -1,4 +1,4 @@
-"""Device-side encodings: multi-word 2-bit UMI packing.
+"""Device-side encodings: multi-word 2-bit UMI packing, one-hot helpers.
 
 UMIs of B bases pack big-endian into ceil(B/15) int32 words (15 2-bit
 codes per word keeps the sign bit clear), so lexicographic comparison
@@ -28,6 +28,11 @@ def pack_umi_words(umi_codes: torch.Tensor) -> torch.Tensor:
         CODES_PER_WORD - 1, -1, -1, dtype=torch.int32, device=c.device
     ) * 2
     return (c << shifts).sum(dim=-1, dtype=torch.int32)
+
+
+def one_hot_bases(codes: torch.Tensor, n: int = 4, dtype=torch.float32) -> torch.Tensor:
+    """(...,) codes -> (..., n) one-hot; codes >= n produce all-zero rows."""
+    return (codes[..., None] == torch.arange(n, dtype=codes.dtype, device=codes.device)).to(dtype)
 
 
 def pack_2bit(codes: torch.Tensor) -> torch.Tensor:

@@ -6,8 +6,9 @@ per-bucket kernel (kernels/grouping.py there); here the batch axis is
 written out. The algorithm is the same, step for step:
 
 1. Reads arrive sorted by (pos, UMI words) with invalid reads at the
-   tail (bucketing's contract, ``presorted=True``), so exact families
-   are run boundaries in the key stream (cumsum).
+   tail (bucketing's contract, ``presorted=True``) or are sorted so
+   first, so exact families are run boundaries in the key stream
+   (cumsum).
 2. A compact unique-(pos, UMI) table of ``u_max`` slots is filled in
    stream order, so the table itself is sorted by (pos, words).
 3. Adjacency/cluster additionally, on the table only (u_max << R):
@@ -135,16 +136,18 @@ def group_kernel(
     presorted: bool = False,
 ):
     """Returns (family_id, molecule_id, pair_id, n_families, n_molecules,
-    n_overflow): (N, R) i32 ids with NO_FAMILY on invalid or overflowed
-    reads, and (N,) i32 counts — per bucket, bit-identical to the JAX
-    package's group_kernel. Only the presorted contract (bucketing's
-    output order) is ported."""
+    n_overflow): (N, R) i32 ids in the input read order with NO_FAMILY
+    on invalid or overflowed reads, and (N,) i32 counts — per bucket,
+    bit-identical to the JAX package's group_kernel.
+
+    ``presorted=True`` asserts bucketing's output contract (valid reads
+    ascending by (pos, UMI words), invalid reads only at the tail) and
+    skips the sort. Otherwise each bucket's reads are ordered as JAX's
+    ``lexsort`` orders them — torch has none, so by stable sorts from
+    the last key to the first — the ids are computed on that order and
+    scattered back through it."""
     if strategy not in ("exact", "adjacency", "cluster"):
         raise ValueError(f"unknown grouping strategy {strategy!r}")
-    if not presorted:
-        raise NotImplementedError(
-            "group_kernel: only presorted buckets are ported (bucketing presorts)"
-        )
     if strategy == "cluster":
         # UMI-tools cluster == adjacency with the count condition removed
         count_ratio = 0
@@ -158,6 +161,21 @@ def group_kernel(
     spos = torch.where(valid, pos.to(torch.int32), imax)
     swords = torch.where(valid[..., None], words, imax)
     svalid = valid
+    order = None
+    if not presorted:
+        # lexsort by (pos, word 0, .., word W-1): stable sorts by the
+        # least significant key first; invalid reads carry I32_MAX keys
+        # and keep their input order at the tail
+        order = torch.arange(r, device=dev).expand(n, r)
+        for key in [swords[..., i] for i in range(w - 1, -1, -1)] + [spos]:
+            idx = torch.sort(torch.gather(key, 1, order), dim=1, stable=True).indices
+            order = torch.gather(order, 1, idx)
+        spos = torch.gather(spos, 1, order)
+        swords = torch.gather(swords, 1, order[..., None].expand(-1, -1, w))
+        svalid = torch.gather(valid, 1, order)
+        umi_codes = torch.gather(umi_codes, 1, order[..., None].expand(-1, -1, umi_codes.shape[-1]))
+        strand_ab = torch.gather(strand_ab, 1, order)
+        frag_end = torch.gather(frag_end, 1, order)
 
     uid_raw = _run_ids([spos] + [swords[..., i] for i in range(w)])
     uid = torch.where(svalid, uid_raw, torch.full_like(uid_raw, u_max))
@@ -238,5 +256,10 @@ def group_kernel(
     else:
         mid_out, n_mol_out = mid_sorted, n_mol
 
-    n_overflow = (valid & ~ok_sorted).sum(dim=1, dtype=torch.int32)
+    n_overflow = (svalid & ~ok_sorted).sum(dim=1, dtype=torch.int32)
+    if order is not None:
+        # back to the input order: out[order[i]] = sorted[i]
+        fid_sorted, mid_out, mid_sorted = (
+            torch.empty_like(a).scatter_(1, order, a) for a in (fid_sorted, mid_out, mid_sorted)
+        )
     return fid_sorted, mid_out, mid_sorted, n_fam, n_mol_out, n_overflow

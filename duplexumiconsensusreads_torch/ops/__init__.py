@@ -3,5 +3,6 @@ from duplexumiconsensusreads_torch.ops.caller import ConsensusCaller  # noqa: F4
 from duplexumiconsensusreads_torch.ops.pipeline import (  # noqa: F401
     PipelineSpec,
     fused_pipeline,
+    run_bucket,
     spec_for_buckets,
 )

@@ -500,3 +500,18 @@ def fused_pipeline(
         "cons_end": cons_end.to(torch.uint8),
         **({"cons_err": out_e} if out_e is not None else {}),
     }
+
+
+def run_bucket(bucket, spec: PipelineSpec, device="cuda") -> dict:
+    """Host entry for one host-side bucket (from bucketing/): its arrays
+    go to ``device`` (the card unless "cpu" is asked for; no card
+    raises) as a class of one, through :func:`fused_pipeline`. Returns
+    the outputs for that bucket alone, as the JAX package's per-bucket
+    run_bucket does: every key without the bucket axis, on ``device``."""
+    from duplexumiconsensusreads_torch.bucketing import stack_buckets
+    from duplexumiconsensusreads_torch.interop import ARRAY_KEYS, stacked_from_numpy
+    from duplexumiconsensusreads_torch.runtime.executor import resolve_device
+
+    args = stacked_from_numpy(stack_buckets([bucket]), resolve_device(device))
+    out = fused_pipeline(*(args[k] for k in ARRAY_KEYS), spec)
+    return {k: v[0] for k, v in out.items()}

@@ -729,15 +729,37 @@ def packed_io_ok(consensus: ConsensusParams) -> bool:
     )
 
 
+# The ssc reduction each device runs by default (default_ssc_method;
+# partition_buckets resolves it on the run's device when no method is
+# asked for). On the card the hand-written segment_gemm kernel won the
+# fused-pipeline race against matmul, blockseg and runsum (PERF.md §5).
+# DEFAULT_SSC_METHOD_CPU is the fastest method on a host CPU: on the
+# 8-core host of an NVIDIA H100 80GB HBM3 (700.00 W), ``tools.tune_ssc
+# --device cpu --molecules 3800 --reps 3`` (29,395 reads, the bench's
+# vec-CPU leg's size) measured blockseg 49,771 reads/s at T=256 and
+# 49,495 at T=128, matmul 45,083, runsum 40,159 and segment_gemm's
+# plain version 29,739 (PERF.md §5).
+DEFAULT_SSC_METHOD = "segment_gemm"
+DEFAULT_SSC_METHOD_CPU = "blockseg"
+
+
+def default_ssc_method(device=None) -> str:
+    """The default ssc method of the device a run resolves to
+    (``resolve_device``: the card unless "cpu" is asked for)."""
+    dev = resolve_device(device)
+    return DEFAULT_SSC_METHOD_CPU if dev.type == "cpu" else DEFAULT_SSC_METHOD
+
+
 def partition_buckets(
     buckets,
     grouping: GroupingParams,
     consensus: ConsensusParams,
-    ssc_method: str = "segment_gemm",
+    ssc_method: str | None = None,
     packed_io: bool = False,
     per_base_counts: bool = False,
     qual_alphabet: tuple | None = None,
     blockseg_t: int | None = None,
+    device=None,
 ):
     """Split buckets into dispatch classes of identical geometry+strategy.
 
@@ -759,7 +781,8 @@ def partition_buckets(
                 ``packed_fallback`` trace event
 
     ``blockseg_t`` sets every class spec's blockseg tile height (None:
-    the spec default).
+    the spec default). ``ssc_method`` None takes the default of the
+    device the classes will run on (``default_ssc_method(device)``).
     """
     from duplexumiconsensusreads_torch.kernels.consensus import BLOCKSEG_T
     from duplexumiconsensusreads_torch.ops.pipeline import (
@@ -767,6 +790,9 @@ def partition_buckets(
         subbyte_qbits_for,
     )
     from duplexumiconsensusreads_torch.telemetry.trace import emit_event
+
+    if ssc_method is None:
+        ssc_method = default_ssc_method(device)
 
     classes: dict[tuple, list] = {}
     for bk in buckets:
@@ -871,7 +897,7 @@ def call_batch(
 
     part = partition_buckets(
         buckets, grouping, consensus, packed_io=packed_io_ok(consensus),
-        per_base_counts=per_base_tags,
+        per_base_counts=per_base_tags, device=dev,
     )
     rep.n_size_classes = len(part)
     pending = []

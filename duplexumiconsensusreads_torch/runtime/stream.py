@@ -1732,7 +1732,7 @@ def _stream_call(
             for cbuckets, cspec in partition_buckets(
                 buckets, grouping, consensus,
                 packed_io=(packed != "off"), per_base_counts=per_base_tags,
-                qual_alphabet=alpha,
+                qual_alphabet=alpha, device=dev,
             ):
                 spec_cache[cspec] = True
                 # submit never raises: failures surface in materialize

@@ -328,8 +328,15 @@ def test_whole_file_profile_writes_a_torch_profiler_trace(inputs, tmp_path, back
     assert json.load(open(rp))["backend"] == backend
 
 
-def test_bench_is_refused_by_name():
-    assert "not ported yet (ROADMAP queue 1 item 9)" in _exit_message(cli_main, ["bench"])
+def test_bench_needs_a_card_unless_the_cpu_is_asked_for(monkeypatch):
+    """``bench`` runs on the card; without one it raises before any
+    work unless ``--device cpu`` asks for the CPU (test_torch_bench.py
+    runs that)."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setenv("DUT_BENCH_READS", "0")  # restored after the CLI sets it
+    for argv in (["bench"], ["bench", "--device", "cuda", "--reads", "100"]):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            cli_main(argv)
 
 
 def test_call_needs_a_card_unless_the_cpu_is_asked_for(inputs, tmp_path, monkeypatch):

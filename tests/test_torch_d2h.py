@@ -58,7 +58,7 @@ def _classes(name: str, **sim):
     gp = GroupingParams(strategy=strategy, paired=mode == "duplex", mate_aware=mates)
     cp = ConsensusParams(mode=mode, error_model=em)
     buckets = build_buckets(_batch(mates, **sim), capacity=128, grouping=gp)
-    return buckets, tx.partition_buckets(buckets, gp, cp, packed_io=True), gp, cp
+    return buckets, tx.partition_buckets(buckets, gp, cp, packed_io=True, device="cpu"), gp, cp
 
 
 def _outputs(cbuckets, spec):
@@ -162,7 +162,8 @@ def test_subbyte_pack_equals_jax_and_decodes_exactly(qual_range, qbits):
     jbuckets = jax_build_buckets(batch, capacity=128, grouping=JG(**vars(gp)))
     assert alpha == jax_qual_alphabet(jbuckets)
     assert pipeline.subbyte_qbits_for(len(alpha)) == qbits
-    part = tx.partition_buckets(buckets, gp, cp, packed_io=True, qual_alphabet=alpha)
+    part = tx.partition_buckets(buckets, gp, cp, packed_io=True, qual_alphabet=alpha,
+                                device="cpu")
     jpart = jx.partition_buckets(jbuckets, JG(**vars(gp)), JC(**vars(cp)), packed_io=True,
                                  qual_alphabet=alpha)
     for (cbuckets, spec), (jcb, jspec) in zip(part, jpart):

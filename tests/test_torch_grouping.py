@@ -100,7 +100,68 @@ def test_pack_2bit_matches_jax(length):
     np.testing.assert_array_equal(got.numpy(), np.asarray(jax_pack_2bit(codes)))
 
 
-def test_unsorted_input_is_refused():
-    z = torch.zeros(1, 4, dtype=torch.int32)
-    with pytest.raises(NotImplementedError):
-        group_kernel(z, torch.zeros(1, 4, 6, dtype=torch.uint8), z.bool(), z.bool(), z.bool())
+@pytest.mark.parametrize("strategy", ["exact", "adjacency", "cluster"])
+@pytest.mark.parametrize("paired", [False, True])
+@pytest.mark.parametrize("mate_aware", [False, True])
+def test_unsorted_group_kernel_bit_identical(strategy, paired, mate_aware):
+    """presorted=False (JAX's default): each bucket's rows shuffled, with
+    the padding rows interleaved among the reads, through the JAX
+    lexsort branch and the port's stable-sort chain — ids bit-identical,
+    in the shuffled order."""
+    st, gp = _stacked(strategy, paired, mate_aware, seed=5)
+    rng = np.random.default_rng(11)
+    args = [st[k] for k in ("pos", "umi", "strand_ab", "frag_end", "valid")]
+    perm = np.stack([rng.permutation(args[0].shape[1]) for _ in range(args[0].shape[0])])
+    args = [np.ascontiguousarray(np.take_along_axis(
+        a, perm.reshape(perm.shape + (1,) * (a.ndim - 2)), axis=1)) for a in args]
+    kw = dict(
+        strategy=strategy, max_hamming=gp.max_hamming,
+        count_ratio=gp.effective_count_ratio, paired=paired,
+        mate_aware=mate_aware, u_max=_u_max(st), presorted=False,
+    )
+    want = jax.vmap(lambda *a: jax_group(*a, **kw))(*args)
+    got = group_kernel(*(torch.from_numpy(a) for a in args), **kw)
+    for key, w, g in zip(KEYS, want, got):
+        assert g.dtype == torch.int32, key
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w), err_msg=key)
+    assert int(np.asarray(want[3]).sum()) > 0
+    # the rows really left bucketing's order, padding included
+    assert not np.array_equal(args[4], st["valid"])
+
+
+def test_unsorted_all_invalid_and_overflow_match_jax():
+    """An all-invalid bucket (every id NO_FAMILY, counts 0) and an
+    undersized table on shuffled rows, against the JAX lexsort branch."""
+    z = np.zeros((1, 4), np.int32)
+    umi = np.zeros((1, 4, 6), np.uint8)
+    want = jax.vmap(lambda *a: jax_group(*a))(z, umi, z.astype(bool), z.astype(bool), z.astype(bool))
+    got = group_kernel(*(torch.from_numpy(a) for a in (z, umi, z.astype(bool), z.astype(bool),
+                                                        z.astype(bool))))
+    for key, w, g in zip(KEYS, want, got):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w), err_msg=key)
+    assert (got[0].numpy() == -1).all()
+
+    st, _ = _stacked("adjacency", True, False, seed=3)
+    args = [np.ascontiguousarray(st[k][:, ::-1]) for k in ("pos", "umi", "strand_ab",
+                                                           "frag_end", "valid")]
+    kw = dict(strategy="adjacency", paired=True, u_max=8, presorted=False)
+    want = jax.vmap(lambda *a: jax_group(*a, **kw))(*args)
+    got = group_kernel(*(torch.from_numpy(a) for a in args), **kw)
+    assert int(np.asarray(want[5]).sum()) > 0
+    for key, w, g in zip(KEYS, want, got):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w), err_msg=key)
+
+
+@pytest.mark.parametrize("n", [4, 5])
+def test_one_hot_bases_matches_jax(n):
+    """Codes below n one-hot, codes >= n (N = 4, PAD = 5, 255) all-zero rows."""
+    from duplexumiconsensusreads_tpu.kernels.encoding import one_hot_bases as jax_one_hot
+    from duplexumiconsensusreads_torch.kernels.encoding import one_hot_bases
+
+    codes = np.random.default_rng(n).integers(0, 6, (3, 40)).astype(np.uint8)
+    codes[0, :3] = (4, 5, 255)
+    got = one_hot_bases(torch.from_numpy(codes), n)
+    want = np.asarray(jax_one_hot(codes, n))
+    assert got.dtype == torch.float32 and got.shape == (3, 40, n)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert (got.numpy()[codes >= n] == 0).all() and (got.numpy()[codes < n].sum(-1) == 1).all()

@@ -84,6 +84,11 @@ def test_every_module_imports_without_jax():
     "duplexumiconsensusreads_torch.tools.wirestat",
     "duplexumiconsensusreads_torch.tools.devstat",
     "duplexumiconsensusreads_torch.tools.tune_ssc",
+    "duplexumiconsensusreads_torch.benchmark",
+    "duplexumiconsensusreads_torch.benchhist",
+    "duplexumiconsensusreads_torch.tools.bench_history",
+    "duplexumiconsensusreads_torch.tools.profile_components",
+    "duplexumiconsensusreads_torch.tools.profile_phases",
 ])
 def test_analysers_tuning_and_tools_are_scanned_and_import_alone(module):
     """The capture analysers, tuning/ and the tools are among the modules
