@@ -37,6 +37,16 @@ line:
           counted ties)
   stages  the largest class's fused pipeline once more, warm, with the
           device span of each stage function it calls
+  sync_debug  that class's group_kernel (adjacency, the whole-file
+          shape) under torch.cuda.set_sync_debug_mode("error"): it runs
+          through, and with the plain fixpoint patched in it raises; then
+          fused_pipeline under "warn", with every implicit sync that
+          remains counted by file:line
+  fixpoint  the grouping fixpoint kernel vs its plain version at
+          tolerance 0: at the stages rerun's inputs and on synthetic
+          worst cases at u 2048 (chains through all slots both ways,
+          empty, all-invalid, dense past the kernel's list, unsorted
+          positions); the kernel, plain and bound ms
   kernel  each kernel vs its plain version on random inputs and on the
           main path's real inputs (those of the stages rerun, whose ids
           must equal the e2e run's), and at the per-base shape (the
@@ -55,6 +65,10 @@ line:
           wall, the native reader and every shard's deflate codec;
           then a sum-check of the trace's spans against the report's
           seconds
+  stream_turns  the stream cell again in turns, plain fixpoint, kernel,
+          kernel, plain: each turn's reads/s, dispatch and
+          device_wait_fetch busy seconds and ledger.wire_floor, with bytes
+          identical to the stream phase's
   stream_small_reference  a small paired config5 input streamed on the
           card and on the CPU (plain versions) must agree record by
           record, with per-base tags and a BAI too; on the card,
@@ -123,9 +137,11 @@ line:
           (rows, columns, f_max): the kernel against its plain version
           (tolerance 0), and the kernel, plain, index_add_ and bound ms
 
-Then the nvidia-smi line, the ``kernels`` JSON line (segment_gemm's
-launches per path: whole_file, stream, per_base, workflow, operators,
-ladder, race, bench; a ``rung_shapes`` sub-row with the kernel, plain,
+Every path (whole_file, stream, per_base, workflow, operators, ladder,
+race, bench) must launch both kernels: segment_gemm and the grouping
+fixpoint (cluster_fixpoint). Then the nvidia-smi line, the ``kernels``
+JSON line (one row per kernel with its launches per path; under
+segment_gemm a ``rung_shapes`` sub-row with the kernel, plain,
 library and bound ms at each explicit ladder rung's largest launch,
 and a ``bench_shapes`` sub-row with the same at the bench phase's
 largest launch of each (rows, columns, f_max) it gave the kernel),
@@ -175,6 +191,30 @@ F32_FLOPS = 67e12  # H100 SXM f32 rate outside the tensor cores (data sheet)
 
 def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}, sort_keys=True), flush=True)
+
+
+def kernel_wrappers() -> dict:
+    """{kernel name: its wrapper}, each wrapper carrying a ``launches``
+    count."""
+    from duplexumiconsensusreads_torch.kernels import cluster_fixpoint, segment_gemm
+
+    return {"segment_gemm": segment_gemm.segment_gemm,
+            "cluster_fixpoint": cluster_fixpoint.propagate_min}
+
+
+def reset_launches() -> None:
+    for fn in kernel_wrappers().values():
+        fn.launches = 0
+
+
+def read_launches(path: str) -> dict:
+    """Each kernel's launches since reset_launches(); raises if the path
+    launched one of them no time."""
+    got = {name: fn.launches for name, fn in kernel_wrappers().items()}
+    missing = [name for name, n in got.items() if n == 0]
+    if missing:
+        raise AssertionError(f"the {path} path launched {missing} no time")
+    return got
 
 
 @contextlib.contextmanager
@@ -414,7 +454,7 @@ def main() -> int:
     from duplexumiconsensusreads_torch import native
     from duplexumiconsensusreads_torch.cli.main import params_for
     from duplexumiconsensusreads_torch.io import bgzf, native_reader, read_bam, simulated_bam
-    from duplexumiconsensusreads_torch.kernels import build, consensus
+    from duplexumiconsensusreads_torch.kernels import build, consensus, grouping
     from duplexumiconsensusreads_torch.kernels import segment_gemm as sg
     from duplexumiconsensusreads_torch.ops import pipeline
     from duplexumiconsensusreads_torch.runtime.executor import call_consensus_file
@@ -463,7 +503,8 @@ def main() -> int:
         simulated_bam(cfg, path=in_bam, sort=True)
         sim_s = time.monotonic() - t0
 
-        sg.segment_gemm.launches = 0
+        torch.cuda.synchronize()
+        reset_launches()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.monotonic()
         # ssc_kernel reaches the kernel through consensus._reduce and the
@@ -479,10 +520,8 @@ def main() -> int:
                 capacity=CAPACITY, device="cuda",
             )
         wall = time.monotonic() - t0
-        launches["whole_file"] = sg.segment_gemm.launches
+        launches["whole_file"] = read_launches("whole_file")
         peak_mem = torch.cuda.max_memory_allocated()
-        if launches["whole_file"] == 0:
-            raise AssertionError("the main path launched segment_gemm no time")
         if t_read.seen != [True] or set(t_defl.seen) != {"native"}:
             raise AssertionError(f"the main path's codecs: reader {t_read.seen}, "
                                  f"deflate {set(t_defl.seen)} (want native)")
@@ -504,7 +543,7 @@ def main() -> int:
             stage_reads_per_s={k: round(rep.n_valid_reads / v, 1) for k, v in rep.seconds.items() if v > 0},
             native=True, deflate="native", deflate_calls=len(t_defl.seen),
             bytes_h2d=rep.bytes_h2d, bytes_d2h=rep.bytes_d2h,
-            max_memory_allocated=peak_mem, launches={"segment_gemm": launches["whole_file"]},
+            max_memory_allocated=peak_mem, launches=launches["whole_file"],
             segment_gemm_calls=[list(s) for s in cap_k.shapes],
             segment_gemm_span_ms=cap_k.span_ms(),
             # device spans of the per-class fused_pipeline calls (copies
@@ -549,7 +588,7 @@ def main() -> int:
     torch.cuda.synchronize()
     names = {pipeline: ("_decode_packed", "group_kernel", "ssc_kernel", "fit_cycle_cap_kernel",
                         "apply_cycle_cap", "duplex_merge_strided", "_segment_min"),
-             consensus: ("_evidence_columns", "_reduce")}
+             consensus: ("_evidence_columns", "_reduce"), grouping: ("propagate_min",)}
     with contextlib.ExitStack() as stack:
         caps = {n: stack.enter_context(Capture(m, n)) for m, ns in names.items() for n in ns}
         whole = stack.enter_context(Capture(pipeline, "fused_pipeline"))
@@ -562,7 +601,17 @@ def main() -> int:
     (big, fid, f_max, _method), _ = caps["_reduce"].args
     if not torch.equal(fid, cap_k.args[0][1]):
         raise AssertionError("the rerun's reduction ids differ from the main path's")
+    # the fixpoint's and grouping's inputs in the largest class
+    fix_args = caps["propagate_min"].args[0]
+    group_args = caps["group_kernel"].args
     del caps, whole, cap_k
+
+    # ---- sync_debug: grouping with no host sync, and what remains
+    sync_debug_phase(group_args, full, spec, smi)
+    del group_args
+    # ---- fixpoint: the kernel vs its plain version
+    fix_row = fixpoint_phase(*fix_args, smi)
+    del fix_args
 
     # ---- kernel: segment_gemm vs its plain version
     kernel_rows = []
@@ -578,7 +627,8 @@ def main() -> int:
     }
     for name, ids in cases.items():
         ids = ids.to(torch.int32).contiguous()
-        x = big if name == "real_main_path" else torch.randn(nb, r, c, device=dev, generator=rng)
+        x = big if name == "real_main_path" else sg.pad_rows(
+            torch.randn(nb, r, c, device=dev, generator=rng))
         kernel_rows.append(kernel_case(sg, name, x, ids, f_max))
         del x
     t_main = kernel_times(sg, big, fid, f_max, plain_reps=2, lib_reps=10)
@@ -611,7 +661,6 @@ def main() -> int:
         "name": "segment_gemm", "route": "cuda",
         "source": "duplexumiconsensusreads_torch/csrc/segment_gemm.cu",
         "replaces": "duplexumiconsensusreads_tpu/kernels/pallas_ssc.py:67",
-        "launches": launches["whole_file"],
         "max_abs_err": max(row["max_abs_err"] for row in kernel_rows + [pb_case]),
         **row_times(t_main),
         # the same numbers at the per_base path's full-pass shape
@@ -686,12 +735,13 @@ def main() -> int:
     seg_row["max_abs_err"] = max(row["max_abs_err"] for row in kernel_rows + [pb_case])
     seg_row["rung_shapes"] = rung_shapes
     seg_row["bench_shapes"] = bench_shapes
-    seg_row["launches"] = {k: launches[k] for k in ("whole_file", "stream", "per_base",
-                                                    "workflow", "operators", "ladder", "race",
-                                                    "bench")}
+    paths = ("whole_file", "stream", "per_base", "workflow", "operators", "ladder", "race",
+             "bench")
+    seg_row["launches"] = {k: launches[k]["segment_gemm"] for k in paths}
+    fix_row["launches"] = {k: launches[k]["cluster_fixpoint"] for k in paths}
 
     print(smi, flush=True)
-    print(json.dumps({"kernels": [seg_row]}), flush=True)
+    print(json.dumps({"kernels": [seg_row, fix_row]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)
@@ -743,6 +793,222 @@ def kernel_times(sg, big, fid, f_max: int, plain_reps: int, lib_reps: int) -> di
             "bound_fraction": max(bytes_ms, ops_ms) / k_ms}
 
 
+I32_MAX = 2**31 - 1
+# synthetic fixpoint graphs (fixpoint_case) held at the widest table
+FIXPOINT_KINDS = ("groups", "chain_up", "chain_down", "empty", "all_invalid", "dense",
+                  "unsorted")
+FIXPOINT_U, FIXPOINT_N = 2048, 4
+
+
+def fixpoint_case(kind: str, n: int, u: int, rng):
+    """(edge, s0, u_pos) numpy for n buckets of u slots: position groups
+    in ascending slot order (shuffled for "unsorted"), invalid slots at
+    the tail, edges only within a group, s0 = rank * u + slot. The
+    chains run through all u slots of one group, starting at their least
+    key: slot 0 climbing ("chain_up"), or the last slot walking down one
+    slot per ascending sweep ("chain_down", u sweeps); "dense" joins
+    every pair of one u-slot group (more edges than the kernel's list
+    holds)."""
+    import numpy as np
+
+    edge = np.zeros((n, u, u), bool)
+    u_pos = np.full((n, u), I32_MAX, np.int32)
+    rank = np.full((n, u), u, np.int64)
+    for b in range(n):
+        n_valid = 0 if kind == "all_invalid" else int(rng.integers(u // 2, u + 1))
+        if kind in ("chain_up", "chain_down", "dense"):
+            n_valid, sizes = u, [u]
+        else:
+            sizes = []
+            while sum(sizes) < n_valid:
+                sizes.append(int(min(rng.integers(1, 65), n_valid - sum(sizes))))
+        pos = np.repeat(np.arange(len(sizes), dtype=np.int32) * 3, sizes)
+        if kind == "unsorted":
+            pos = rng.permutation(pos)
+        u_pos[b, :n_valid] = pos
+        rank[b, :n_valid] = rng.permutation(n_valid)
+        same = u_pos[b, :, None] == u_pos[b, None, :]
+        if kind in ("groups", "unsorted"):
+            edge[b] = same & (rng.random((u, u)) < 0.05)
+        elif kind == "dense":
+            edge[b] = same
+        elif kind in ("chain_up", "chain_down"):
+            k = np.arange(u - 1)
+            up = kind == "chain_up"
+            edge[b, k + (0 if up else 1), k + (1 if up else 0)] = True
+            rank[b] = np.arange(u) if up else np.arange(u)[::-1]
+        valid = u_pos[b] != I32_MAX
+        edge[b] &= ~np.eye(u, dtype=bool) & valid[:, None] & valid[None, :]
+    s0 = (rank * u + np.arange(u)).astype(np.int32)
+    return edge, s0, u_pos
+
+
+def fixpoint_phase(edge, s0, u_pos, smi: str) -> dict:
+    """The fixpoint kernel against its plain version (tolerance 0) at the
+    main path's captured inputs (the largest class of the stages rerun)
+    and on the synthetic worst cases at u = FIXPOINT_U ("dense" has more
+    edges than the kernel's list holds, so it takes the edge-grid
+    sweeps); then the kernel's, the plain version's and the bound's
+    times at the main path's inputs. Returns the kernels line's row
+    (launches filled in later)."""
+    import numpy as np
+    import torch
+
+    from duplexumiconsensusreads_torch.kernels import cluster_fixpoint as cf
+
+    cases = []
+
+    def hold(name, e, s, p):
+        t0 = time.monotonic()
+        got = cf.propagate_min(e, s, p)
+        torch.cuda.synchronize()
+        k_s = time.monotonic() - t0
+        want = cf.propagate_min_plain(e, s, p)
+        err = (got.long() - want.long()).abs().max().item()
+        if not torch.equal(got, want):
+            raise AssertionError(f"cluster_fixpoint {name}: max abs err {err} (tolerance 0)")
+        cases.append({"case": name, "shape": list(e.shape), "edges": int(e.sum()),
+                      "max_abs_err": err, "tolerance": 0, "kernel_wall_s": round(k_s, 6)})
+
+    hold("real_main_path", edge, s0, u_pos)
+    rng = np.random.default_rng(0)
+    for kind in FIXPOINT_KINDS:
+        e, s, p = (torch.from_numpy(a).cuda() for a in
+                   fixpoint_case(kind, FIXPOINT_N, FIXPOINT_U, rng))
+        hold(f"synthetic_{kind}_u{FIXPOINT_U}", e, s, p)
+        del e, s, p
+    # the bound counts what these inputs need: every in-group entry of
+    # edge among valid slots once, s0 and u_pos in, s out
+    valid = u_pos != I32_MAX
+    in_group = int(((u_pos[:, :, None] == u_pos[:, None, :]) & valid[:, :, None]).sum())
+    need_bytes = in_group + 3 * s0.numel() * 4
+    bytes_ms = need_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = in_group / F32_FLOPS * 1e3
+    k_ms = cuda_ms(lambda: cf.propagate_min(edge, s0, u_pos), reps=20)
+    plain_ms = cuda_ms(lambda: cf.propagate_min_plain(edge, s0, u_pos), reps=3)
+    times = {"kernel_ms": k_ms, "plain_ms": plain_ms,
+             "bound_ms": max(bytes_ms, ops_ms), "bytes_bound_ms": bytes_ms,
+             "ops_bound_ms": ops_ms, "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+             "bound_fraction": max(bytes_ms, ops_ms) / k_ms, "in_group_entries": in_group,
+             "edges": int(edge.sum()), "grid_entries": edge.numel(), "bytes_needed": need_bytes}
+    emit("fixpoint", name="cluster_fixpoint", shape=list(edge.shape), cases=cases, **times,
+         library_call=None, nvidia_smi=smi)
+    return {"name": "cluster_fixpoint", "route": "cuda",
+            "source": "duplexumiconsensusreads_torch/csrc/cluster_fixpoint.cu",
+            "replaces": "duplexumiconsensusreads_tpu/kernels/grouping.py:160",
+            "note": "no Pallas kernel: the port's counterpart of the lax.while_loop there",
+            "max_abs_err": max(c["max_abs_err"] for c in cases), "ms": k_ms,
+            "plain_ms": plain_ms, "bound_ms": times["bound_ms"], "bound_by": times["bound_by"],
+            "library_ms": None, "shape": list(edge.shape)}
+
+
+def sync_debug_phase(group_args, full, spec, smi: str) -> None:
+    """group_kernel at the whole-file shape (the largest class's captured
+    arguments) under torch.cuda.set_sync_debug_mode("error"): it must run
+    through, while the plain fixpoint (patched in as the stream turns
+    patch it) raises there. Then fused_pipeline under "warn": every
+    implicit sync that remains, counted by file:line."""
+    import collections
+    import warnings
+
+    import torch
+
+    from duplexumiconsensusreads_torch.kernels import cluster_fixpoint as cf
+    from duplexumiconsensusreads_torch.kernels import grouping
+    from duplexumiconsensusreads_torch.ops import pipeline
+
+    args, kw = group_args
+    torch.cuda.synchronize()
+
+    def under_error():
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = pipeline.group_kernel(*args, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        return out
+
+    under_error()
+    grouping.propagate_min = cf.propagate_min_plain
+    try:
+        under_error()
+        plain_raises = False
+    except RuntimeError as e:
+        if "synchroniz" not in str(e):
+            raise
+        plain_raises = True
+    finally:
+        grouping.propagate_min = cf.propagate_min
+    if not plain_raises:
+        raise AssertionError("the plain fixpoint ran under sync debug mode 'error'")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            pipeline.fused_pipeline(*full, spec)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    syncs = [w for w in caught if "synchronizing CUDA operation" in str(w.message)]
+    sites = collections.Counter(
+        f"{os.path.relpath(w.filename, HERE)}:{w.lineno}" for w in syncs)
+    emit("sync_debug", group_kernel_shape=list(args[0].shape),
+         group_kernel_under_error_mode="ran through", plain_fixpoint_raises=True,
+         fused_pipeline_implicit_syncs=len(syncs), fused_pipeline_sync_sites=dict(sites),
+         nvidia_smi=smi)
+
+
+def stream_turns(in_bam: str, out_bam: str, gp, cp, settings: dict, td: str, smi: str) -> None:
+    """The stream cell again in turns, plain fixpoint, kernel, kernel,
+    plain (the plain version patched into grouping as the phases'
+    wrappers patch modules): each turn's reads/s, dispatch and
+    device_wait_fetch busy seconds and wire floor (from its capture),
+    and bytes identical to the stream phase's output."""
+    import torch
+
+    from duplexumiconsensusreads_torch.kernels import cluster_fixpoint as cf
+    from duplexumiconsensusreads_torch.kernels import grouping
+    from duplexumiconsensusreads_torch.runtime.stream import stream_call_consensus
+    from duplexumiconsensusreads_torch.telemetry import ledger, report
+
+    want = read_bytes(out_bam)
+    rows = []
+    for i, turn in enumerate(("plain", "kernel", "kernel", "plain")):
+        out = os.path.join(td, f"turn{i}.bam")
+        trace = os.path.join(td, f"turn{i}.trace.jsonl")
+        if turn == "plain":
+            grouping.propagate_min = cf.propagate_min_plain
+        torch.cuda.synchronize()
+        reset_launches()
+        try:
+            t0 = time.monotonic()
+            rep = stream_call_consensus(in_bam, out, gp, cp, device="cuda", trace_path=trace,
+                                        **settings)
+            wall = time.monotonic() - t0
+        finally:
+            grouping.propagate_min = cf.propagate_min
+        n_fix = cf.propagate_min.launches
+        if (n_fix > 0) != (turn == "kernel"):
+            raise AssertionError(f"turn {i} ({turn}): {n_fix} fixpoint launches")
+        if read_bytes(out) != want:
+            raise AssertionError(f"turn {i} ({turn}): output differs from the stream phase's")
+        recs = report.load_trace(trace)
+        rows.append({
+            "turn": turn, "wall_seconds": round(wall, 3),
+            "reads_per_s": round(rep.n_valid_reads / wall, 1),
+            "dispatch_busy_s": rep.seconds["dispatch"],
+            "device_wait_fetch_busy_s": rep.seconds["device_wait_fetch"],
+            "main_loop_stall_share": rep.seconds["main_loop_stall"] / wall,
+            "wire_floor": ledger.wire_floor(recs), "fixpoint_launches": n_fix,
+            "segment_gemm_launches": kernel_wrappers()["segment_gemm"].launches,
+            "bytes_identical_to_stream": True})
+        os.remove(out)
+        os.remove(trace)
+    emit("stream_turns", config="config5 (min_duplex_reads=1)", settings=settings,
+         reads_in=rep.n_records, turns=rows, nvidia_smi=smi)
+
+
 def reader_phase(in_bam: str) -> None:
     """The e2e input through the native and the portable load_input:
     identical ReadBatch arrays and counters."""
@@ -781,12 +1047,12 @@ def per_base_phase(in_bam: str, small_bam: str, td: str, gp, cp):
 
     from duplexumiconsensusreads_torch.io import read_bam
     from duplexumiconsensusreads_torch.kernels import consensus
-    from duplexumiconsensusreads_torch.kernels import segment_gemm as sg
     from duplexumiconsensusreads_torch.ops import pipeline
     from duplexumiconsensusreads_torch.runtime.executor import call_consensus_file
 
     out = os.path.join(td, "per_base.bam")
-    sg.segment_gemm.launches = 0
+    torch.cuda.synchronize()
+    reset_launches()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.monotonic()
     with Capture(consensus, "segment_gemm", keep=(1,)) as cap_k, \
@@ -794,14 +1060,14 @@ def per_base_phase(in_bam: str, small_bam: str, td: str, gp, cp):
         rep = call_consensus_file(in_bam, out, gp, cp, capacity=CAPACITY, device="cuda",
                                   per_base_tags=True, write_index=True)
     wall = time.monotonic() - t0
-    launches = sg.segment_gemm.launches
+    launches = read_launches("per_base")
     peak_mem = torch.cuda.max_memory_allocated()
     widths = sorted({s[-1] for s in cap_k.shapes})
     header, recs = read_bam(out)
     l_max = int(np.asarray(recs.lengths).max())
     c_full = 9 * l_max + 1
-    if launches == 0 or c_full not in widths:
-        raise AssertionError(f"per-base path: {launches} launches at widths {widths}, "
+    if c_full not in widths:
+        raise AssertionError(f"per-base path: segment_gemm at widths {widths}, "
                              f"want C = {c_full}")
     if len(recs) != rep.n_consensus or rep.n_consensus == 0:
         raise AssertionError(f"output has {len(recs)} records, report {rep.n_consensus}")
@@ -836,7 +1102,7 @@ def per_base_phase(in_bam: str, small_bam: str, td: str, gp, cp):
          read_input_seconds=round(rep.seconds["read_input"], 3),
          stage_seconds={k: round(v, 3) for k, v in rep.seconds.items()},
          max_memory_allocated=peak_mem, bytes_d2h=rep.bytes_d2h,
-         launches={"segment_gemm": launches}, segment_gemm_widths=widths,
+         launches=launches, segment_gemm_widths=widths,
          full_pass_columns=c_full, every_record_has_cd_ce=True, bai=True,
          view={"region": region, "records": len(want), "equal_to_filter": True,
                "seconds": round(view_s, 3)})
@@ -915,7 +1181,7 @@ def workflow_phase(in_bam: str, cfg, small_bam: str, td: str) -> int:
                                         "group.bam")}
     secs = {}
     torch.cuda.synchronize()
-    sg.segment_gemm.launches = 0
+    reset_launches()
     _, secs["simulate"] = cli(
         "simulate", "-o", p["in.bam"], "--truth", p["truth.npz"], "--sorted",
         "--molecules", cfg.n_molecules, "--read-len", cfg.read_len, "--umi-len", cfg.umi_len,
@@ -950,7 +1216,7 @@ def workflow_phase(in_bam: str, cfg, small_bam: str, td: str) -> int:
     grp = json.loads(out)
     if not 0 < grp["group_kernel_launches"] < grp["buckets"] or grp["device"] != "cuda":
         raise AssertionError(f"group: {grp}")
-    launches = sg.segment_gemm.launches
+    launches = read_launches("workflow")
     n_filtered = len(read_bam(p["filter.bam"])[1])
 
     # the small input: the card against the cpu backend, then stats
@@ -980,7 +1246,7 @@ def workflow_phase(in_bam: str, cfg, small_bam: str, td: str) -> int:
          step_seconds={k: round(v, 3) for k, v in secs.items()},
          chain_seconds=round(sum(secs.values()), 3), simulate_bytes_equal_e2e_input=True,
          call_stage_seconds={k: round(v, 3) for k, v in rep["seconds"].items()},
-         launches={"segment_gemm": launches}, validate=val, group=grp,
+         launches=launches, validate=val, group=grp,
          base_error=cfg.base_error, small_input=small,
          phase_seconds=round(time.monotonic() - t_phase, 3))
     return launches
@@ -993,7 +1259,6 @@ def operators_phase() -> int:
     import numpy as np
     import torch
 
-    from duplexumiconsensusreads_torch.kernels import segment_gemm as sg
     from duplexumiconsensusreads_torch.ops import ConsensusCaller, UmiGrouper
     from duplexumiconsensusreads_torch.simulate import SimConfig, simulate_batch
     from duplexumiconsensusreads_torch.types import ConsensusParams, GroupingParams
@@ -1005,12 +1270,12 @@ def operators_phase() -> int:
     gp = GroupingParams(strategy="adjacency", paired=True)
     cp = ConsensusParams(mode="duplex", error_model="cycle")
     torch.cuda.synchronize()
-    sg.segment_gemm.launches = 0
+    reset_launches()
     t0 = time.monotonic()
     fams = UmiGrouper(gp, backend="cuda")(batch)
     cons = ConsensusCaller(cp, backend="cuda")(batch, fams)
     cuda_s = time.monotonic() - t0
-    launches = sg.segment_gemm.launches
+    launches = read_launches("operators")
     t0 = time.monotonic()
     ofams = UmiGrouper(gp, backend="cpu")(batch)
     ocons = ConsensusCaller(cp, backend="cpu")(batch, ofams)
@@ -1018,8 +1283,6 @@ def operators_phase() -> int:
     for f in ("family_id", "molecule_id", "pair_id", "n_families", "n_molecules"):
         if not np.array_equal(np.asarray(getattr(fams, f)), np.asarray(getattr(ofams, f))):
             raise AssertionError(f"operators: UmiGrouper {f} differs between backends")
-    if launches == 0:
-        raise AssertionError("the cuda ConsensusCaller launched segment_gemm no time")
     for f in ("valid", "depth"):
         if not np.array_equal(np.asarray(getattr(cons, f)), np.asarray(getattr(ocons, f))):
             raise AssertionError(f"operators: ConsensusCaller {f} differs between backends")
@@ -1044,7 +1307,7 @@ def operators_phase() -> int:
          families=int(fams.n_families), molecules=int(fams.n_molecules),
          consensus=int(np.asarray(cons.valid).sum()), ids_identical=True,
          tie_cycles=int(tie.sum()), cycles=int(sa.size), max_qual_diff=int(dq.max(initial=0)),
-         launches={"segment_gemm": launches}, cuda_seconds=round(cuda_s, 3),
+         launches=launches, cuda_seconds=round(cuda_s, 3),
          cpu_backend_seconds=round(cpu_s, 3), phase_seconds=round(time.monotonic() - t_phase, 3))
     return launches
 
@@ -1061,7 +1324,6 @@ def stream_phases(gp, smi: str, bench_cache: str):
     from duplexumiconsensusreads_torch import benchmark
     from duplexumiconsensusreads_torch.io import native_reader, read_bam, simulated_bam
     from duplexumiconsensusreads_torch.io.bai import build_bai
-    from duplexumiconsensusreads_torch.kernels import segment_gemm as sg
     from duplexumiconsensusreads_torch.ops import pipeline
     from duplexumiconsensusreads_torch.runtime import faults
     from duplexumiconsensusreads_torch.runtime.executor import busy_wall_table
@@ -1082,7 +1344,7 @@ def stream_phases(gp, smi: str, bench_cache: str):
         ckpt = os.path.join(td, "stream.ckpt")
         in_bam, sim_s = benchmark._e2e_input(STREAM_READS, bench_cache)
         torch.cuda.synchronize()
-        sg.segment_gemm.launches = 0
+        reset_launches()
         torch.cuda.reset_peak_memory_stats()
         ref_ev = torch.cuda.Event(enable_timing=True)
         ref_ev.record()
@@ -1094,10 +1356,8 @@ def stream_phases(gp, smi: str, bench_cache: str):
             rep = stream_call_consensus(in_bam, out_bam, gp, cp, device="cuda",
                                         trace_path=trace, checkpoint_path=ckpt, **settings)
         wall = time.monotonic() - t0
-        launches = sg.segment_gemm.launches
+        launches = read_launches("stream")
         peak_mem = torch.cuda.max_memory_allocated()
-        if launches == 0:
-            raise AssertionError("the streaming path launched segment_gemm no time")
         if rep.n_chunks < 4:
             raise AssertionError(f"{rep.n_chunks} chunks: the stream phase wants >= 4")
         with open(ckpt) as f:
@@ -1144,7 +1404,7 @@ def stream_phases(gp, smi: str, bench_cache: str):
             bytes_h2d=rep.bytes_h2d, bytes_d2h=rep.bytes_d2h, bytes_ledger=summary["bytes"],
             h2d_rungs=h2d_rungs, d2h_rungs=d2h_rungs,
             first_call_seconds=[r["compile_s"] for r in recs if r.get("name") == "jit_compile"],
-            max_memory_allocated=peak_mem, launches={"segment_gemm": launches},
+            max_memory_allocated=peak_mem, launches=launches,
             fused_pipeline_calls=len(spans),
             fused_pipeline_span_ms=[round(b - a, 3) for a, b in spans],
             fused_pipeline_span_sum_ms=sum(b - a for a, b in spans),
@@ -1154,6 +1414,7 @@ def stream_phases(gp, smi: str, bench_cache: str):
             shard_codecs=codecs, trace_sum_check=check, nvidia_smi=smi,
         )
         del cap, recs, out_recs
+        stream_turns(in_bam, out_bam, gp, cp, settings, td, smi)
 
         # ---- stream_small_reference: card vs CPU, then the knobs
         small = os.path.join(td, "small.bam")
@@ -1283,7 +1544,6 @@ def ladder_phase(in_bam: str, out_bam: str, gp, cp, settings: dict, td: str, smi
 
     from duplexumiconsensusreads_torch.io import read_bam
     from duplexumiconsensusreads_torch.kernels import consensus
-    from duplexumiconsensusreads_torch.kernels import segment_gemm as sg
     from duplexumiconsensusreads_torch.runtime import faults
     from duplexumiconsensusreads_torch.runtime.stream import stream_call_consensus
 
@@ -1291,7 +1551,7 @@ def ladder_phase(in_bam: str, out_bam: str, gp, cp, settings: dict, td: str, smi
     off = read_bam(out_bam)[1]
     runs, captures = {}, {}
     torch.cuda.synchronize()
-    sg.segment_gemm.launches = 0
+    reset_launches()
     for name, ladder in (("auto", "auto"), ("explicit", LADDER)):
         out = os.path.join(td, f"ladder_{name}.bam")
         trace = os.path.join(td, f"ladder_{name}.trace.jsonl")
@@ -1337,9 +1597,7 @@ def ladder_phase(in_bam: str, out_bam: str, gp, cp, settings: dict, td: str, smi
             torch.cuda.synchronize()
             rung_calls = {r: keep.calls[r] for r in want}
         del keep, got
-    launches = sg.segment_gemm.launches
-    if launches == 0:
-        raise AssertionError("the ladder runs launched segment_gemm no time")
+    launches = read_launches("ladder")
     del off
 
     # byte identity where the output cannot depend on the buckets' make-up
@@ -1382,7 +1640,7 @@ def ladder_phase(in_bam: str, out_bam: str, gp, cp, settings: dict, td: str, smi
         raise AssertionError("the resume under another ladder changed the bytes")
     emit("ladder", config="config5 (min_duplex_reads=1)",
          ladders={"auto": "auto", "explicit": LADDER}, runs=runs,
-         launches={"segment_gemm": launches},
+         launches=launches,
          byte_identity={"config": "config5 with error_model=None", "runs": ident,
                         "resume": {"kill": "ckpt.save:3:kill", "killed_under": "auto",
                                    "resumed_under": LADDER, "committed_before_kill": committed,
@@ -1509,7 +1767,6 @@ def race_phase(smi: str) -> int:
 
     from duplexumiconsensusreads_torch.bucketing import stack_buckets
     from duplexumiconsensusreads_torch.interop import ARRAY_KEYS, stacked_from_numpy
-    from duplexumiconsensusreads_torch.kernels import segment_gemm as sg
     from duplexumiconsensusreads_torch.ops.pipeline import fused_pipeline
     from duplexumiconsensusreads_torch.runtime.executor import partition_buckets, resolve_device
     from duplexumiconsensusreads_torch.tuning import race_ssc_methods
@@ -1518,12 +1775,13 @@ def race_phase(smi: str) -> int:
     t_phase = time.monotonic()
     dev = resolve_device("cuda")
     torch.cuda.synchronize()
-    sg.segment_gemm.launches = 0
+    reset_launches()
     race = race_ssc_methods(blockseg_ts=(64, 128, 256))
-    launches = sg.segment_gemm.launches
+    torch.cuda.synchronize()
+    launches = read_launches("race")
     race_s = time.monotonic() - t_phase
-    if launches == 0 or race["backend"] != dev.type:
-        raise AssertionError(f"race: {launches} segment_gemm launches on {race['backend']}")
+    if race["backend"] != dev.type:
+        raise AssertionError(f"race ran on {race['backend']}")
 
     gp, cp, n_reads, buckets = race_workload()
 
@@ -1584,7 +1842,7 @@ def race_phase(smi: str) -> int:
                 raise AssertionError(f"blockseg run to run: {key} differs")
     emit("race", n_reads=race["n_reads"], capacity=race["capacity"], reps=race["reps"],
          methods=race["methods"], winner=race["winner"], winner_method=race["winner_method"],
-         race_seconds=round(race_s, 3), launches={"segment_gemm": launches},
+         race_seconds=round(race_s, 3), launches=launches,
          parity_vs_segment_gemm=parity, blockseg_run_to_run_identical=True,
          classes=len(ref), phase_seconds=round(time.monotonic() - t_phase, 3), nvidia_smi=smi)
     return launches
@@ -1602,7 +1860,6 @@ def bench_phase(bench_cache: str, smi: str):
 
     from duplexumiconsensusreads_torch import benchmark
     from duplexumiconsensusreads_torch.kernels import consensus
-    from duplexumiconsensusreads_torch.kernels import segment_gemm as sg
     from duplexumiconsensusreads_torch.tools import profile_components, profile_phases
 
     knobs = dict(
@@ -1617,7 +1874,7 @@ def bench_phase(bench_cache: str, smi: str):
         DUT_PROF_READS=str(BENCH_PROF_READS),
     )
     torch.cuda.synchronize()
-    sg.segment_gemm.launches = 0
+    reset_launches()
     t0 = time.monotonic()
     with environ(**knobs), \
             RungKeeper(consensus, key=lambda big, f_max: (*big.shape[1:], f_max)) as keep:
@@ -1633,7 +1890,7 @@ def bench_phase(bench_cache: str, smi: str):
                     raise AssertionError(f"{tool.__name__} failed")
             tools[tool.__name__.rsplit(".", 1)[1]] = json.loads(out.getvalue().splitlines()[-1])
         tools_s = time.monotonic() - t1
-    launches = sg.segment_gemm.launches
+    launches = read_launches("bench")
     if len(lines[-1]) >= 1400:
         raise AssertionError(f"the bench's compact line is {len(lines[-1])} bytes")
     compact, full = json.loads(lines[-1]), json.loads(lines[-2])
@@ -1664,12 +1921,10 @@ def bench_phase(bench_cache: str, smi: str):
     for name, res in tools.items():
         if res["device"] != "cuda" or not all(r["step_s"] > 0 for r in res["rows"].values()):
             problems.append(f"{name} {res}")
-    if launches == 0:
-        problems.append("the bench launched segment_gemm no time")
     if problems:
         raise AssertionError(f"bench: {problems}")
     emit("bench", compact=compact, full=full, profile_components=tools["profile_components"],
-         profile_phases=tools["profile_phases"], launches={"segment_gemm": launches},
+         profile_phases=tools["profile_phases"], launches=launches,
          segment_gemm_shapes=sorted(list(sh) for sh in keep.shapes),
          bench_seconds=round(bench_s, 3), tools_seconds=round(tools_s, 3), knobs=knobs,
          nvidia_smi=smi)

@@ -12,6 +12,7 @@ existing file. Nothing here runs at import time.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -25,7 +26,7 @@ CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
 
 # every CUDA source of the package; build_all compiles them in parallel
-SOURCES = ("segment_gemm",)
+SOURCES = ("segment_gemm", "cluster_fixpoint")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -98,6 +99,17 @@ def build_all(names=SOURCES) -> dict[str, float]:
     if errors:
         raise RuntimeError("\n".join(errors))
     return secs
+
+
+def device_guard(device):
+    """``torch.cuda.device(device)`` when ``device`` is not the current
+    CUDA device (a kernel launches on the current one), else nothing:
+    the guard costs a launch a few microseconds of host time."""
+    import torch
+
+    if device.index is None or device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -31,6 +31,7 @@ from duplexumiconsensusreads_torch.constants import (
     NO_CALL_QUAL,
 )
 from duplexumiconsensusreads_torch.kernels.segment_gemm import (
+    padded_rows,
     segment_gemm,
     segment_gemm_plain,
 )
@@ -84,7 +85,10 @@ def _evidence_columns(
 ):
     """(N, R, C) evidence block: loglik contributions (4L)[, depth
     indicators (L)], read-count (1)[, real-masked base counts (4L) for
-    the err reduction]."""
+    the err reduction]. Written into a ``padded_rows`` buffer, so the
+    block is a view whose rows start 16 bytes apart (segment_gemm's
+    kernel copies them 16 bytes at a time); its values are those of
+    the columns concatenated."""
     n, r, l = bases.shape
     contrib, real = _contributions(bases, quals, ok, max_input_qual, min_input_qual)
     cols = [contrib.reshape(n, r, 4 * l)]
@@ -97,7 +101,12 @@ def _evidence_columns(
             & (real > 0)[..., None]
         ).to(torch.float32)
         cols.append(oh.reshape(n, r, 4 * l))
-    return torch.cat(cols, dim=-1)
+    big = padded_rows(n, r, sum(x.shape[-1] for x in cols), bases.device)
+    c0 = 0
+    for x in cols:
+        big[..., c0 : c0 + x.shape[-1]] = x
+        c0 += x.shape[-1]
+    return big
 
 
 def _reduce_runsum(big: torch.Tensor, sfid: torch.Tensor, f_max: int) -> torch.Tensor:
@@ -246,7 +255,8 @@ def ssc_kernel(
     big = _evidence_columns(
         bases, quals, ok, max_input_qual, min_input_qual, want_err, want_depth
     )
-    out = _reduce(big.contiguous(), fid.contiguous(), f_max, method, blockseg_t=blockseg_t)
+    # every method takes the padded view as it is
+    out = _reduce(big, fid.contiguous(), f_max, method, blockseg_t=blockseg_t)
     del big
 
     loglik = out[..., : 4 * l].reshape(n, f_max, l, 4)

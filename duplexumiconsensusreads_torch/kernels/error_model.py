@@ -11,6 +11,8 @@ a log10, so it does not depend on the device's transcendentals.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from duplexumiconsensusreads_torch.constants import N_REAL_BASES
@@ -40,11 +42,19 @@ def fit_cycle_cap_kernel(
     )
     mism = (contrib & (bases != cb)).sum(dim=1, dtype=torch.int32)
     total = contrib.sum(dim=1, dtype=torch.int32)
-    thr = torch.as_tensor(phred_cap_thresholds(max_phred_cap), device=bases.device)
+    thr = _thresholds_on(max_phred_cap, bases.device)
     m = (mism + 1).to(torch.float32)
     t = (total + 2).to(torch.float32)
     count = (m[..., None] <= t[..., None] * thr).sum(dim=-1, dtype=torch.int32)
     return torch.clamp(count - 1, 2, max_phred_cap).to(torch.int32)
+
+
+@functools.lru_cache(maxsize=None)
+def _thresholds_on(max_phred_cap: int, device: torch.device) -> torch.Tensor:
+    """The threshold table on ``device``, copied there once: a copy from
+    pageable host memory waits for the card's queue to drain, so a copy
+    per call would make the pipeline's host thread wait on the device."""
+    return torch.as_tensor(phred_cap_thresholds(max_phred_cap), device=device)
 
 
 def apply_cycle_cap(quals: torch.Tensor, cycle_cap: torch.Tensor) -> torch.Tensor:

@@ -17,7 +17,8 @@ written out. The algorithm is the same, step for step:
    minimum ancestor key ``rank * U + index`` to a fixpoint — each UMI
    joins the minimum-rank node that reaches it, which is the oracle's
    BFS-with-removal seed (see the JAX module's docstring for the
-   proof).
+   proof). On CUDA the fixpoint is the kernel of
+   ``kernels/cluster_fixpoint.py``.
 4. Dense ids come from the table: molecule id = rank of the slot's
    cluster key (pos, seed words); family/unit ids = presence-cumsum
    ranks over the (molecule, frag_end, strand) embeddings.
@@ -32,6 +33,7 @@ from __future__ import annotations
 import torch
 
 from duplexumiconsensusreads_torch.constants import NO_FAMILY
+from duplexumiconsensusreads_torch.kernels.cluster_fixpoint import propagate_min
 from duplexumiconsensusreads_torch.kernels.encoding import pack_umi_words
 
 I32_MAX = 2**31 - 1
@@ -106,18 +108,10 @@ def _directional_cluster(u_words, u_codes, u_pos, u_cnt, u_valid, max_hamming, c
     idx = torch.arange(u, dtype=torch.int32, device=dev)
     s = torch.where(u_valid, rank, torch.full_like(rank, u)) * u + idx
 
-    # min-ancestor propagation: one sweep reaches one more hop; stop when
-    # NO bucket changed (the batched form of the per-bucket while loop —
-    # extra sweeps past a bucket's fixpoint are idempotent). Host sync
-    # once per sweep.
-    big = torch.full((), I32_MAX, dtype=torch.int32, device=dev)
-    for _ in range(u):
-        cand = torch.where(edge, s[:, :, None], big).amin(dim=1)
-        new = torch.minimum(s, cand)
-        if not bool((new != s).any()):
-            break
-        s = new
-    return s % u
+    # min-ancestor propagation to the fixpoint: the hand-written kernel
+    # on CUDA (one launch, no host sync), the batched while loop on the
+    # CPU (kernels/cluster_fixpoint.py)
+    return propagate_min(edge, s, u_pos) % u
 
 
 def group_kernel(

@@ -14,6 +14,7 @@ on the same stacked bucket.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -303,6 +304,17 @@ def analytic_flops(spec: PipelineSpec, r: int, l: int, b: int) -> float:
     return fl
 
 
+@functools.lru_cache(maxsize=None)
+def _qual_lut_on(qual_lut: tuple, none_idx: int, device: torch.device) -> torch.Tensor:
+    """The sub-byte rung's qual alphabet on ``device``, padded to the full
+    index range so the NONE index gathers the pad instead of reading past
+    the end. Copied there once per alphabet: a copy from pageable host
+    memory waits for the card's queue to drain, so a copy per call would
+    make the dispatching thread wait on the device."""
+    return torch.tensor(qual_lut + (0,) * (none_idx + 1 - len(qual_lut)), dtype=torch.uint8,
+                        device=device)
+
+
 def _decode_packed(pos, umi, strand_ab, bases, spec: PipelineSpec):
     """The packed wire convention (byte or sub-byte rung) -> the
     unpacked tensors."""
@@ -314,12 +326,7 @@ def _decode_packed(pos, umi, strand_ab, bases, spec: PipelineSpec):
         code = unpack_bitplanes(bases, spec.cycles_len, 2 + spec.packed_qbits)
         qidx = (code >> 2) & none_idx
         none = qidx == none_idx
-        # the lut padded to the full index range, so the NONE index
-        # gathers the pad instead of reading past the end
-        lut = torch.tensor(
-            tuple(spec.qual_lut) + (0,) * (none_idx + 1 - len(spec.qual_lut)),
-            dtype=torch.uint8, device=bases.device,
-        )
+        lut = _qual_lut_on(tuple(spec.qual_lut), none_idx, bases.device)
         quals = torch.where(none, 0, lut[qidx.long()]).to(torch.uint8)
         bases = torch.where(none, BASE_N, code & 3).to(torch.uint8)
     else:

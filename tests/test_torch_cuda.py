@@ -50,7 +50,8 @@ def _ids(kind: str, rng) -> np.ndarray:
 @pytest.mark.parametrize("kind", KINDS)
 def test_cuda_kernel_matches_plain_bitwise(kind, cuda):
     rng = np.random.default_rng(11)
-    big = torch.from_numpy(rng.standard_normal((N_B, R, C)).astype(np.float32)).to(cuda)
+    # rows 16 bytes apart, as the kernel copies them (C = 70 is not)
+    big = sg.pad_rows(torch.from_numpy(rng.standard_normal((N_B, R, C)).astype(np.float32)).to(cuda))
     fid = torch.from_numpy(_ids(kind, rng)).to(cuda)
     before = sg.segment_gemm.launches
     got = sg.segment_gemm(big, fid, F)
@@ -68,6 +69,9 @@ def test_cuda_wrapper_raises_instead_of_falling_back(cuda):
         sg.segment_gemm(big.transpose(1, 2).contiguous().transpose(1, 2), fid, 4)
     with pytest.raises(ValueError):
         sg.segment_gemm(big, fid.cpu(), 4)
+    # a row stride that is not a multiple of 4 floats
+    with pytest.raises(ValueError):
+        sg.segment_gemm(torch.zeros(2, 8, 7, device=cuda), fid, 4)
 
 
 @pytest.mark.cuda
@@ -196,3 +200,160 @@ def test_cuda_kernel_runs_a_class_past_the_grid_z_limit(cuda):
     torch.cuda.synchronize()
     assert sg.segment_gemm.launches == before + 2
     assert torch.equal(got, sg.segment_gemm_plain(big, fid, f))
+
+
+# ---------------------------------------------- segment_gemm: tiles and tails
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", ((128, 64),) + sg.TILES)
+@pytest.mark.parametrize("kind", KINDS)
+def test_cuda_kernel_matches_plain_at_every_tile(tile, kind, cuda, monkeypatch):
+    rng = np.random.default_rng(5)
+    big = sg.pad_rows(torch.from_numpy(rng.standard_normal((N_B, R, 151)).astype(np.float32))
+                      .to(cuda))
+    fid = torch.from_numpy(_ids(kind, rng)).to(cuda)
+    monkeypatch.setattr(sg, "choose_tiles", lambda n, f, c: tile)
+    got = sg.segment_gemm(big, fid, F)
+    torch.cuda.synchronize()
+    assert torch.equal(got, sg.segment_gemm_plain(big, fid, F))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_b, r, c, f_max", [(1, 2048, 751, 8), (2, 4096, 601, 16),
+                                              (3, 2048, 751, 64), (5, 4096, 751, 2048),
+                                              (2, 5000, 37, 8)])
+def test_cuda_kernel_matches_plain_on_tail_classes(n_b, r, c, f_max, cuda):
+    # a tail class: few buckets, few families at the head of each bucket,
+    # the rest of the rows padding with the overflow id (and a bucket
+    # taller than the kernel's id chunk, 4096 rows)
+    rng = np.random.default_rng(r + f_max)
+    live = rng.integers(1, r // 4, n_b)
+    fid = np.full((n_b, r), f_max, np.int32)
+    for b, k in enumerate(live):
+        fid[b, :k] = np.sort(rng.integers(0, f_max, k))
+    fid[0, -3:] = -1
+    big = sg.pad_rows(torch.from_numpy(rng.standard_normal((n_b, r, c)).astype(np.float32))
+                      .to(cuda))
+    fid_t = torch.from_numpy(fid).to(cuda)
+    got = sg.segment_gemm(big, fid_t, f_max)
+    torch.cuda.synchronize()
+    assert torch.equal(got, sg.segment_gemm_plain(big, fid_t, f_max))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", KINDS)
+def test_cuda_kernel_matches_plain_on_buckets_taller_than_an_id_chunk(kind, cuda):
+    # 9000 rows: the kernel lists each 4096-row id chunk's rows of its
+    # families in turn, and a family's sum runs on across chunks
+    rng = np.random.default_rng(13)
+    n_b, r, c = 2, 9000, 68
+    fid = np.concatenate([_ids(kind, rng) for _ in range(-(-r // R) * 2)], axis=1)
+    fid = np.ascontiguousarray(fid.reshape(-1)[: n_b * r].reshape(n_b, r))
+    big = torch.from_numpy(rng.standard_normal((n_b, r, c)).astype(np.float32)).to(cuda)
+    fid_t = torch.from_numpy(fid).to(cuda)
+    got = sg.segment_gemm(big, fid_t, F)
+    torch.cuda.synchronize()
+    assert torch.equal(got, sg.segment_gemm_plain(big, fid_t, F))
+
+
+# ----------------------------------------------------- the grouping fixpoint
+
+I32_MAX = 2**31 - 1
+FIXPOINT_KINDS = ("groups", "chain_up", "chain_down", "empty", "all_invalid", "dense",
+                  "unsorted")
+
+
+def fixpoint_case(kind: str, n: int, u: int, rng):
+    """(edge, s0, u_pos) numpy for n buckets of u slots: position groups
+    in ascending slot order (shuffled for "unsorted"), invalid slots at
+    the tail, edges only within a group, s0 = rank * u + slot."""
+    edge = np.zeros((n, u, u), bool)
+    u_pos = np.full((n, u), I32_MAX, np.int32)
+    rank = np.full((n, u), u, np.int64)
+    for b in range(n):
+        n_valid = 0 if kind == "all_invalid" else int(rng.integers(u // 2, u + 1))
+        if kind in ("chain_up", "chain_down", "dense"):
+            n_valid, sizes = u, [u]
+        else:
+            sizes = []
+            while sum(sizes) < n_valid:
+                sizes.append(int(min(rng.integers(1, 65), n_valid - sum(sizes))))
+        pos = np.repeat(np.arange(len(sizes), dtype=np.int32) * 3, sizes)
+        if kind == "unsorted":
+            pos = rng.permutation(pos)
+        u_pos[b, :n_valid] = pos
+        rank[b, :n_valid] = rng.permutation(n_valid)
+        same = u_pos[b, :, None] == u_pos[b, None, :]
+        if kind in ("groups", "unsorted"):
+            edge[b] = same & (rng.random((u, u)) < 0.05)
+        elif kind == "dense":
+            edge[b] = same
+        elif kind in ("chain_up", "chain_down"):
+            k = np.arange(u - 1)
+            # the chain starts at its least key: slot 0 climbing, or the
+            # last slot walking down one slot per ascending sweep
+            if kind == "chain_up":
+                edge[b, k, k + 1] = True
+                rank[b] = np.arange(u)
+            else:
+                edge[b, k + 1, k] = True
+                rank[b] = np.arange(u)[::-1]
+        edge[b] &= ~np.eye(u, dtype=bool)
+        edge[b] &= (u_pos[b] != I32_MAX)[:, None] & (u_pos[b] != I32_MAX)[None, :]
+    s0 = (rank * u + np.arange(u)).astype(np.int32)
+    return edge, s0, u_pos
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", FIXPOINT_KINDS)
+@pytest.mark.parametrize("n, u", [(6, 64), (3, 256), (3, 1024), (2, 2048)])
+def test_cuda_fixpoint_matches_plain(kind, n, u, cuda):
+    # "dense" at u 1024 and 2048 has more in-group edges than the
+    # kernel's list holds: it sweeps over the edge grid instead
+    from duplexumiconsensusreads_torch.kernels import cluster_fixpoint as cf
+
+    edge, s0, u_pos = (torch.from_numpy(a).to(cuda)
+                       for a in fixpoint_case(kind, n, u, np.random.default_rng(u)))
+    if kind == "dense" and u >= 1024:
+        assert int(edge[0].sum()) > cf.default_list_cap(u)
+    before = cf.propagate_min.launches
+    got = cf.propagate_min(edge, s0, u_pos)
+    torch.cuda.synchronize()
+    assert cf.propagate_min.launches == before + 1
+    want = cf.propagate_min_plain(edge, s0, u_pos)
+    assert torch.equal(got, want)
+    if kind == "chain_down":
+        assert (got % u == u - 1).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("strategy", ["adjacency", "cluster"])
+def test_cuda_group_kernel_matches_cpu_without_a_host_sync(strategy, cuda):
+    from duplexumiconsensusreads_torch.bucketing import build_buckets, stack_buckets
+    from duplexumiconsensusreads_torch.kernels import cluster_fixpoint as cf
+    from duplexumiconsensusreads_torch.kernels.grouping import group_kernel
+    from duplexumiconsensusreads_torch.simulate import SimConfig, simulate_batch
+    from duplexumiconsensusreads_torch.types import GroupingParams
+
+    batch, _ = simulate_batch(SimConfig(n_molecules=300, read_len=20, n_positions=12,
+                                        umi_error=0.03, duplex=True, seed=9))
+    gp = GroupingParams(strategy=strategy, paired=True)
+    st = stack_buckets([b for b in build_buckets(batch, capacity=256, grouping=gp)
+                        if b.capacity == 256 and not b.preclustered])
+    args = [torch.from_numpy(np.ascontiguousarray(st[k]))
+            for k in ("pos", "umi", "strand_ab", "frag_end", "valid")]
+    kw = dict(strategy=strategy, paired=True, u_max=256, presorted=True,
+              count_ratio=gp.effective_count_ratio)
+    want = group_kernel(*args, **kw)
+    dev_args = [a.to(cuda) for a in args]
+    torch.cuda.synchronize()
+    before = cf.propagate_min.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = group_kernel(*dev_args, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert cf.propagate_min.launches == before + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)

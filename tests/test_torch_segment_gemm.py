@@ -119,3 +119,105 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(
     fid = torch.zeros(fid_shape, dtype=fid_dtype)
     with pytest.raises(err):
         sg.segment_gemm(big, fid, 4)
+
+
+# ---------------------------------------------------------------- row layout
+
+
+def _cat_evidence(bases, quals, ok, want_err, want_depth):
+    """The evidence block as torch.cat of its columns (its form before
+    the padded buffer)."""
+    from duplexumiconsensusreads_torch.kernels import consensus
+
+    n, r, l = bases.shape
+    contrib, real = consensus._contributions(bases, quals, ok, 50, 0)
+    cols = [contrib.reshape(n, r, 4 * l)]
+    if want_depth:
+        cols.append(real)
+    cols.append(ok.to(torch.float32)[..., None])
+    if want_err:
+        oh = ((bases[..., None] == torch.arange(4, dtype=bases.dtype)) & (real > 0)[..., None])
+        cols.append(oh.to(torch.float32).reshape(n, r, 4 * l))
+    return torch.cat(cols, dim=-1)
+
+
+@pytest.mark.parametrize("mode", ["fit", "full", "err"])
+@pytest.mark.parametrize("l", [150, 37])
+def test_padded_evidence_view_equals_concatenated_columns(mode, l):
+    from duplexumiconsensusreads_torch.kernels import consensus
+
+    rng = np.random.default_rng(l)
+    bases = torch.from_numpy(rng.integers(0, 6, (2, 40, l)).astype(np.uint8))
+    quals = torch.from_numpy(rng.integers(0, 60, (2, 40, l)).astype(np.uint8))
+    ok = torch.from_numpy(rng.random((2, 40)) < 0.8)
+    want_err, want_depth = mode == "err", mode != "fit"
+    got = consensus._evidence_columns(bases, quals, ok, 50, 0, want_err, want_depth)
+    want = _cat_evidence(bases, quals, ok, want_err, want_depth)
+    c = {"fit": 4 * l + 1, "full": 5 * l + 1, "err": 9 * l + 1}[mode]
+    assert got.shape == want.shape == (2, 40, c)
+    assert got.stride() == (40 * -(-c // 4) * 4, -(-c // 4) * 4, 1)
+    # byte for byte: -0.0, and the NaN of an invalid read's qual-0
+    # cycle (-inf * 0), come through as they are
+    assert got.contiguous().numpy().tobytes() == want.numpy().tobytes()
+    sg.check_kernel_layout(got)
+
+
+@pytest.mark.parametrize("method", ["segment_gemm", "matmul", "segment", "blockseg", "runsum"])
+def test_every_ssc_method_sums_the_view_as_its_contiguous_copy(method, rng):
+    from duplexumiconsensusreads_torch.kernels import consensus
+
+    big = sg.pad_rows(torch.from_numpy(rng.standard_normal((N_B, R, C + 1)).astype(np.float32)))
+    assert not big.is_contiguous() and torch.equal(big, big.contiguous())
+    fid = torch.from_numpy(np.sort(_ids("overflow", rng), axis=1).astype(np.int32))
+    fid = torch.where(fid >= F, F, fid)
+    got = consensus._reduce(big, fid, F, method, blockseg_t=32)
+    want = consensus._reduce(big.contiguous(), fid, F, method, blockseg_t=32)
+    assert got.numpy().tobytes() == want.numpy().tobytes()
+
+
+def test_kernel_layout_check_raises_on_strides_it_does_not_take():
+    ok = sg.padded_rows(2, 8, 751, "cpu")
+    sg.check_kernel_layout(ok)
+    sg.check_kernel_layout(torch.zeros(2, 8, 12))  # contiguous, C % 4 == 0
+    buf = torch.zeros(2, 8, 752)
+    bad = {
+        "odd contiguous row stride": torch.zeros(2, 8, 751),
+        "column stride": torch.zeros(2, 12, 8).transpose(1, 2),
+        "16-byte start": buf[..., 1:],
+        "storage ends inside the last chunk": torch.zeros(15 * 752 + 751)
+        .as_strided((2, 8, 751), (8 * 752, 752, 1)),
+    }
+    for name, x in bad.items():
+        with pytest.raises(ValueError):
+            sg.check_kernel_layout(x)
+            pytest.fail(name)
+
+
+# (N, f_max, C) of every segment_gemm launch chip_smoke.py holds: the
+# whole file, the per-base width, ladder rungs 2048/512/256 and the
+# bench phase's 14 shapes, and beside them tail classes of 1-5 buckets
+# at every f_max 8-2048
+SMOKE_SHAPES = sorted(
+    {(280, 1024, 751), (280, 1024, 1351), (224, 1024, 751), (62, 256, 751), (120, 128, 751),
+     (1, 64, 601), (1, 256, 601), (1, 512, 601), (280, 1024, 601), (5, 2048, 601), (1, 8, 751),
+     (1, 16, 751), (1, 64, 751), (5, 256, 751), (91, 512, 751), (5, 2048, 751), (1, 2048, 751),
+     (49, 4096, 751)}
+    | {(n, f, c) for n in range(1, 6) for f in (8, 16, 32, 64, 128, 256, 512, 1024, 2048)
+       for c in (601, 751)}
+)
+
+
+@pytest.mark.parametrize("n, f_max, c", SMOKE_SHAPES)
+def test_tile_chooser_never_shrinks_the_grid_and_fills_the_card(n, f_max, c):
+    ct, ft = sg.choose_tiles(n, f_max, c)
+    assert (ct, ft) in sg.TILES
+    blocks = sg.grid_blocks(n, f_max, c, ct, ft)
+    # the first kernel's grid: 128 columns x 64 families a block
+    assert blocks >= -(-c // 128) * -(-f_max // 64) * n
+    assert all(ct_ <= 128 and ft_ <= 64 for ct_, ft_ in sg.TILES)
+    most = sg.grid_blocks(n, f_max, c, *sg.TILES[-1])
+    assert blocks >= min(sg.MIN_BLOCKS, most)
+    # and no smaller tile than that needs
+    if (ct, ft) != sg.TILES[0]:
+        prev = sg.TILES[sg.TILES.index((ct, ft)) - 1]
+        assert sg.grid_blocks(n, f_max, c, *prev) < sg.MIN_BLOCKS
