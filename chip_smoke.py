@@ -10,7 +10,8 @@ the bench's size; the same call with per-base tags and a BAI; the
 config5 streaming call through ``stream_call_consensus`` on the bench's
 ~2M-read e2e workload in 500k-read chunks, also under the bucket
 ladder, with its captures read back by the port's analysers and tools;
-the CLI workflow (simulate, call, filter, validate, group) on the
+the service path on that input (follow mode, the serve daemon with a
+takeover, scatter-gather shards); the CLI workflow (simulate, call, filter, validate, group) on the
 whole-file input; the UmiGrouper/ConsensusCaller operators; and the
 ssc-method race — reading through the native BAM loader and deflating
 through it, and holds every hand-written kernel of those paths against
@@ -65,10 +66,28 @@ line:
           wall, the native reader and every shard's deflate codec;
           then a sum-check of the trace's spans against the report's
           seconds
-  stream_turns  the stream cell again in turns, plain fixpoint, kernel,
-          kernel, plain: each turn's reads/s, dispatch and
-          device_wait_fetch busy seconds and ledger.wire_floor, with bytes
-          identical to the stream phase's
+  stream_turns  the stream cell again in two turns, plain fixpoint then
+          kernel: each turn's reads/s, dispatch and device_wait_fetch busy
+          seconds and ledger.wire_floor, with bytes identical to the
+          stream phase's
+  live    follow mode: a paced writer appends the stream cell's input
+          (whole BGZF blocks, over LIVE_APPEND_S) while the port follows
+          it on the card with a snapshot per committed chunk; the output
+          equals the stream phase's bytes, every snapshot is an indexed
+          BAM whose bytes prefix them; the time to the first snapshot and
+          the lag from the last append to the published output
+  serve   an in-process ConsensusService on the card runs a job on the
+          stream cell's input and two smaller ones under a chunk budget
+          that preempts the large job; each output equals its one-shot
+          stream with serve_provenance; per-job wall, queue wait and
+          one-shot wall. Then daemon A (a subprocess) is SIGKILLed after
+          its first committed chunk and daemon B --once takes the job
+          over: bytes equal, token >= 2, the port's serve_report reads
+          n_takeovers 1 and n_fenced 0; the takeover gap
+  shard   ``call --submit --shards 4 --write-index`` of the stream cell's
+          input run by two daemon subprocesses: ``call --wait`` exits 0,
+          the merged BAM and .bai equal the unsharded one-shot run's; the
+          sharded and unsharded walls
   stream_small_reference  a small paired config5 input streamed on the
           card and on the CPU (plain versions) must agree record by
           record, with per-base tags and a BAI too; on the card,
@@ -126,20 +145,24 @@ line:
           per_config at its default, the tuner leg, the wire probe, the
           e2e leg on the stream phase's input (reused from the bench's
           cache), the packed / d2h / ingest-overlap A/B legs at one
-          chunk and the CPU e2e denominator at one chunk, one rep; then
+          chunk, the serve_n_jobs leg (two jobs) and the live_follow leg
+          at the serve phase's small-job size, and the CPU e2e
+          denominator at one chunk, one rep; then
           ``tools.profile_components`` and ``tools.profile_phases`` at
           BENCH_PROF_READS. Its compact and full result lines, checked:
           value > 0, peak entry h100-sxm-f32, five per_config rows, the
-          e2e, A/B and tuner keys, the wire probe's MB/s, every
+          e2e, A/B, serve, live and tuner keys, the wire probe's MB/s, every
           ``*_skipped`` string, no ``*_error`` key, a consensus error
           rate below a tenth of the simulator's base error
   kernel_bench  the bench phase's largest segment_gemm launch at each
           (rows, columns, f_max): the kernel against its plain version
           (tolerance 0), and the kernel, plain, index_add_ and bound ms
 
-Every path (whole_file, stream, per_base, workflow, operators, ladder,
-race, bench) must launch both kernels: segment_gemm and the grouping
-fixpoint (cluster_fixpoint). Then the nvidia-smi line, the ``kernels``
+Every path (whole_file, stream, per_base, workflow, operators, live,
+serve, shard, ladder, race, bench) must launch both kernels:
+segment_gemm and the grouping fixpoint (cluster_fixpoint); the serve
+and shard paths count the daemon subprocesses' launches too (each
+daemon writes its counts at exit). Then the nvidia-smi line, the ``kernels``
 JSON line (one row per kernel with its launches per path; under
 segment_gemm a ``rung_shapes`` sub-row with the kernel, plain,
 library and bound ms at each explicit ladder rung's largest launch,
@@ -185,6 +208,27 @@ LADDER = "256,512,2048"
 # (tests/test_perf_kernels.py): bases off on under 1e-3 of cycles,
 # quals off on under 10 % with a largest gap of 15
 RUNSUM_BASE_FRAC, RUNSUM_QUAL_FRAC, RUNSUM_QUAL_GAP = 1e-3, 0.10, 15
+# the live phase: the writer appends the stream cell's input over this
+# many seconds, one write of whole BGZF blocks every LIVE_WRITE_S
+LIVE_APPEND_S, LIVE_WRITE_S = 8.0, 0.01
+# the serve phase: the jobs' config (the stream cell's, as call flags),
+# the chunk budget that preempts the large job for the two small ones,
+# and the small jobs' inputs (the bench's serve/live leg size, so the
+# bench phase finds them in its cache)
+# (with an index: the shard phase's job, submitted through the CLI,
+# has the same @PG line and so reuses the large job's reference)
+SERVE_CONFIG = dict(grouping="adjacency", mode="duplex", error_model="cycle",
+                    min_duplex_reads=1, capacity=2048, chunk_reads=500_000, max_inflight=4,
+                    drain_workers=2, prefetch_depth=2, packed="auto", ingest_overlap="auto",
+                    write_index=True)
+SERVE_CHUNK_BUDGET = 4
+# the takeover job: the larger small input in chunks small enough that
+# the kill lands between commits
+TAKEOVER_CHUNK_READS = 50_000
+SERVE_SMALL_READS = (125_000, 250_000)
+SERVE_DAEMON_TIMEOUT_S = 300
+# the shard phase: one job of the stream cell's input split four ways
+SHARDS = 4
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (data sheet)
 F32_FLOPS = 67e12  # H100 SXM f32 rate outside the tensor cores (data sheet)
 
@@ -696,7 +740,7 @@ def main() -> int:
     # the bench's input cache: the stream phase simulates its input
     # there, and the bench phase's e2e leg reuses it
     bench_cache = tempfile.TemporaryDirectory(prefix="chip_smoke_bench_")
-    launches["stream"], launches["ladder"], rung_calls = stream_phases(gp, smi, bench_cache.name)
+    rung_calls = stream_phases(gp, smi, bench_cache.name, launches)
     # each explicit rung's largest launch of the ladder run: the kernel
     # against its plain version (tolerance 0), and its times
     rung_shapes = {}
@@ -735,8 +779,8 @@ def main() -> int:
     seg_row["max_abs_err"] = max(row["max_abs_err"] for row in kernel_rows + [pb_case])
     seg_row["rung_shapes"] = rung_shapes
     seg_row["bench_shapes"] = bench_shapes
-    paths = ("whole_file", "stream", "per_base", "workflow", "operators", "ladder", "race",
-             "bench")
+    paths = ("whole_file", "stream", "per_base", "workflow", "operators", "live", "serve",
+             "shard", "ladder", "race", "bench")
     seg_row["launches"] = {k: launches[k]["segment_gemm"] for k in paths}
     fix_row["launches"] = {k: launches[k]["cluster_fixpoint"] for k in paths}
 
@@ -960,11 +1004,11 @@ def sync_debug_phase(group_args, full, spec, smi: str) -> None:
 
 
 def stream_turns(in_bam: str, out_bam: str, gp, cp, settings: dict, td: str, smi: str) -> None:
-    """The stream cell again in turns, plain fixpoint, kernel, kernel,
-    plain (the plain version patched into grouping as the phases'
-    wrappers patch modules): each turn's reads/s, dispatch and
-    device_wait_fetch busy seconds and wire floor (from its capture),
-    and bytes identical to the stream phase's output."""
+    """The stream cell again in two turns, plain fixpoint then kernel
+    (the plain version patched into grouping as the phases' wrappers
+    patch modules): each turn's reads/s, dispatch and device_wait_fetch
+    busy seconds and wire floor (from its capture), and bytes identical
+    to the stream phase's output."""
     import torch
 
     from duplexumiconsensusreads_torch.kernels import cluster_fixpoint as cf
@@ -974,7 +1018,7 @@ def stream_turns(in_bam: str, out_bam: str, gp, cp, settings: dict, td: str, smi
 
     want = read_bytes(out_bam)
     rows = []
-    for i, turn in enumerate(("plain", "kernel", "kernel", "plain")):
+    for i, turn in enumerate(("plain", "kernel")):
         out = os.path.join(td, f"turn{i}.bam")
         trace = os.path.join(td, f"turn{i}.trace.jsonl")
         if turn == "plain":
@@ -1312,12 +1356,13 @@ def operators_phase() -> int:
     return launches
 
 
-def stream_phases(gp, smi: str, bench_cache: str):
-    """The streaming path: the "stream", "stream_small_reference",
-    "stream_resume", "ladder" and "capture" phases, on the bench's e2e
-    input simulated into ``bench_cache``. Returns segment_gemm's
-    launches on the full-width streaming run and on the ladder runs,
-    and the ladder run's largest launch at each explicit rung."""
+def stream_phases(gp, smi: str, bench_cache: str, launches: dict):
+    """The streaming path: the "stream", "stream_turns", "live", "serve",
+    "shard", "stream_small_reference", "stream_resume", "ladder" and
+    "capture" phases, on the bench's e2e input simulated into
+    ``bench_cache``. Fills ``launches`` for the stream, live, serve,
+    shard and ladder paths and returns the ladder run's largest launch
+    at each explicit rung."""
     import numpy as np
     import torch
 
@@ -1356,7 +1401,7 @@ def stream_phases(gp, smi: str, bench_cache: str):
             rep = stream_call_consensus(in_bam, out_bam, gp, cp, device="cuda",
                                         trace_path=trace, checkpoint_path=ckpt, **settings)
         wall = time.monotonic() - t0
-        launches = read_launches("stream")
+        launches["stream"] = read_launches("stream")
         peak_mem = torch.cuda.max_memory_allocated()
         if rep.n_chunks < 4:
             raise AssertionError(f"{rep.n_chunks} chunks: the stream phase wants >= 4")
@@ -1404,7 +1449,7 @@ def stream_phases(gp, smi: str, bench_cache: str):
             bytes_h2d=rep.bytes_h2d, bytes_d2h=rep.bytes_d2h, bytes_ledger=summary["bytes"],
             h2d_rungs=h2d_rungs, d2h_rungs=d2h_rungs,
             first_call_seconds=[r["compile_s"] for r in recs if r.get("name") == "jit_compile"],
-            max_memory_allocated=peak_mem, launches=launches,
+            max_memory_allocated=peak_mem, launches=launches["stream"],
             fused_pipeline_calls=len(spans),
             fused_pipeline_span_ms=[round(b - a, 3) for a, b in spans],
             fused_pipeline_span_sum_ms=sum(b - a for a, b in spans),
@@ -1415,6 +1460,12 @@ def stream_phases(gp, smi: str, bench_cache: str):
         )
         del cap, recs, out_recs
         stream_turns(in_bam, out_bam, gp, cp, settings, td, smi)
+        # ---- the service path: follow mode, the daemon, scatter-gather
+        launches["live"] = live_phase(in_bam, out_bam, gp, cp, settings, td, smi)
+        smalls = [benchmark._e2e_input(n, bench_cache)[0] for n in SERVE_SMALL_READS]
+        launches["serve"], ref_large, ref_wall = serve_phase(in_bam, smalls, td, smi)
+        launches["shard"] = shard_phase(in_bam, ref_large, ref_wall, td, smi)
+        torch.cuda.empty_cache()
 
         # ---- stream_small_reference: card vs CPU, then the knobs
         small = os.path.join(td, "small.bam")
@@ -1493,10 +1544,394 @@ def stream_phases(gp, smi: str, bench_cache: str):
         emit("stream_resume", kill="ckpt.save:3:kill", committed_before_kill=committed,
              chunks_skipped=r.n_chunks_skipped, chunks=r.n_chunks, identical=True)
 
-        ladder_launches, rung_calls, captures = ladder_phase(
+        launches["ladder"], rung_calls, captures = ladder_phase(
             in_bam, out_bam, gp, cp, settings, td, smi)
         capture_phase({"stream": (trace, out_bam), **captures}, td, smi)
-    return launches, ladder_launches, rung_calls
+    return rung_calls
+
+
+# a serve daemon run in a subprocess by the serve and shard phases: the
+# port's serve.daemon main, then its kernel launch counts written to
+# the file named by the first argument (the counters live in the
+# daemon's process)
+DAEMON_CHILD = """
+import json, sys
+sys.path.insert(0, {here!r})
+from duplexumiconsensusreads_torch.kernels import cluster_fixpoint, segment_gemm
+from duplexumiconsensusreads_torch.serve import daemon
+rc = daemon.main(sys.argv[2:])
+with open(sys.argv[1], "w") as f:
+    json.dump({{"segment_gemm": segment_gemm.segment_gemm.launches,
+               "cluster_fixpoint": cluster_fixpoint.propagate_min.launches}}, f)
+sys.exit(rc)
+"""
+
+
+def start_daemon(spool: str, daemon_id: str, counts: str, device: str, *extra):
+    """A serve daemon subprocess on ``device``, loading the kernels this
+    process built (its --build-dir is the build directory in force)."""
+    from duplexumiconsensusreads_torch.kernels import build
+    from duplexumiconsensusreads_torch.utils.compile_cache import build_dir
+
+    argv = [sys.executable, "-c", DAEMON_CHILD.format(here=HERE), counts, spool,
+            "--device", device, "--daemon-id", daemon_id, "--poll", "0.05",
+            "--build-dir", build_dir(build.BUILD_DIR), *extra]
+    return subprocess.Popen(argv, cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+
+
+def finish_daemon(proc, timeout_s: float, what: str) -> str:
+    """Wait for a daemon subprocess; raise with its stderr unless it
+    exited 0. Returns its stderr."""
+    try:
+        _, err = proc.communicate(timeout=timeout_s)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        _, err = proc.communicate()
+        raise AssertionError(f"{what} did not finish in {timeout_s} s: {err[-2000:]}")
+    if proc.returncode != 0:
+        raise AssertionError(f"{what} exited {proc.returncode}: {err[-2000:]}")
+    return err
+
+
+def add_launches(total: dict, counts_path: str) -> dict:
+    with open(counts_path) as f:
+        got = json.load(f)
+    return {k: total.get(k, 0) + got[k] for k in got}
+
+
+def job_reference(in_bam: str, out: str, config: dict, device: str) -> tuple[bytes, float]:
+    """The one-shot stream of a job's config with its canonical @PG line
+    (what every service output of the job must equal); its wall."""
+    from duplexumiconsensusreads_torch.runtime.stream import stream_call_consensus
+    from duplexumiconsensusreads_torch.serve.job import job_params, serve_provenance, validate_spec
+
+    spec = validate_spec({"job_id": "ref", "input": in_bam, "output": out, "config": config})
+    gp, cp, kw = job_params(spec)
+    kw.pop("mesh")
+    t0 = time.monotonic()
+    stream_call_consensus(in_bam, out, gp, cp, device=device,
+                          provenance_cl=serve_provenance(config), **kw)
+    return read_bytes(out), time.monotonic() - t0
+
+
+def capture_events(path: str) -> tuple[float, list]:
+    """(the capture's epoch on the machine's monotonic clock, its events)."""
+    recs = [json.loads(line) for line in open(path)]
+    return float(recs[0]["epoch_m"]), [r for r in recs if r.get("type") == "event"]
+
+
+def live_phase(in_bam: str, stream_out: str, gp, cp, settings: dict, td: str, smi: str,
+               device: str = "cuda") -> dict:
+    """Follow mode on the stream cell: a paced writer appends the stream
+    phase's input, whole BGZF blocks at a time over LIVE_APPEND_S, while
+    the port follows it with a snapshot per committed chunk. The final
+    bytes equal the stream phase's output; every snapshot is an indexed
+    BAM whose bytes are a prefix of it. Reports the time to the first
+    snapshot and the lag from the last append to the published output.
+    Returns the kernels' launches on the path."""
+    import threading
+
+    import torch
+
+    from duplexumiconsensusreads_torch.io import bgzf, read_bam
+    from duplexumiconsensusreads_torch.io.bai import read_bai
+    from duplexumiconsensusreads_torch.runtime.stream import stream_call_consensus
+
+    raw = read_bytes(in_bam)
+    blocks = [o + n for o, n in bgzf.iter_block_offsets(raw)]
+    n_writes = int(LIVE_APPEND_S / LIVE_WRITE_S)
+    per = max(1, -(-len(blocks) // n_writes))
+    grow = os.path.join(td, "live_in.bam")
+    out = os.path.join(td, "live_out.bam")
+    snap = out + ".snapshot.bam"
+    open(grow, "wb").close()
+    t_last = [0.0]
+
+    def writer():
+        with open(grow, "ab") as f:
+            prev = 0
+            for i in range(per - 1, len(blocks) + per - 1, per):
+                end = blocks[min(i, len(blocks) - 1)]
+                f.write(raw[prev:end])
+                f.flush()
+                prev = end
+                time.sleep(LIVE_WRITE_S)
+            if prev < len(raw):
+                f.write(raw[prev:])
+        t_last[0] = time.monotonic()
+
+    snaps, t_first = [], [None]
+
+    def progress(_k, rep):
+        if rep.snapshot_seq and t_first[0] is None:
+            t_first[0] = time.monotonic()
+        snaps.append((rep.snapshot_seq, read_bytes(snap), read_bytes(snap + ".bai"),
+                      rep.n_consensus))
+
+    if device == "cuda":
+        torch.cuda.synchronize()
+    reset_launches()
+    wt = threading.Thread(target=writer, daemon=True)
+    t0 = time.monotonic()
+    wt.start()
+    try:
+        rep = stream_call_consensus(grow, out, gp, cp, device=device, follow=True,
+                                    live_poll_s=0.05, snapshot_chunks=1, progress=progress,
+                                    **settings)
+    finally:
+        wt.join(timeout=LIVE_APPEND_S * 4)
+    t_out = time.monotonic()
+    launches = read_launches("live")
+    final = read_bytes(out)
+    if final != read_bytes(stream_out):
+        raise AssertionError("live: the follow output differs from the stream phase's")
+    if wt.is_alive() or rep.snapshot_seq != rep.n_chunks or len(snaps) != rep.n_chunks:
+        raise AssertionError(f"live: {rep.snapshot_seq} snapshots of {rep.n_chunks} chunks")
+    # each snapshot: a byte prefix of the output closed by an EOF block,
+    # whose index counts exactly the records committed when it was
+    # published; the first one is also parsed whole
+    n_prev = -1
+    path = os.path.join(td, "snap_check.bam")
+    for i, (seq, b, bai, n_committed) in enumerate(snaps):
+        if seq != i + 1 or not bgzf.has_eof_block(b):
+            raise AssertionError(f"live: snapshot {i} is not a closed BAM")
+        if b[:-28] != final[:len(b) - 28]:
+            raise AssertionError(f"live: snapshot {i} is not a prefix of the output")
+        with open(path + ".bai", "wb") as f:
+            f.write(bai)
+        idx = read_bai(path + ".bai")
+        n = idx["n_no_coor"] + sum(r["meta"][2] + r["meta"][3] for r in idx["refs"] if r["meta"])
+        if n != n_committed or n <= n_prev:
+            raise AssertionError(f"live: snapshot {i} indexes {n} records, "
+                                 f"{n_committed} committed, {n_prev} before")
+        if i == 0:
+            with open(path, "wb") as f:
+                f.write(b)
+            if len(read_bam(path)[1]) != n:
+                raise AssertionError("live: the first snapshot does not parse to its records")
+        n_prev = n
+    for leftover in (snap, snap + ".bai", out + ".livemark"):
+        if os.path.exists(leftover):
+            raise AssertionError(f"live: {leftover} left behind")
+    emit("live", config="config5 (min_duplex_reads=1)", settings=settings,
+         reads_in=rep.n_records, n_chunks=rep.n_chunks, snapshots=rep.snapshot_seq,
+         append_seconds=round(t_last[0] - t0, 3), blocks=len(blocks), writes=n_writes,
+         first_snapshot_s=round(t_first[0] - t0, 3),
+         lag_last_append_to_output_s=round(t_out - t_last[0], 3),
+         wall_seconds=round(t_out - t0, 3), live_poll_s=rep.seconds["live_poll"],
+         live_wait_s=rep.seconds["live_wait"], bytes_identical_to_stream=True,
+         snapshots_valid_prefixes=True, snapshot_records_last=n_prev, launches=launches,
+         nvidia_smi=smi)
+    os.remove(grow)
+    os.remove(out)
+    return launches
+
+
+def serve_phase(in_bam: str, small_bams: list, td: str, smi: str,
+                device: str = "cuda") -> tuple[dict, str, float]:
+    """The service on the card: an in-process ConsensusService runs a job
+    on the stream cell's input and two smaller jobs under a chunk budget
+    that preempts the large one; each output equals the one-shot stream
+    with serve_provenance. Then daemon A (a subprocess) is SIGKILLed once
+    its job (on the larger small input) has committed a chunk, and
+    daemon B --once takes the job over:
+    the bytes equal the reference, the job's token is 2 or more, and
+    the port's serve_report reads one takeover and no fenced slice.
+    Reports each job's wall and queue wait and the takeover gap.
+    Returns the kernels' launches on the path (B's included), and the
+    large job's one-shot reference (its path, with a .bai, and wall)."""
+    import io
+    import shutil
+    import signal
+
+    import torch
+
+    from duplexumiconsensusreads_torch.serve import ConsensusService, client
+    from duplexumiconsensusreads_torch.tools import serve_report
+
+    config = dict(SERVE_CONFIG)
+    refs = {}
+    for name, path in [("large", in_bam)] + [(f"small{i}", p) for i, p in enumerate(small_bams)]:
+        refs[name] = job_reference(path, os.path.join(td, f"ref_{name}.bam"), config, device)
+    spool = os.path.join(td, "serve_spool")
+    trace = os.path.join(td, "serve.trace.jsonl")
+    jobs = {}
+    for name, path in [("large", in_bam)] + [(f"small{i}", p) for i, p in enumerate(small_bams)]:
+        out = os.path.join(td, f"serve_{name}.bam")
+        jobs[name] = (client.submit(spool, path, out, config=config), out)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.monotonic()
+    svc = ConsensusService(spool, device=device, chunk_budget=SERVE_CHUNK_BUDGET,
+                           trace_path=trace, poll_s=0.05)
+    snap = svc.run_until_idle()
+    serve_wall = time.monotonic() - t0
+    launches = read_launches("serve")
+    if snap["jobs_done"] != len(jobs) or snap["preemptions"] < 1:
+        raise AssertionError(f"serve: {snap}")
+    for name, (jid, out) in jobs.items():
+        ref = os.path.join(td, f"ref_{name}.bam")
+        if read_bytes(out) != refs[name][0] or read_bytes(out + ".bai") != read_bytes(ref + ".bai"):
+            raise AssertionError(f"serve: job {name} differs from its one-shot reference")
+    epoch, events = capture_events(trace)
+    summary = serve_report.summarize([json.loads(line) for line in open(trace)])
+    per_job = {}
+    for name, (jid, _) in jobs.items():
+        acc = next(e["t"] for e in events if e.get("job") == jid and e["name"] == "job_accepted")
+        start = next(e["t"] for e in events if e.get("job") == jid and e["name"] == "job_started")
+        j = summary["jobs"][jid]
+        per_job[name] = {"wall_s": j["wall_s"], "queue_wait_s": round(start - acc, 3),
+                         "slices": j["slices"], "preemptions": j["preemptions"],
+                         "warm": j["warm"], "mfu": j.get("mfu"),
+                         "oneshot_wall_s": round(refs[name][1], 3), "bytes_identical": True}
+    for _, out in jobs.values():
+        os.remove(out)
+        os.remove(out + ".bai")
+
+    # ---- kill and takeover: daemon A dies holding the lease, B takes over
+    tk_spool = os.path.join(td, "takeover_spool")
+    tk_out = os.path.join(td, "takeover.bam")
+    tk_in = small_bams[-1]
+    tk_config = dict(config, chunk_reads=TAKEOVER_CHUNK_READS)
+    tk_ref, _ = job_reference(tk_in, os.path.join(td, "ref_takeover.bam"), tk_config, device)
+    jid = client.submit(tk_spool, tk_in, tk_out, config=tk_config)
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    a = start_daemon(tk_spool, "smoke-A", os.path.join(td, "a.counts"), device,
+                     "--heartbeat", "0.5", "--lease", "60")
+    try:
+        deadline = time.monotonic() + SERVE_DAEMON_TIMEOUT_S
+        while True:
+            try:
+                with open(tk_out + ".ckpt") as f:
+                    if json.load(f).get("done"):
+                        break
+            except (OSError, ValueError):
+                pass
+            if a.poll() is not None:
+                raise AssertionError(f"daemon A exited {a.returncode}: {a.communicate()[1][-2000:]}")
+            if time.monotonic() > deadline:
+                raise AssertionError("daemon A committed no chunk in time")
+            time.sleep(0.05)
+        a.send_signal(signal.SIGKILL)
+        t_kill = time.monotonic()
+        a.communicate(timeout=60)
+    finally:
+        if a.poll() is None:
+            a.kill()
+            a.communicate(timeout=60)
+    st = client.status(tk_spool, jid)
+    if st.get("state") != "running" or st["lease"]["owner"] != "smoke-A":
+        raise AssertionError(f"after the kill: {st}")
+    b_counts = os.path.join(td, "b.counts")
+    b = start_daemon(tk_spool, "smoke-B", b_counts, device, "--once", "--heartbeat", "0")
+    finish_daemon(b, SERVE_DAEMON_TIMEOUT_S, "daemon B")
+    b_done = time.monotonic()
+    launches = add_launches(launches, b_counts)
+    st = client.status(tk_spool, jid)
+    if st["state"] != "done" or st["token"] < 2 or read_bytes(tk_out) != tk_ref:
+        raise AssertionError(f"takeover: {st.get('state')} token {st.get('token')}, "
+                             f"bytes identical {read_bytes(tk_out) == tk_ref}")
+    b_trace = os.path.join(tk_spool, "service.smoke-B.trace.jsonl")
+    with contextlib.redirect_stdout(io.StringIO()) as buf:
+        rc = serve_report.main([b_trace, "--json"])
+    rep_b = json.loads(buf.getvalue())
+    if rc != 0 or rep_b["n_takeovers"] != 1 or rep_b["n_fenced"] != 0:
+        raise AssertionError(f"serve_report on B's capture: {rc} {rep_b}")
+    epoch_b, ev_b = capture_events(b_trace)
+    takeover_t = next(epoch_b + e["t"] for e in ev_b if e["name"] == "lease_takeover")
+    started_t = next(epoch_b + e["t"] for e in ev_b
+                     if e["name"] == "job_started" and e.get("job") == jid)
+    emit("serve", config=config, chunk_budget=SERVE_CHUNK_BUDGET, jobs=per_job,
+         service_wall_s=round(serve_wall, 3), preemptions=snap["preemptions"],
+         compile_hit_rate=snap["compile_hit_rate"], mfu=snap["mfu"],
+         device_s=snap["device_s"],
+         takeover={"input_reads": st["result"]["n_records"],
+                   "chunk_reads": TAKEOVER_CHUNK_READS, "token": st["token"],
+                   "n_takeovers": rep_b["n_takeovers"],
+                   "n_fenced": rep_b["n_fenced"], "reason": "dead-owner",
+                   "kill_to_takeover_s": round(takeover_t - t_kill, 3),
+                   "kill_to_claim_s": round(started_t - t_kill, 3),
+                   "kill_to_done_s": round(b_done - t_kill, 3),
+                   "bytes_identical": True},
+         launches=launches, nvidia_smi=smi)
+    shutil.rmtree(spool, ignore_errors=True)
+    shutil.rmtree(tk_spool, ignore_errors=True)
+    for name in refs:
+        if name != "large":
+            os.remove(os.path.join(td, f"ref_{name}.bam"))
+            os.remove(os.path.join(td, f"ref_{name}.bam.bai"))
+    for path in (tk_out, os.path.join(td, "ref_takeover.bam")):
+        os.remove(path)
+        os.remove(path + ".bai")
+    return launches, os.path.join(td, "ref_large.bam"), refs["large"][1]
+
+
+def shard_phase(in_bam: str, ref: str, unsharded_s: float, td: str, smi: str,
+                device: str = "cuda") -> dict:
+    """Scatter-gather on the card: ``call --submit --shards 4
+    --write-index`` of the stream cell's input, run by two daemon
+    subprocesses on one spool; ``call --wait`` exits 0 and the merged
+    BAM and .bai equal the unsharded one-shot run's (the serve phase's
+    large-job reference ``ref``, timed ``unsharded_s``: the job's @PG
+    line is the same). Reports the sharded and the unsharded wall.
+    Returns the kernels' launches on the path (the daemons' counts)."""
+    import io
+    import shutil
+
+    import torch
+
+    from duplexumiconsensusreads_torch.cli.main import main as cli_main
+    from duplexumiconsensusreads_torch.serve import client
+    from duplexumiconsensusreads_torch.serve.job import serve_provenance
+
+    spool = os.path.join(td, "shard_spool")
+    out = os.path.join(td, "sharded.bam")
+    with contextlib.redirect_stdout(io.StringIO()) as buf:
+        rc = cli_main(["call", in_bam, "-o", out, "--submit", "--spool", spool,
+                       "--config", "config5", "--min-duplex-reads", "1",
+                       "--capacity", str(CAPACITY), "--chunk-reads", str(STREAM_CHUNK_READS),
+                       "--write-index", "--shards", str(SHARDS)])
+    jid = buf.getvalue().strip()
+    if rc != 0 or not jid.startswith("job-"):
+        raise AssertionError(f"shard: call --submit exited {rc}")
+    with open(os.path.join(spool, "inbox", f"{jid}.json")) as f:
+        config = json.load(f)["config"]
+    if serve_provenance(config) != serve_provenance(SERVE_CONFIG):
+        raise AssertionError("shard: the job's @PG line is not the serve reference's")
+    ref_bytes = read_bytes(ref)
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    reset_launches()
+    counts = [os.path.join(td, f"shard{i}.counts") for i in range(2)]
+    t0 = time.monotonic()
+    procs = [start_daemon(spool, f"shard-{i}", counts[i], device, "--once", "--heartbeat", "0")
+             for i in range(2)]
+    for i, p in enumerate(procs):
+        finish_daemon(p, SERVE_DAEMON_TIMEOUT_S, f"shard daemon {i}")
+    sharded_s = time.monotonic() - t0
+    launches = {}
+    for c in counts:
+        launches = add_launches(launches, c)
+    if min(launches.values()) == 0:
+        raise AssertionError(f"the shard path launched {launches}")
+    with contextlib.redirect_stdout(io.StringIO()) as buf:
+        rc = cli_main(["call", "--wait", jid, "--spool", spool, "--wait-timeout", "60", "--json"])
+    st = client.status(spool, jid)
+    if rc != 0 or st["state"] != "done" or st["shards"]["done"] != SHARDS:
+        raise AssertionError(f"shard: --wait exited {rc}, {st.get('state')} {st.get('shards')}")
+    if read_bytes(out) != ref_bytes or read_bytes(out + ".bai") != read_bytes(ref + ".bai"):
+        raise AssertionError("shard: the merged BAM or .bai differs from the unsharded run")
+    emit("shard", config=config, shards=SHARDS, daemons=2, reads=st["result"]["n_records"],
+         sharded_wall_s=round(sharded_s, 3), unsharded_wall_s=round(unsharded_s, 3),
+         merge_s=st["result"]["sharded"]["merge_s"], shard_states=st["shards"],
+         bam_identical=True, bai_identical=True, launches=launches, nvidia_smi=smi)
+    shutil.rmtree(spool, ignore_errors=True)
+    for p in (out, out + ".bai", ref, ref + ".bai"):
+        os.remove(p)
+    return launches
 
 
 class RungKeeper:
@@ -1870,6 +2305,12 @@ def bench_phase(bench_cache: str, smi: str):
         DUT_BENCH_E2E_AB=str(STREAM_CHUNK_READS),
         DUT_BENCH_CPU_E2E_READS=str(STREAM_CHUNK_READS),
         DUT_BENCH_CPU_E2E_REPS="1",
+        # the serve_n_jobs and live_follow legs at the serve phase's
+        # small-job size (its input is in the cache), two serve jobs
+        DUT_BENCH_SERVE_JOBS="2",
+        DUT_BENCH_SERVE_READS=str(SERVE_SMALL_READS[0]),
+        DUT_BENCH_LIVE_READS=str(SERVE_SMALL_READS[0]),
+        DUT_BENCH_LIVE_SLAB_S="0.1",
         DUT_BENCH_GATE="0",
         DUT_PROF_READS=str(BENCH_PROF_READS),
     )
@@ -1906,7 +2347,10 @@ def bench_phase(bench_cache: str, smi: str):
             "e2e_reads_per_sec", "e2e_wall_s", "e2e_wire_floor_frac",
             "e2e_wire_floor_frac_measured", "e2e_bytes_per_read", "e2e_mfu",
             "e2e_packed_speedup", "e2e_d2h_packed_speedup", "e2e_ingest_overlap",
-            "cpu_e2e_reads_per_sec", "e2e_vs_cpu_e2e")
+            "cpu_e2e_reads_per_sec", "e2e_vs_cpu_e2e", "serve_amortised_speedup",
+            "serve_oneshot_cold_wall_s", "serve_job_walls_s", "serve_compile_hit_rate",
+            "live_first_snapshot_latency_s", "live_steady_lag_chunks",
+            "live_snapshots_published")
     problems += [f"no {k}" for k in want if k not in full]
     for probe in ("wire_before_e2e", "wire_after_e2e"):
         p = full.get(probe, {})

@@ -11,6 +11,10 @@ same place:
                              hand-written CUDA kernel (csrc/)
   ops/pipeline.py            the fused pipeline, batched over buckets
   runtime/executor.py        the whole-file executor (BAM in -> BAM out)
+  runtime/stream.py          the streaming executor (also follow mode,
+                             live/, and range mode)
+  serve/, serve/shard/       the job service: spool, leases, a warm
+                             daemon per card, scatter-gather shards
   cli/                       ``python -m duplexumiconsensusreads_torch call``
   interop.py                 numpy stacked buckets / spec fields -> port
 

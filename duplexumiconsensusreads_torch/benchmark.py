@@ -29,11 +29,18 @@ path) on a synthetic ctDNA-like batch. Legs, in order:
               port's analysers, the probe again, then the packed /
               d2h / ingest-overlap A/B legs and the same stream on the
               CPU in a subprocess (the end-to-end denominator)
+  serve_n_jobs  N identical jobs through an in-process
+              ``ConsensusService`` on the device against the same job
+              one-shot in a fresh process with a throwaway kernel build
+              directory (interpreter, CUDA context, nvcc and allocator
+              growth paid per process): ``serve_*`` keys
+  live_follow  the stream following a BAM a paced writer is still
+              appending, with a snapshot per committed chunk:
+              ``live_*`` keys
 
-The mesh, serve and live legs need modules the port does not have yet
-(several devices, ``serve/``, ``live/``): they are not run, and the
-full JSON carries one ``*_skipped`` string per leg naming what is
-missing.
+The mesh leg and the fleet, defense, shard and cross-host serve legs
+need modules the port does not have yet: they are not run, and the full
+JSON carries one ``*_skipped`` string per leg naming what is missing.
 
 Runs on the card; with no CUDA device it raises unless the caller asks
 for ``device="cpu"`` (``--device cpu``), which runs every leg's device
@@ -56,9 +63,11 @@ DUT_BENCH_PREFETCH_DEPTH (2), DUT_BENCH_E2E_READS (10000000; 0 disables
 every e2e leg), DUT_BENCH_E2E_AB (2000000; 0 disables the A/B legs),
 DUT_BENCH_AB_BUDGET_S (480), DUT_BENCH_INGEST_AB (1), DUT_BENCH_WIRE_MB
 (32), DUT_BENCH_CPU_E2E_READS (1000000), DUT_BENCH_CPU_E2E_REPS (2),
-DUT_BENCH_TRACE (1), DUT_BENCH_CACHE (.bench_cache), DUT_BENCH_GATE (1)
-and DUT_BENCH_GATE_THRESHOLD (0.5). The JAX bench's mesh, serve and
-live knobs are read by nothing here.
+DUT_BENCH_TRACE (1), DUT_BENCH_CACHE (.bench_cache), DUT_BENCH_GATE (1),
+DUT_BENCH_GATE_THRESHOLD (0.5), DUT_BENCH_SERVE_JOBS (3; 0 disables the
+serve_n_jobs leg), DUT_BENCH_SERVE_READS (120000), DUT_BENCH_LIVE_READS
+(120000; 0 disables the live_follow leg) and DUT_BENCH_LIVE_SLAB_S
+(0.2). The JAX bench's mesh and fleet knobs are read by nothing here.
 
 Stdout contract: the LAST stdout line is the compact canonical JSON
 (COMPACT_KEYS, under 1400 bytes), the full result JSON is the line
@@ -112,18 +121,14 @@ COMPACT_KEYS = (
 SKIPPED_LEGS = {
     "e2e_mesh_skipped": "not ported: dispatch across several devices "
     "(ROADMAP queue 1 item 5)",
-    "serve_n_jobs_skipped": "not ported: the serving layer serve/ "
+    "serve_fleet_skipped": "not ported: the fleet bench leg with "
+    "telemetry/fleet.py (ROADMAP queue 1 item 10b)",
+    "serve_defense_skipped": "not ported: the defensive-serving bench leg "
     "(ROADMAP queue 1 item 10b)",
-    "serve_fleet_skipped": "not ported: the serving layer serve/ "
+    "serve_shard_skipped": "not ported: the scatter-gather bench leg "
     "(ROADMAP queue 1 item 10b)",
-    "serve_defense_skipped": "not ported: the serving layer serve/ "
+    "serve_xhost_skipped": "not ported: the cross-host bench leg "
     "(ROADMAP queue 1 item 10b)",
-    "serve_shard_skipped": "not ported: serve/shard/ "
-    "(ROADMAP queue 1 item 10b)",
-    "serve_xhost_skipped": "not ported: serve/store.py "
-    "(ROADMAP queue 1 item 10b)",
-    "live_follow_skipped": "not ported: follow-mode ingest live/ "
-    "(ROADMAP queue 1 item 10a)",
 }
 
 
@@ -608,6 +613,191 @@ def run_bucket_tuner_bench() -> dict:
     }
 
 
+def run_serve_bench(n_jobs: int, dev) -> dict:
+    """The ``serve_n_jobs`` leg (the JAX bench's keys): N identical jobs
+    through an in-process daemon on ``dev`` against the same job
+    one-shot in a fresh process.
+
+    The one-shot subprocess gets a throwaway kernel build directory
+    (utils/compile_cache.py), so it pays what every ``call`` process
+    pays without the service: interpreter and torch start-up, the CUDA
+    context, nvcc for both kernels and the allocator's growth. The
+    daemon runs on this warm process with the build directory in
+    force, so per-job wall against one-shot wall is what keeping the
+    card warm buys. Per-job walls come from the service capture's
+    job_completed events (completion order)."""
+    import shutil
+    import subprocess
+    import tempfile
+
+    from duplexumiconsensusreads_torch.kernels.build import BUILD_DIR
+    from duplexumiconsensusreads_torch.serve import ConsensusService, client
+    from duplexumiconsensusreads_torch.telemetry import report as trace_report
+    from duplexumiconsensusreads_torch.utils.compile_cache import ENV_VAR, build_dir
+
+    cache = _cache()
+    n_reads = int(os.environ.get("DUT_BENCH_SERVE_READS", 120_000))
+    in_path, _ = _e2e_input(n_reads)
+    config = dict(
+        grouping="adjacency", mode="duplex", error_model="cycle",
+        capacity=int(os.environ.get("DUT_BENCH_CAPACITY", 2048)),
+        chunk_reads=max(n_reads // 4, 10_000),
+    )
+    out_cold = os.path.join(cache, "serve_cold.bam")
+    spec_json = json.dumps({
+        "job_id": "job-bench-cold", "input": os.path.abspath(in_path),
+        "output": os.path.abspath(out_cold), "config": config,
+    })
+    child = f"""
+import json, time
+from duplexumiconsensusreads_torch.runtime.stream import stream_call_consensus
+from duplexumiconsensusreads_torch.serve.job import job_params, serve_provenance, validate_spec
+spec = validate_spec(json.loads({spec_json!r}))
+gp, cp, kw = job_params(spec)
+kw.pop("mesh")
+t0 = time.monotonic()
+rep = stream_call_consensus(spec.input, spec.output, gp, cp,
+                            provenance_cl=serve_provenance(spec.config),
+                            device={str(dev)!r}, **kw)
+print(json.dumps({{"wall": time.monotonic() - t0, "reads": rep.n_records}}))
+"""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    cold_build = tempfile.mkdtemp(prefix="serve_cold_build")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(p for p in (root, env.get("PYTHONPATH")) if p)
+    env[ENV_VAR] = cold_build  # the cold leg must really be cold
+    out: dict = {"serve_n_jobs": n_jobs, "serve_reads_per_job": n_reads}
+    proc = subprocess.run([sys.executable, "-c", child], capture_output=True, text=True,
+                          env=env)
+    shutil.rmtree(cold_build, ignore_errors=True)
+    try:
+        os.remove(out_cold)
+    except OSError:
+        pass
+    if proc.returncode != 0:
+        sys.stderr.write(proc.stderr[-2000:])
+        return {**out, "serve_error": f"cold one-shot exit {proc.returncode}"}
+    cold = json.loads(proc.stdout.strip().splitlines()[-1])
+    out["serve_oneshot_cold_wall_s"] = round(cold["wall"], 2)
+
+    spool = os.path.join(cache, "serve_spool")
+    shutil.rmtree(spool, ignore_errors=True)
+    trace_path = os.path.join(cache, "serve_trace.jsonl")
+    outs = [os.path.join(cache, f"serve_out{i}.bam") for i in range(n_jobs)]
+    for o in outs:
+        client.submit(spool, in_path, o, config=config)
+    t0 = time.monotonic()
+    # the daemon builds into (and loads from) this process's build dir
+    snap = ConsensusService(spool, chunk_budget=0, trace_path=trace_path, device=dev,
+                            build_dir=build_dir(BUILD_DIR)).run_until_idle()
+    serve_wall = time.monotonic() - t0
+    for o in outs:
+        try:
+            os.remove(o)
+        except OSError:
+            pass
+    if snap["jobs_done"] != n_jobs:
+        return {**out, "serve_error": f"daemon finished {snap['jobs_done']}/{n_jobs} jobs"}
+    walls = [
+        float(r["wall_s"]) for r in trace_report.load_trace(trace_path)
+        if r.get("type") == "event" and r.get("name") == "job_completed"
+    ]
+    out.update({
+        "serve_wall_s": round(serve_wall, 2),
+        "serve_job_walls_s": [round(w, 2) for w in walls],
+        "serve_compile_hit_rate": snap["compile_hit_rate"],
+        "serve_amortised_speedup": round(
+            cold["wall"] / max(min(walls), 1e-9), 2) if walls else 0.0,
+        "serve_trace": trace_path,
+    })
+    return out
+
+
+def run_live_follow_bench(dev) -> dict:
+    """The ``live_follow`` leg (the JAX bench's keys; informational,
+    non-gating): the stream on ``dev`` tailing a BAM a paced writer is
+    still appending, with a snapshot per committed chunk.
+    ``live_first_snapshot_latency_s`` is the wall from follower start to
+    the first published snapshot; ``live_steady_lag_chunks`` the mean
+    lag behind the writer over the run's second half, in committed
+    chunks. Both are paced by the writer's slab cadence
+    (DUT_BENCH_LIVE_SLAB_S), so they observe the serving shape rather
+    than gate the pipeline."""
+    import threading
+
+    from duplexumiconsensusreads_torch.runtime.stream import stream_call_consensus
+
+    cache = _cache()
+    n_reads = int(os.environ.get("DUT_BENCH_LIVE_READS", 120_000))
+    src_path, _ = _e2e_input(n_reads)
+    with open(src_path, "rb") as f:
+        raw = f.read()
+    in_path = os.path.join(cache, "live_in.bam")
+    out_path = os.path.join(cache, "live_out.bam")
+    trace_path = None
+    if int(os.environ.get("DUT_BENCH_TRACE", 1)):
+        trace_path = os.path.join(cache, "live_trace.jsonl")
+    gp, cp = _e2e_params()
+    chunk_reads = max(n_reads // 8, 10_000)
+    n_slabs = 20
+    slab_s = float(os.environ.get("DUT_BENCH_LIVE_SLAB_S", 0.2))
+    slab = max(1, (len(raw) + n_slabs - 1) // n_slabs)
+    written = {"bytes": 0}
+
+    def writer():
+        with open(in_path, "wb") as f:
+            for off in range(0, len(raw), slab):
+                f.write(raw[off:off + slab])
+                f.flush()
+                written["bytes"] = off + len(raw[off:off + slab])
+                time.sleep(slab_s)
+
+    with open(in_path, "wb"):
+        pass  # the follower may open before the first slab lands
+    commits: list = []  # (chunks_done, writer_frac, t_since_start)
+    first_snap = [0.0]
+    t0 = time.monotonic()
+
+    def progress(_k, rep):
+        now = time.monotonic() - t0
+        if rep.snapshot_seq >= 1 and not first_snap[0]:
+            first_snap[0] = now
+        commits.append((len(commits) + 1, written["bytes"] / len(raw), now))
+
+    wt = threading.Thread(target=writer)
+    wt.start()
+    try:
+        rep = stream_call_consensus(
+            in_path, out_path, gp, cp,
+            capacity=int(os.environ.get("DUT_BENCH_CAPACITY", 2048)),
+            chunk_reads=chunk_reads, follow=True, live_poll_s=0.05, snapshot_chunks=1,
+            progress=progress, trace_path=trace_path, device=dev,
+        )
+    finally:
+        wt.join()
+    wall = time.monotonic() - t0
+    for p in (out_path, in_path):
+        try:
+            os.remove(p)
+        except OSError:
+            pass
+    lags = [max(frac * rep.n_chunks - done, 0.0)
+            for done, frac, _ in commits[len(commits) // 2:]]
+    out = {
+        "live_follow_reads": int(rep.n_records),
+        "live_follow_wall_s": round(wall, 2),
+        "live_follow_chunks": int(rep.n_chunks),
+        "live_snapshots_published": int(rep.snapshot_seq),
+        "live_first_snapshot_latency_s": round(first_snap[0], 3),
+        "live_steady_lag_chunks": round(sum(lags) / len(lags), 3) if lags else 0.0,
+        "live_poll_s": round(rep.seconds.get("live_poll", 0.0), 2),
+        "live_wait_s": round(rep.seconds.get("live_wait", 0.0), 2),
+    }
+    if trace_path:
+        out["live_trace"] = trace_path
+    return out
+
+
 def run_cpu_e2e(n_target: int) -> dict:
     """The SAME streamed end-to-end pipeline on the host CPU
     (``device="cpu"``): the wall-clock denominator. Runs in a subprocess
@@ -939,6 +1129,15 @@ def main(device=None) -> None:
                     / max(packed_leg["e2e_ab_packed_wall_s"], 1e-9),
                     3,
                 )
+        # serve_n_jobs: jobs through the in-process daemon vs a cold
+        # one-shot process (DUT_BENCH_SERVE_JOBS=0 disables)
+        n_serve = int(os.environ.get("DUT_BENCH_SERVE_JOBS", 3))
+        if n_serve > 0:
+            result.update(run_serve_bench(n_serve, dev))
+        # live_follow: the follower tailing a paced growing BAM
+        # (DUT_BENCH_LIVE_READS=0 disables)
+        if int(os.environ.get("DUT_BENCH_LIVE_READS", 120_000)) > 0:
+            result.update(run_live_follow_bench(dev))
         # the same stream on the host CPU: the wall-clock denominator
         # (DUT_BENCH_CPU_E2E_READS=0 disables), after every device leg
         n_cpu_e2e = int(os.environ.get("DUT_BENCH_CPU_E2E_READS", 1_000_000))

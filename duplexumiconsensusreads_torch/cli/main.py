@@ -18,9 +18,15 @@
 The JAX package's CLI on one host, flag for flag. ``call`` resolves
 every parameter as the JAX CLI does — explicit flag > ``--config-file``
 (TOML/JSON, keys from runtime/knobs.py) > ``--config`` preset > default
-— and refuses what it refuses in its words. Flags of the JAX CLI whose
-machinery is not ported (serving, multi-host, several devices, follow
-mode) are refused by name.
+— and refuses what it refuses in its words. ``call --submit/--status/
+--wait`` are the serving client (serve/client.py; the daemon is
+``python -m duplexumiconsensusreads_torch.serve.daemon``): they touch
+neither the executor stack nor CUDA, exit 0 / 1 (failed, rejected,
+shed, expired, quarantined, unknown) / 3 (a ``--wait`` timeout) as the
+JAX CLI does, and a job carries no device: ``--submit --device`` is
+refused in favour of the daemon's ``--device``. Flags of the JAX CLI
+whose machinery is not ported (multi-host, several devices) are refused
+by name.
 """
 
 from __future__ import annotations
@@ -48,11 +54,8 @@ CONFIG_PRESETS = {
 # have yet: dest -> (what is missing, its ROADMAP section 1 item). Any
 # of them set is refused by name; none is dropped.
 _UNPORTED_FLAGS = {
-    **{d: ("the serving layer (serve/)", 10) for d in (
-        "submit", "spool", "priority", "status", "wait", "wait_timeout", "json",
-        "deadline", "shards", "shard_bytes")},
-    **{d: ("multi-host partitioning (parallel/distributed.py)", 7)
-       for d in ("n_hosts", "host_id", "index")},
+    d: ("multi-host partitioning (parallel/distributed.py)", 7)
+    for d in ("n_hosts", "host_id", "index")
 }
 # Knobs of runtime/knobs.py this package does not implement: refused when
 # their resolved value (flag or config file) leaves the one it supports.
@@ -60,11 +63,9 @@ _UNPORTED_KNOBS = {
     "devices": ("dispatch across several devices", 5),
     "mesh": ("dispatch across several devices", 5),
     "cycle_shards": ("dispatch across several devices", 5),
-    "follow": ("follow-mode ingest (live/)", 10),
-    "finalize_on": ("follow-mode ingest (live/)", 10),
-    "live_poll_s": ("follow-mode ingest (live/)", 10),
-    "snapshot_chunks": ("follow-mode ingest (live/)", 10),
 }
+# the job states --status/--wait exit 1 on (the JAX CLI's)
+_BAD_STATES = ("failed", "rejected", "expired", "quarantined", "unknown")
 
 
 def _not_ported(flag: str, what: str, item: int) -> SystemExit:
@@ -85,8 +86,42 @@ def build_parser() -> argparse.ArgumentParser:
     # (unset), so the precedence rule can tell an explicit flag from the
     # default; each default lives in _cmd_call's opt() calls
     c = sub.add_parser("call", help="group UMIs and call consensus reads")
-    c.add_argument("input", nargs="?", default=None, help="input BAM (or ReadBatch .npz)")
-    c.add_argument("-o", "--output", default=None, help="output consensus BAM")
+    c.add_argument("input", nargs="?", default=None,
+                   help="input BAM (or ReadBatch .npz); optional only with --status/--wait")
+    c.add_argument("-o", "--output", default=None,
+                   help="output consensus BAM (required except with --status/--wait)")
+    sv = c.add_argument_group("serving client (serve/client.py; the spool is the protocol)")
+    sv.add_argument("--submit", action="store_true",
+                    help="do not run: durably spool this call as a job for a "
+                    "serve.daemon on --spool (prints the job id on stdout). Streaming "
+                    "params only; the daemon owns the device")
+    sv.add_argument("--spool", default=None, metavar="DIR",
+                    help="service spool directory for --submit/--status/--wait "
+                    "(default: $DUT_SPOOL)")
+    sv.add_argument("--priority", type=int, default=1,
+                    help="--submit priority class (lower = more urgent; FIFO within "
+                    "a class; default 1)")
+    sv.add_argument("--status", default=None, metavar="JOB_ID",
+                    help="print a submitted job's state as JSON and exit (exit 1 for "
+                    "failed/rejected/expired/quarantined/unknown)")
+    sv.add_argument("--wait", default=None, metavar="JOB_ID",
+                    help="poll until the job reaches a terminal state, then print its "
+                    "status JSON (see --wait-timeout)")
+    sv.add_argument("--wait-timeout", type=float, default=0.0, metavar="SECONDS",
+                    help="--wait gives up after this long (0 = wait forever): exit 3, "
+                    "the job's last journaled state on stderr")
+    sv.add_argument("--json", action="store_true",
+                    help="with --status/--wait: one normalized status document on "
+                    "stdout and nothing on stderr; exit codes unchanged")
+    sv.add_argument("--deadline", type=float, default=None, metavar="SECONDS",
+                    help="--submit wall budget from admission (default: the daemon's "
+                    "--deadline)")
+    sv.add_argument("--shards", type=int, default=None, metavar="K",
+                    help="--submit scatter-gather: K range sub-jobs merged into one "
+                    "BAM byte-identical to the unsharded run")
+    sv.add_argument("--shard-bytes", type=int, default=None, metavar="BYTES",
+                    help="--submit scatter-gather by compressed input size (exclusive "
+                    "with --shards)")
     c.add_argument("--config", choices=sorted(CONFIG_PRESETS), help="benchmark preset")
     c.add_argument("--config-file",
                    help="TOML or JSON file of call settings (the knob names, "
@@ -166,17 +201,24 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--chaos", default=None, metavar="SCHEDULE",
                    help="deterministic fault injection (runtime/faults.py): "
                    "site:nth:kind entries, or seed:<seed>:<n>")
+    s.add_argument("--follow", action="store_true", default=None,
+                   help="follow-mode ingest (live/): tail a GROWING input (a regular "
+                   "file another process appends to, or a FIFO), admitting only "
+                   "complete-BGZF-block byte runs, and finalise when it finishes "
+                   "(see --finalize-on); byte-identical to the batch run")
+    s.add_argument("--finalize-on", default=None, metavar="{eof,idle:N,marker}",
+                   help="follow termination rule: 'eof' (the 28-byte BGZF EOF block; "
+                   "default), 'idle:N' (no growth for N seconds), 'marker' "
+                   "(<input>.done exists)")
+    s.add_argument("--live-poll-s", type=float, default=None,
+                   help="follow poll cadence in seconds (default 0.25)")
+    s.add_argument("--snapshot-chunks", type=int, default=None,
+                   help="publish an indexed partial snapshot (OUT.snapshot.bam, a "
+                   "valid BAM prefix) every N committed chunks; 0 = off (default)")
     u = c.add_argument_group("accepted and refused by name (not ported yet)")
     for flag, kw in (
-        ("--submit", dict(action="store_true", default=None)), ("--spool", {}),
-        ("--priority", dict(type=int)), ("--status", {}), ("--wait", {}),
-        ("--wait-timeout", dict(type=float)), ("--json", dict(action="store_true", default=None)),
-        ("--deadline", dict(type=float)), ("--shards", dict(type=int)),
-        ("--shard-bytes", dict(type=int)), ("--n-hosts", dict(type=int)),
-        ("--host-id", dict(type=int)), ("--index", {}), ("--devices", dict(type=int)),
-        ("--mesh", {}), ("--cycle-shards", dict(type=int)),
-        ("--follow", dict(action="store_true", default=None)), ("--finalize-on", {}),
-        ("--live-poll-s", dict(type=float)), ("--snapshot-chunks", dict(type=int)),
+        ("--n-hosts", dict(type=int)), ("--host-id", dict(type=int)), ("--index", {}),
+        ("--devices", dict(type=int)), ("--mesh", {}), ("--cycle-shards", dict(type=int)),
     ):
         u.add_argument(flag, **{"default": None, **kw})
 
@@ -385,12 +427,74 @@ def main(argv=None) -> int:
     }[args.cmd](args)
 
 
+def _spool_or_exit(args) -> str:
+    import os
+
+    spool = args.spool or os.environ.get("DUT_SPOOL")
+    if not spool:
+        raise SystemExit(
+            "--submit/--status/--wait need a service spool directory: "
+            "pass --spool DIR or set DUT_SPOOL"
+        )
+    return spool
+
+
+def _client_verb(args) -> int:
+    """``--status`` / ``--wait``: read the spool's journal and answer
+    with the JAX CLI's output and exit codes. No input is read and no
+    device is touched."""
+    if args.status is not None and args.wait is not None:
+        raise SystemExit("--status and --wait are mutually exclusive")
+    from duplexumiconsensusreads_torch.serve import client
+
+    spool = _spool_or_exit(args)
+    if args.status is not None:
+        st = client.status(spool, args.status)
+    else:
+        st = client.wait(spool, args.wait, timeout_s=args.wait_timeout)
+    state = st.get("state")
+    if args.json:
+        # the machine contract: one normalized document on stdout,
+        # nothing on stderr
+        print(json.dumps(client.status_document(st), sort_keys=True))
+        if st.get("timed_out"):
+            return 3
+        return 1 if state in _BAD_STATES else 0
+    print(json.dumps(st, sort_keys=True))
+    if "snapshot_seq" in st:
+        # follow-mode jobs: the journal carries the per-chunk live counters
+        print(f"[duplexumi] live: snapshot_seq={st['snapshot_seq']} "
+              f"reads_emitted={st.get('reads_emitted', 0)}", file=sys.stderr)
+    if state in ("rejected", "expired", "quarantined") and st.get("error"):
+        kind = (
+            "shed by admission control" if st.get("shed")
+            else state if state in ("expired", "quarantined")
+            else "rejected"
+        )
+        print(f"[duplexumi] job {st.get('job_id')} {kind}: {st['error']}", file=sys.stderr)
+    if st.get("timed_out"):
+        # distinct exit code: the job is not dead, the wait budget ran out
+        detail = st.get("error") or (f"slices={st.get('slices')}" if "slices" in st else "")
+        print(
+            f"[duplexumi] --wait timed out after {args.wait_timeout}s; "
+            f"job {st.get('job_id')} last journaled state: {state or 'unknown'}"
+            + (f" ({detail})" if detail else ""),
+            file=sys.stderr,
+        )
+        return 3
+    return 1 if state in _BAD_STATES else 0
+
+
 def _cmd_call(args) -> int:
     for dest, (what, item) in _UNPORTED_FLAGS.items():
         if getattr(args, dest) is not None:
             raise _not_ported("--" + dest.replace("_", "-"), what, item)
+    if args.status is not None or args.wait is not None:
+        return _client_verb(args)
+    if args.json:
+        raise SystemExit("--json applies to --status/--wait")
     if args.input is None or args.output is None:
-        raise SystemExit("call needs INPUT and -o OUTPUT")
+        raise SystemExit("call needs INPUT and -o OUTPUT (unless --status/--wait)")
     from duplexumiconsensusreads_torch.types import ConsensusParams, GroupingParams
 
     fileconf = _load_config_file(args.config_file) if args.config_file else {}
@@ -455,8 +559,20 @@ def _cmd_call(args) -> int:
         )
     follow = bool(opt("follow", False))
     finalize_on = str(opt("finalize_on", "eof"))
+    # the structured domain is hand-validated: config-file values
+    # bypass argparse and must fail here, before the run
+    from duplexumiconsensusreads_torch.live import parse_finalize_on
+
+    try:
+        parse_finalize_on(finalize_on)
+    except ValueError as e:
+        raise SystemExit(f"--finalize-on: {e}")
     live_poll_s = float(opt("live_poll_s", 0.25))
+    if live_poll_s <= 0:
+        raise SystemExit(f"--live-poll-s must be > 0 (got {live_poll_s})")
     snapshot_chunks = int(opt("snapshot_chunks", 0))
+    if snapshot_chunks < 0:
+        raise SystemExit(f"--snapshot-chunks must be >= 0 (got {snapshot_chunks})")
     mate_aware = opt("mate_aware", "auto")
     max_reads = opt("max_reads", 0)
     if max_reads < 0:
@@ -526,13 +642,34 @@ def _cmd_call(args) -> int:
 
     # what this package does not implement, by its resolved value
     supported = {"devices": devices in (None, 1), "mesh": mesh in ("auto", 1),
-                 "cycle_shards": cycle_shards == 1,
-                 "follow": not follow, "finalize_on": finalize_on == "eof",
-                 "live_poll_s": live_poll_s == 0.25, "snapshot_chunks": snapshot_chunks == 0}
+                 "cycle_shards": cycle_shards == 1}
     for name, ok in supported.items():
         if not ok:
             what, item = _UNPORTED_KNOBS[name]
             raise _not_ported(knobs.KNOBS[name].flag, what, item)
+
+    if args.submit:
+        return _submit(args, opt, dict(
+            grouping=grouping, mode=mode, error_model=error_model, capacity=capacity,
+            backend=backend, chunk_reads=chunk_reads, cycle_shards=cycle_shards,
+            devices=devices, max_inflight=max_inflight, drain_workers=drain_workers,
+            packed=packed, prefetch_depth=prefetch_depth, ingest_overlap=ingest_overlap,
+            mesh=mesh, ladder_norm=ladder_norm, mate_aware=mate_aware,
+            max_reads=max_reads, per_base_tags=per_base_tags, read_group=read_group,
+            write_index=write_index, follow=follow, finalize_on=finalize_on,
+            live_poll_s=live_poll_s, snapshot_chunks=snapshot_chunks,
+            whole_file_only=bool(ref_projected or wl_path),
+        ))
+    if args.deadline is not None:
+        raise SystemExit(
+            "--deadline applies to --submit jobs (daemon default: "
+            "serve.daemon --deadline)"
+        )
+    if args.shards is not None or args.shard_bytes is not None:
+        raise SystemExit(
+            "--shards/--shard-bytes apply to --submit jobs (the fleet "
+            "fans the sub-jobs out and merges the shards)"
+        )
 
     if args.trace and chunk_reads <= 0:
         raise SystemExit("--trace requires the streaming executor (--chunk-reads N)")
@@ -615,7 +752,8 @@ def _cmd_call(args) -> int:
                 write_index=write_index, packed=packed,
                 prefetch_depth=prefetch_depth, ingest_overlap=ingest_overlap,
                 bucket_ladder=ladder_norm, trace_path=args.trace,
-                heartbeat_s=args.heartbeat, device=device,
+                heartbeat_s=args.heartbeat, follow=follow, finalize_on=finalize_on,
+                live_poll_s=live_poll_s, snapshot_chunks=snapshot_chunks, device=device,
             )
         finally:
             if plan is not None:
@@ -643,6 +781,100 @@ def _cmd_call(args) -> int:
         f"[duplexumi-torch] {rep.n_valid_reads}/{rep.n_records} reads -> "
         f"{rep.n_consensus} consensus ({rep.n_molecules} molecules{pairs}, "
         f"{rep.n_buckets} buckets, backend={rep.backend}) on {rep.device}",
+        file=sys.stderr,
+    )
+    return 0
+
+
+def _submit(args, opt, r: dict) -> int:
+    """``call --submit``: spool the resolved call as a service job (the
+    JAX CLI's checks and config, in its words). The job spec carries no
+    device: the daemon that runs it owns its card."""
+    if r["whole_file_only"]:
+        raise SystemExit(
+            "--submit jobs run on the streaming executor; "
+            "--ref-projected/--umi-whitelist are whole-file only"
+        )
+    if r["backend"] != "cuda":
+        raise SystemExit("--submit jobs stream on --backend=cuda")
+    if args.chunk_reads is not None and args.chunk_reads <= 0:
+        raise SystemExit("--submit jobs stream: --chunk-reads must be >= 1")
+    if args.priority < 0:
+        raise SystemExit(f"--priority must be >= 0 (got {args.priority})")
+    if args.deadline is not None and args.deadline <= 0:
+        raise SystemExit(f"--deadline must be > 0 (got {args.deadline})")
+    if args.shards is not None and args.shards < 1:
+        raise SystemExit(f"--shards must be >= 1 (got {args.shards})")
+    if args.shard_bytes is not None and args.shard_bytes < 1:
+        raise SystemExit(f"--shard-bytes must be >= 1 (got {args.shard_bytes})")
+    if args.shards is not None and args.shard_bytes is not None:
+        raise SystemExit("--shards and --shard-bytes are mutually exclusive")
+    if args.checkpoint or args.resume or args.report or args.profile:
+        raise SystemExit(
+            "--submit: --checkpoint/--resume/--report/--profile are "
+            "owned by the service (results land in the spool's "
+            "results/ dir; jobs always checkpoint and resume)"
+        )
+    if r["cycle_shards"] != 1 or r["devices"] is not None or args.heartbeat:
+        raise SystemExit(
+            "--submit: --cycle-shards/--devices/--heartbeat are "
+            "daemon-side settings (see serve.daemon --devices/"
+            "--heartbeat); jobs cannot carry them"
+        )
+    if args.device is not None:
+        raise SystemExit(
+            "--submit: --device is a daemon-side setting (the daemon owns "
+            "its card: serve.daemon --device cuda|cpu); jobs cannot carry it"
+        )
+    from duplexumiconsensusreads_torch.serve import client
+
+    spool = _spool_or_exit(args)
+    chunk_reads = r["chunk_reads"]
+    ladder = r["ladder_norm"]
+    config = {
+        "grouping": r["grouping"],
+        "mode": r["mode"],
+        "error_model": r["error_model"],
+        "max_hamming": opt("max_hamming", 1),
+        "count_ratio": opt("count_ratio", 2),
+        "min_reads": opt("min_reads", 1),
+        "min_duplex_reads": opt("min_duplex_reads", 1),
+        "max_qual": opt("max_qual", 90),
+        "max_input_qual": opt("max_input_qual", 50),
+        "min_input_qual": opt("min_input_qual", 0),
+        "capacity": r["capacity"],
+        # unset/0 chunking takes the service default: a job must stream
+        "chunk_reads": chunk_reads if chunk_reads > 0 else 500_000,
+        "max_inflight": r["max_inflight"],
+        "drain_workers": r["drain_workers"],
+        "packed": r["packed"],
+        "prefetch_depth": r["prefetch_depth"],
+        "ingest_overlap": r["ingest_overlap"],
+        "mesh": r["mesh"],
+        "bucket_ladder": list(ladder) if isinstance(ladder, tuple) else ladder,
+        "mate_aware": r["mate_aware"],
+        "max_reads": r["max_reads"],
+        "per_base_tags": r["per_base_tags"],
+        "read_group_id": r["read_group"],
+        "write_index": r["write_index"],
+        "follow": r["follow"],
+        "finalize_on": r["finalize_on"],
+        "live_poll_s": r["live_poll_s"],
+        "snapshot_chunks": r["snapshot_chunks"],
+    }
+    try:
+        job_id = client.submit(
+            spool, args.input, args.output, config=config, priority=args.priority,
+            chaos=args.chaos, trace=args.trace, deadline_s=args.deadline,
+            shards=args.shards, shard_bytes=args.shard_bytes,
+        )
+    except (ValueError, OSError) as e:
+        raise SystemExit(f"--submit: {e}")
+    print(job_id)  # stdout: the parseable handle for --status/--wait
+    print(
+        f"[duplexumi] job {job_id} spooled to {spool} (priority {args.priority}); "
+        f"follow with `python -m duplexumiconsensusreads_torch call --wait {job_id} "
+        f"--spool {spool}`",
         file=sys.stderr,
     )
     return 0

@@ -2,9 +2,10 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and compiles, at
 first use, into ``_build/lib<name>-<digest>.so`` beside the package
-(the directory is git-ignored); the digest of the source names the
-library, so an edited source rebuilds and an unchanged one loads the
-existing file. Nothing here runs at import time.
+(the directory is git-ignored; ``DUT_BUILD_DIR`` moves it, see
+utils/compile_cache.py); the digest of the source names the library,
+so an edited source rebuilds and an unchanged one loads the existing
+file. Nothing here runs at import time.
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -o _build/lib<name>-<digest>.so csrc/<name>.cu
@@ -21,8 +22,11 @@ import subprocess
 import threading
 import time
 
+from duplexumiconsensusreads_torch.utils.compile_cache import build_dir
+
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
+# the default build directory ($DUT_BUILD_DIR overrides it at call time)
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
 
 # every CUDA source of the package; build_all compiles them in parallel
@@ -60,7 +64,7 @@ def lib_path(name: str) -> str:
     src = os.path.join(CSRC_DIR, f"{name}.cu")
     with open(src, "rb") as f:
         digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return os.path.join(BUILD_DIR, f"lib{name}-{digest[:16]}.so")
+    return os.path.join(build_dir(BUILD_DIR), f"lib{name}-{digest[:16]}.so")
 
 
 def _start(name: str):
@@ -69,7 +73,7 @@ def _start(name: str):
     out = lib_path(name)
     if os.path.exists(out):
         return name, out, None, None
-    os.makedirs(BUILD_DIR, exist_ok=True)
+    os.makedirs(os.path.dirname(out), exist_ok=True)
     # unique temp name + atomic rename: concurrent builds never load
     # a half-written library
     tmp = f"{out}.{os.getpid()}.tmp"

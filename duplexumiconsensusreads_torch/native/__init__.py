@@ -4,7 +4,8 @@ Host C++, not a device kernel: multithreaded BGZF inflate and deflate,
 the BAM record-chain walk, and record field extraction straight into
 NumPy buffers — a copy of the JAX package's native loader. It compiles
 at first use, with g++ and the JAX package's Makefile flags, into
-``_build/libdutbam-<digest>.so`` beside the package (git-ignored); the
+``_build/libdutbam-<digest>.so`` beside the package (git-ignored; or
+wherever ``DUT_BUILD_DIR`` points, see utils/compile_cache.py); the
 digest covers the sources and the command, so an edited source or
 another zlib setup rebuilds and an unchanged one loads the existing
 file:
@@ -37,9 +38,12 @@ import time
 
 import numpy as np
 
+from duplexumiconsensusreads_torch.utils.compile_cache import build_dir
+
 _DIR = os.path.dirname(os.path.abspath(__file__))
 SRC_DIR = os.path.join(_DIR, "src")
 SOURCE = os.path.join(SRC_DIR, "bamloader.cpp")
+# the default build directory ($DUT_BUILD_DIR overrides it at call time)
 BUILD_DIR = os.path.join(os.path.dirname(_DIR), "_build")
 CXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-Wall", "-shared")
 # the parallel inflate/deflate/fill calls' thread count (the JAX
@@ -104,7 +108,7 @@ def lib_path() -> str:
         with open(os.path.join(SRC_DIR, name), "rb") as f:
             h.update(name.encode() + f.read())
     h.update(" ".join(build_command("OUT")).encode())
-    return os.path.join(BUILD_DIR, f"libdutbam-{h.hexdigest()[:16]}.so")
+    return os.path.join(build_dir(BUILD_DIR), f"libdutbam-{h.hexdigest()[:16]}.so")
 
 
 def start_build():
@@ -113,7 +117,7 @@ def start_build():
     out = lib_path()
     if os.path.exists(out):
         return out, None, None, time.monotonic()
-    os.makedirs(BUILD_DIR, exist_ok=True)
+    os.makedirs(os.path.dirname(out), exist_ok=True)
     tmp = f"{out}.{os.getpid()}.{threading.get_ident()}.tmp"
     proc = subprocess.Popen(build_command(tmp), stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT)
@@ -142,8 +146,9 @@ def build() -> dict:
     """Build the library unless it exists, under an inter-process file
     lock (pytest workers, the ingest producer and the drain workers may
     all reach the first load at once)."""
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    with open(os.path.join(BUILD_DIR, "libdutbam.lock"), "w") as lk:
+    bdir = build_dir(BUILD_DIR)
+    os.makedirs(bdir, exist_ok=True)
+    with open(os.path.join(bdir, "libdutbam.lock"), "w") as lk:
         fcntl.flock(lk, fcntl.LOCK_EX)
         try:
             return finish_build(start_build())

@@ -92,7 +92,10 @@ class RunReport:
     bytes_d2h: int = 0
     # streaming device ledger: analytic FLOPs of every dispatch
     # (ops.pipeline.analytic_flops x padded bucket count; retries
-    # re-count) and the device wait+fetch busy seconds they ran in
+    # re-count) and the device seconds they ran in: on CUDA the sum of
+    # each dispatch's CUDA-event span on its stream (first H2D copy to
+    # last D2H copy; spans of concurrent streams overlap), on the CPU
+    # the drain's wait+fetch busy seconds
     device_flops: float = 0.0
     device_seconds: float = 0.0
     # streaming padding: real read rows dispatched vs padded row-slots
@@ -105,6 +108,9 @@ class RunReport:
     # resolved bucket ladder of the run ([] = single-capacity): explicit
     # rungs verbatim, or the tuner verdict an auto run settled on
     bucket_ladder: list = dataclasses.field(default_factory=list)
+    # follow mode / snapshots: indexed partial snapshots published so
+    # far (a resumed follower continues the series)
+    snapshot_seq: int = 0
     seconds: dict = dataclasses.field(default_factory=dict)
 
     def to_json(self) -> str:
@@ -354,10 +360,13 @@ class Fetch(dict):
     the CPU tensors themselves. ``event`` is recorded on the copying
     stream after the last copy (None on the CPU); ``staging`` keeps the
     pinned H2D source buffers of the same dispatch referenced until
-    that event has fired."""
+    that event has fired. ``span`` is the streaming executor's pair of
+    timing events around the dispatch's device work (None unless it
+    set one)."""
 
     event = None
     staging = ()
+    span = None
 
 
 def start_fetch(out: dict, keys: tuple = FETCH_KEYS, staging=(), extra: tuple = ()) -> Fetch:

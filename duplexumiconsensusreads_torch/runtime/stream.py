@@ -261,6 +261,7 @@ class BamStreamReader:
         read_size: int = 8 << 20,
         use_native: bool | None = None,
         start: tuple[int, int] | None = None,
+        open_fn=None,
     ):
         """use_native: inflate and walk records with the native loader
         (None = unless DUT_NO_NATIVE is set; a build failure raises).
@@ -268,14 +269,20 @@ class BamStreamReader:
         start=(coffset, uoffset): begin the record stream at that BGZF
         virtual offset (from a BAI/CSI query or a BamLinearIndex entry)
         instead of the first record; the header is still parsed from
-        the file start."""
+        the file start.
+
+        open_fn(path) -> file-like overrides the plain open: the
+        follow-mode tailer (live/tail.py) injects its TailSource here,
+        so the reader, its native inflate and the ingest producer all
+        consume a growing input through the same read/seek/tell
+        surface. Forward-only sources refuse ``start``."""
         from duplexumiconsensusreads_torch import native
 
         if use_native is None:
             use_native = native.native_enabled()
         native_lib = native.get_lib() if use_native else None
         self._native_lib = native_lib
-        self._f = open(path, "rb")
+        self._f = open_fn(path) if open_fn is not None else open(path, "rb")
         self._buf = bytearray()
         self._eof = False
         self._consumed = 0  # decompressed bytes consumed (header incl.)
@@ -466,12 +473,12 @@ def _resolve_chunk_boundary(keys: np.ndarray, prev_last):
     return cut, keys[cut - 1]
 
 
-def iter_record_chunks(path: str, chunk_reads: int):
+def iter_record_chunks(path: str, chunk_reads: int, open_fn=None):
     """Yield (header, BamRecords) chunks; the trailing pos_key group of
     each chunk is held back and prepended to the next so no molecule's
     reads are split across chunks. The sort contract is validated on
     every chunk."""
-    reader = BamStreamReader(path)
+    reader = BamStreamReader(path, open_fn=open_fn)
     header = reader.header
     carry: BamRecords | None = None
     prev_last = None
@@ -499,7 +506,17 @@ def iter_record_chunks(path: str, chunk_reads: int):
         reader.close()
 
 
-def iter_batch_chunks(path: str, chunk_reads: int, duplex: bool, warn_mixed: bool = True):
+def iter_batch_chunks(
+    path: str,
+    chunk_reads: int,
+    duplex: bool,
+    start: tuple[int, int] | None = None,
+    key_lo=None,
+    key_hi=None,
+    warn_mixed: bool = True,
+    first_read: int | None = None,
+    open_fn=None,
+):
     """Yield (header, ReadBatch, info) chunks with the family-integrity
     hold-back of iter_record_chunks, parsed NATIVELY: record fields go
     straight from raw BAM bytes into NumPy arrays (io/native_reader),
@@ -508,15 +525,42 @@ def iter_batch_chunks(path: str, chunk_reads: int, duplex: bool, warn_mixed: boo
     Chunk boundaries are byte-identical to iter_record_chunks' (the same
     hold-back and sentinel-flush rule on the same pos_keys), so
     checkpoint manifests stay valid whichever path wrote them. Under
-    DUT_NO_NATIVE=1 this is the portable iterator. The JAX package's
-    range arguments (start/key_lo/key_hi/first_read, open_fn) belong to
-    the serve and live slices and are not ported."""
+    DUT_NO_NATIVE=1 this is the portable iterator.
+
+    Range mode (the JAX package's, argument for argument): ``start``
+    opens the stream at a BGZF virtual offset; only records with
+    key_lo <= pos_key < key_hi are yielded (None = open end). Leading
+    records below key_lo are skipped; iteration stops at the first
+    record >= key_hi. ``first_read`` is the record count of the FIRST
+    raw read, after which reads revert to ``chunk_reads``: the shard
+    planner's chunk-grid realignment, so a ranged stream reproduces the
+    whole-file chunk boundaries (the scatter-gather byte identity of
+    serve/shard/). The portable iterator ignores ``start`` and
+    ``first_read``, as the JAX package's does: it re-chunks the full
+    stream and filters per chunk, so its boundaries are whole-file
+    aligned by construction. ``open_fn`` reaches the reader (follow
+    mode's tailer)."""
     from duplexumiconsensusreads_torch import native
 
     if not native.native_enabled():
-        for header, recs in iter_record_chunks(path, chunk_reads):
-            batch, info = records_to_readbatch(recs, duplex=duplex, warn_mixed=warn_mixed)
+        # portable: full scan with host-range filtering (the `start`
+        # seek is an optimisation this path skips)
+        for header, recs in iter_record_chunks(path, chunk_reads, open_fn=open_fn):
+            keys = _rec_pos_keys(recs)
+            a, b = 0, len(recs)
+            if key_lo is not None:
+                a = int(np.searchsorted(keys, key_lo, side="left"))
+            if key_hi is not None:
+                b = int(np.searchsorted(keys, key_hi, side="left"))
+            if a >= b:
+                if key_hi is not None and len(keys) and keys[0] >= key_hi:
+                    return
+                continue
+            sub = recs if (a, b) == (0, len(recs)) else _slice_records(recs, a, b)
+            batch, info = records_to_readbatch(sub, duplex=duplex, warn_mixed=warn_mixed)
             yield header, batch, info
+            if key_hi is not None and b < len(recs):
+                return
         return
 
     from duplexumiconsensusreads_torch.io.native_reader import (
@@ -526,11 +570,12 @@ def iter_batch_chunks(path: str, chunk_reads: int, duplex: bool, warn_mixed: boo
     )
 
     lib = native.get_lib()
-    reader = BamStreamReader(path, use_native=True)
+    reader = BamStreamReader(path, use_native=True, start=start, open_fn=open_fn)
     header = reader.header
     shell = _header_shell(header)
     carry = b""
     prev_last = None
+    lo_done = key_lo is None
 
     def emit(data, offs, lm, rm):
         return (
@@ -541,13 +586,21 @@ def iter_batch_chunks(path: str, chunk_reads: int, duplex: bool, warn_mixed: boo
             ),
         )
 
+    # chunk-grid realignment: only the first read differs; a None/0
+    # first_read keeps the uniform grid
+    n_next_read = first_read if first_read is not None and first_read > 0 else chunk_reads
     try:
         while True:
-            raw = reader.read_raw_records(chunk_reads)
+            raw = reader.read_raw_records(n_next_read)
+            n_next_read = chunk_reads
             if raw is None:
                 if carry:
                     data = np.frombuffer(shell + carry, np.uint8)
                     _, lm, rm, off = scan_region(lib, data, path)
+                    if key_hi is not None and len(off):
+                        keys = region_pos_keys(data, off)
+                        _validate_sort_contract(keys, prev_last)
+                        off = off[: int(np.searchsorted(keys, key_hi, side="left"))]
                     if len(off):
                         yield emit(data, off, lm, rm)
                 return
@@ -557,9 +610,29 @@ def iter_batch_chunks(path: str, chunk_reads: int, duplex: bool, warn_mixed: boo
             data = np.frombuffer(blob, np.uint8)
             _, lm, rm, rec_off = scan_region(lib, data, path)
             keys = region_pos_keys(data, rec_off)
+            if not lo_done and len(keys):
+                # searchsorted assumes sorted keys: an unsorted chunk
+                # must raise here, not be silently mis-cut
+                _validate_sort_contract(keys, prev_last)
+                a = int(np.searchsorted(keys, key_lo, side="left"))
+                if a == len(keys):
+                    carry = b""  # everything below the range: discard
+                    continue
+                rec_off, keys = rec_off[a:], keys[a:]
+                lo_done = True
+            if key_hi is not None and len(keys) and keys[-1] >= key_hi:
+                # the boundary rule never sees this final chunk, so the
+                # sort contract is validated before the searchsorted cut
+                _validate_sort_contract(keys, prev_last)
+                b = int(np.searchsorted(keys, key_hi, side="left"))
+                if b:
+                    yield emit(data, rec_off[:b], lm, rm)
+                return
             cut, prev_last = _resolve_chunk_boundary(keys, prev_last)
             if cut == 0:
-                carry = blob[int(rec_off[0]):]  # one group: keep growing
+                # one group: keep growing; rec_off[0] rebases past any
+                # below-range records the lo filter dropped
+                carry = blob[int(rec_off[0]):]
                 continue
             if cut == len(keys):  # sentinel tail: flush, no hold-back
                 carry = b""
@@ -709,21 +782,28 @@ class Checkpoint:
 
 
 def _fingerprint(
-    in_path: str, grouping, consensus, capacity, chunk_reads,
+    in_path: str, grouping, consensus, capacity, chunk_reads, input_range=None,
     mate_aware: str = "auto", max_reads: int = 0, per_base_tags: bool = False,
-    read_group: str = "A",
+    read_group: str = "A", chunk_base: int = 0, first_read: int | None = None,
+    stat_sig: str | None = None,
 ) -> str:
     """The checkpoint key: everything that changes output bytes, in the
-    JAX package's order (no input range), plus the engine. Scheduling knobs (workers, depths, wire rungs) stay out, so
-    a resume may change them. The mate_aware SETTING joins rather than
-    its resolution, so the manifest can be initialised before any input
-    byte is read."""
+    JAX package's order, plus the engine. Scheduling knobs (workers,
+    depths, wire rungs) stay out, so a resume may change them. The
+    mate_aware SETTING joins rather than its resolution, so the manifest
+    can be initialised before any input byte is read.
+
+    ``stat_sig`` replaces the input's (size, mtime) pair for a follow
+    run: a growing file changes both every poll, so the live watermark
+    (live/watermark.py) pins a per-run token instead. The range fields
+    (``input_range``, the iterator flavor of a ranged run, and
+    ``chunk_base``/``first_read`` when set) are the JAX package's."""
     st = os.stat(in_path)
     key = json.dumps(
         [
             os.path.abspath(in_path),
-            st.st_size,
-            int(st.st_mtime),
+            *([st.st_size, int(st.st_mtime)] if stat_sig is None
+              else ["live", stat_sig]),
             dataclasses.asdict(grouping),
             dataclasses.asdict(consensus),
             capacity,
@@ -732,30 +812,37 @@ def _fingerprint(
             max_reads,
             per_base_tags,
             read_group,
-            [],  # input range
-            "any",  # iterator flavor of a run without a range
+            [list(x) if isinstance(x, tuple) else x for x in (input_range or [])],
+            # ranged boundaries differ between the native and portable
+            # iterators (the portable one filters instead of seeking),
+            # so the flavor taints ranged fingerprints only
+            _iterator_flavor() if input_range else "any",
             "shard:bgzf1",
             "deflate:" + bgzf.deflate_flavor(),
             ENGINE,
-        ],
+        ]
+        # shard-mode chunk-grid parameters, appended only when set
+        + ([chunk_base, first_read] if (chunk_base or first_read) else []),
         sort_keys=True,
     )
     return hashlib.sha256(key.encode()).hexdigest()[:16]
 
 
+def _iterator_flavor() -> str:
+    """"native" or "python": which chunk iterator this run uses (a
+    native build failure raises rather than selecting "python")."""
+    from duplexumiconsensusreads_torch import native
+
+    return "native" if native.native_enabled() else "python"
+
+
 # -------------------------------------------------------------- executor
 
 # options of the JAX package's stream_call_consensus that this package
-# does not implement, each with the only value it accepts
+# does not implement, each with the only value it accepts (ROADMAP queue
+# 1 item 5: dispatch across several devices)
 _UNPORTED = {
-    "input_range": None,  # multi-host / serve shard partitions
-    "chunk_base": 0,  # serve shard chunk grid
-    "first_read": None,
-    "follow": False,  # live/ follow-mode ingest
-    "finalize_on": "eof",
-    "live_poll_s": 0.25,
-    "snapshot_chunks": 0,
-    "devices": None,  # multi-GPU dispatch
+    "devices": None,
     "cycle_shards": 1,
 }
 
@@ -792,6 +879,13 @@ def stream_call_consensus(
     heartbeat_s: float = 0.0,
     trace_max_events: int = 1_000_000,
     provenance_cl: str | None = None,
+    input_range=None,
+    chunk_base: int = 0,
+    first_read: int | None = None,
+    follow: bool = False,
+    finalize_on: str = "eof",
+    live_poll_s: float = 0.25,
+    snapshot_chunks: int = 0,
     device="cuda",
     **unported,
 ) -> RunReport:
@@ -802,6 +896,15 @@ def stream_call_consensus(
     raises, nothing falls back). ``n_devices`` other than None/1 and
     every option in ``_UNPORTED`` set to another value than its default
     raise NotImplementedError naming the option.
+
+    Range mode (``input_range`` = (start voffset, key_lo, key_hi),
+    ``chunk_base``, ``first_read``) runs one shard of a planned split
+    on the whole-file chunk grid (serve/shard/); follow mode
+    (``follow``, ``finalize_on``, ``live_poll_s``) tails a growing
+    input through live/'s TailSource; ``snapshot_chunks`` publishes an
+    indexed prefix of the output every N committed chunks. All are the
+    JAX package's options with its semantics, and follow mode refuses
+    the range options as it does.
 
     ``bucket_ladder`` is the mixed-capacity bucket ladder (tuning/):
     "off" = the single ``capacity``; "auto" = profile the first
@@ -866,6 +969,9 @@ def stream_call_consensus(
             bucket_ladder=bucket_ladder,
             tr=tr, heartbeat_s=heartbeat_s, hb_box=hb_box,
             provenance_cl=provenance_cl, dev=dev,
+            input_range=input_range, chunk_base=chunk_base, first_read=first_read,
+            follow=follow, finalize_on=finalize_on, live_poll_s=live_poll_s,
+            snapshot_chunks=snapshot_chunks,
         )
     finally:
         for hb in hb_box:
@@ -916,6 +1022,13 @@ def _stream_call(
     hb_box: list,
     provenance_cl: str | None,
     dev: torch.device,
+    input_range,
+    chunk_base: int,
+    first_read: int | None,
+    follow: bool,
+    finalize_on: str,
+    live_poll_s: float,
+    snapshot_chunks: int,
 ) -> RunReport:
     """The executor body. Writes per-chunk shards next to out_path and
     finalises one consensus BAM incrementally: drain workers run fetch
@@ -962,6 +1075,26 @@ def _stream_call(
         )
     # auto == on: the producer is pure scheduling (byte-identical output)
     overlap_on = ingest_overlap != "off"
+    if snapshot_chunks < 0:
+        raise ValueError(f"snapshot_chunks must be >= 0 (got {snapshot_chunks})")
+    live_src = None  # the follow-mode TailSource (live/tail.py)
+    live_mark: dict | None = None  # its durable admission watermark
+    if follow:
+        from duplexumiconsensusreads_torch.live import parse_finalize_on
+
+        parse_finalize_on(finalize_on)  # validate the domain up front
+        if live_poll_s <= 0:
+            raise ValueError(f"live_poll_s must be > 0 (got {live_poll_s})")
+        if input_range is not None:
+            raise ValueError(
+                "follow mode cannot combine with an input range: a "
+                "growing input has no random access"
+            )
+        if chunk_base or first_read:
+            raise ValueError(
+                "follow mode cannot run as a shard sub-job: the chunk "
+                "grid of a growing input is not plannable up front"
+            )
     on_cuda = dev.type == "cuda"
     # bucket-ladder resolution: an explicit ladder is known now (its top
     # rung replaces capacity as the bucket capacity, fingerprint
@@ -989,10 +1122,22 @@ def _stream_call(
     auto_ckpt = checkpoint_path is None
     if auto_ckpt:
         checkpoint_path = out_path + ".ckpt"
+    if follow:
+        # pin the follow-run identity BEFORE fingerprinting: a growing
+        # input's (size, mtime) change every poll, so the fingerprint
+        # takes the watermark's stat_sig and kill/resume mid-tail keeps
+        # one fingerprint
+        from duplexumiconsensusreads_torch.live import watermark as _watermark
+
+        live_mark = _watermark.load_or_create(out_path, in_path, resume=resume)
+        # a resumed follower continues the published-snapshot series
+        rep.snapshot_seq = int(live_mark.get("snapshot_seq", 0))
     fp = _fingerprint(
-        in_path, grouping, consensus, capacity, chunk_reads,
+        in_path, grouping, consensus, capacity, chunk_reads, input_range,
         mate_aware=mate_aware, max_reads=max_reads,
         per_base_tags=per_base_tags, read_group=read_group,
+        chunk_base=chunk_base, first_read=first_read,
+        stat_sig=live_mark["stat_sig"] if live_mark else None,
     )
     ckpt = Checkpoint.load_or_create(
         checkpoint_path, fp, verify=resume, expect_codec=bgzf.deflate_flavor(),
@@ -1003,9 +1148,23 @@ def _stream_call(
         ckpt.done = {}
         ckpt.save()
 
+    rng_start, rng_lo, rng_hi = input_range or (None, None, None)
+    live_open = None
+    if follow:
+        from duplexumiconsensusreads_torch.live import TailSource
+
+        # ONE forward-only source for the whole run: the stream reader
+        # opens it through open_fn and closes it with the reader
+        live_src = TailSource(in_path, poll_s=live_poll_s, finalize_on=finalize_on)
+
+        def live_open(_path):
+            return live_src
+
     chunk_iter = iter_batch_chunks(
         in_path, chunk_reads, duplex,
+        start=rng_start, key_lo=rng_lo, key_hi=rng_hi,
         warn_mixed=False,  # the chunk loop owns the warning
+        first_read=first_read, open_fn=live_open,
     )
     first = next(chunk_iter, None)
     grouping = resolve_mate_aware(
@@ -1060,6 +1219,7 @@ def _stream_call(
         "shard_write": 0.0, "ckpt": 0.0, "finalise": 0.0,
         "main_loop_stall": 0.0, "prefetch_stall": 0.0,
         "ingest_stall": 0.0, "ingest_backpressure": 0.0,
+        "live_poll": 0.0, "live_wait": 0.0,
     }
     # byte ledger (while tracing): every += pairs with a tr.xfer record
     # of the same increment. Guarded by phase_lock.
@@ -1139,6 +1299,11 @@ def _stream_call(
             )
         with _stream_ctx():
             staging: list = []
+            ev0 = None
+            if on_cuda:
+                # the class's device span opens before its first H2D copy
+                ev0 = torch.cuda.Event(enable_timing=True)
+                ev0.record()
             args = stacked_from_numpy(stacked, dev, pin=on_cuda, keep=staging)
             t_pipe = time.monotonic()
             out = fused_pipeline(*(args[k] for k in ARRAY_KEYS), spec)
@@ -1165,6 +1330,12 @@ def _stream_call(
                 )
             else:
                 out = start_fetch(out, staging=staging, extra=fetch_extra)
+            if ev0 is not None:
+                # ... and closes after its last D2H copy: the stream's
+                # first-to-last op span, read by the drain as device time
+                ev1 = torch.cuda.Event(enable_timing=True)
+                ev1.record()
+                out.span = (ev0, ev1)
         disp_dt = time.monotonic() - t0
         with phase_lock:
             phase["dispatch"] += disp_dt
@@ -1233,9 +1404,21 @@ def _stream_call(
         """Device results -> host arrays, with recovery for retryable
         failures: bounded backoff class retries, then bucket-by-bucket
         re-dispatch to isolate a poisoned bucket. Returns (outputs,
-        wire_bytes, logical_bytes)."""
+        wire_bytes, logical_bytes, device seconds): the last is the sum
+        of the CUDA-event spans of every dispatch it waited on (retries
+        re-count, as the FLOPs do), 0.0 on the CPU."""
+        dev_s = [0.0]
+
+        def fetched(sel):
+            host = fetch_outputs(sel)
+            if sel.span is not None:
+                ev0, ev1 = sel.span
+                ev1.synchronize()
+                dev_s[0] += ev0.elapsed_time(ev1) / 1e3
+            return host
+
         try:
-            return unpack(fetch_outputs(out.result()), cbuckets, cspec)
+            return (*unpack(fetched(out.result()), cbuckets, cspec), dev_s[0])
         except D2hCompactionOverflow:
             raise  # deterministic invariant violation: no retry
         except Exception as e:
@@ -1247,9 +1430,9 @@ def _stream_call(
                 raise err
             _backoff(err, attempt, k)
             try:
-                return unpack(
-                    fetch_outputs(dispatch(cbuckets, cspec, chunk=k)),
-                    cbuckets, cspec,
+                return (
+                    *unpack(fetched(dispatch(cbuckets, cspec, chunk=k)), cbuckets, cspec),
+                    dev_s[0],
                 )
             except D2hCompactionOverflow:
                 raise
@@ -1274,7 +1457,7 @@ def _stream_call(
                         f"chunk {k} bucket {bi}: run aborting"
                     ) from (last or err)
                 try:
-                    raw = fetch_outputs(dispatch([bk], cspec, chunk=k))
+                    raw = fetched(dispatch([bk], cspec, chunk=k))
                     single, w1, l1 = unpack(raw, [bk], cspec)
                     single = {key: np.asarray(v)[0] for key, v in single.items()}
                     break
@@ -1296,7 +1479,7 @@ def _stream_call(
                 rows.setdefault(key, []).append(v)
         return (
             {key: np.stack(v) for key, v in rows.items()},
-            wire_total, logical_total,
+            wire_total, logical_total, dev_s[0],
         )
 
     def drain_chunk(k, entries, batch):
@@ -1328,7 +1511,7 @@ def _stream_call(
         pair_base = 0
         for i, (fut, cbuckets, cspec) in enumerate(entries):
             t0 = time.monotonic()
-            out, d2h_wire, d2h_logical = materialize(fut, cbuckets, cspec, k)
+            out, d2h_wire, d2h_logical, dev_s = materialize(fut, cbuckets, cspec, k)
             if i == len(entries) - 1:
                 # every class of this chunk is off the device: open the
                 # prefetch window before the host-heavy tail
@@ -1337,7 +1520,9 @@ def _stream_call(
             dent = None
             with phase_lock:
                 phase["device_wait_fetch"] += dt
-                rep.device_seconds += dt
+                # device time from the CUDA-event spans; the CPU has
+                # none, so there the drain's wait stands in for it
+                rep.device_seconds += dev_s if on_cuda else dt
                 rep.bytes_d2h += d2h_wire
                 rep.n_families += int(out["n_families"].sum())
                 rep.n_molecules += int(out["n_molecules"].sum())
@@ -1396,7 +1581,9 @@ def _stream_call(
     # early (<= max_inflight entries).
     done_q: dict[int, tuple] = {}
     fin: dict = {"f": None}
-    frontier = 0
+    # chunk indices live on the (possibly shard-offset) whole-file
+    # grid; the frontier starts at this run's first
+    frontier = chunk_base
     tmp_path = out_path + ".tmp"
 
     def _fin_open():
@@ -1423,6 +1610,65 @@ def _stream_call(
         if tr is not None:
             with phase_lock:
                 led["output_overhead_bytes"] += len(shell_c)
+
+    snap_path = out_path + ".snapshot.bam"
+
+    def _publish_snapshot(k):
+        """Indexed partial snapshot at a checkpoint mark: the committed
+        tmp assembly so far (header shell + committed shards + an EOF
+        block, a valid BAM prefix of the final output) published
+        atomically at ``out + ".snapshot.bam"`` with its own index.
+        Main thread only, right after chunk k's durable commit; a side
+        artifact whose absence or cadence never changes output bytes."""
+        f = fin["f"]
+        end = f.tell()
+        t0 = time.monotonic()
+
+        def _snap():
+            f.flush()
+            stage = unique_tmp(snap_path)
+            done = False
+            try:
+                with open(tmp_path, "rb") as src, open(stage, "wb") as dst:
+                    left = end
+                    while left > 0:
+                        block = src.read(min(4 << 20, left))
+                        if not block:
+                            raise ValueError(f"{tmp_path}: truncated under the snapshot copy")
+                        dst.write(block)
+                        left -= len(block)
+                    dst.write(bgzf.BGZF_EOF)
+                    fsync_file(dst)
+                replace_durable(stage, snap_path)
+                done = True
+            finally:
+                if not done:
+                    try:
+                        os.remove(stage)
+                    except OSError:
+                        pass
+            # the final output's index choice, over the prefix
+            write_bam_index(snap_path, header_out.ref_lengths)
+
+        _io_retry("live.snapshot", _snap, "snapshot publish")
+        rep.snapshot_seq += 1
+        if live_mark is not None:
+            # persist the series position so a resumed follower
+            # continues it (main thread: the tailer writes nothing)
+            from duplexumiconsensusreads_torch.live import watermark as _wm
+
+            live_mark["snapshot_seq"] = rep.snapshot_seq
+            if live_src is not None:
+                live_mark["admitted_bytes"] = live_src.admitted_bytes()
+            _io_retry("live.snapshot", _wm.save, "watermark save", out_path, live_mark)
+        dt = time.monotonic() - t0
+        phase["finalise"] += dt
+        if tr is not None:
+            tr.span("finalise", t0, dt, chunk=k)
+            tr.event(
+                "snapshot_published", chunk=k, snapshot_seq=rep.snapshot_seq,
+                chunks_done=k + 1 - chunk_base, reads=rep.n_consensus,
+            )
 
     def _commit(k, payload):
         """Main-thread commit of a drained chunk: durable mark first,
@@ -1459,6 +1705,8 @@ def _stream_call(
         phase["finalise"] += dt
         if tr is not None:
             tr.span("finalise", t0, dt, chunk=k)
+        if snapshot_chunks and (k + 1 - chunk_base) % snapshot_chunks == 0:
+            _publish_snapshot(k)
         if progress:
             progress(k, rep)
 
@@ -1529,8 +1777,25 @@ def _stream_call(
             tr.span("bucketing", t0, dt, chunk=k, n_buckets=len(buckets))
         return buckets, alpha, fb, n_down
 
+    def _drain_live(chunk=None):
+        """Follow mode: fold the tailer's idle-poll time and the reader's
+        blocked-on-tailer time into the phase ledger at chunk boundaries
+        (pull-based, so the tailing thread never touches this run's
+        state); whichever thread runs ingest does the accrual."""
+        if live_src is None:
+            return
+        poll_s, wait_s = live_src.take_phase_seconds()
+        now = time.monotonic()
+        for stage, dt in (("live_poll", poll_s), ("live_wait", wait_s)):
+            if dt <= 0:
+                continue
+            with phase_lock:
+                phase[stage] += dt
+            if tr is not None:
+                tr.span(stage, now - dt, dt, chunk=chunk)
+
     def timed_chunks(it):
-        i = 0
+        i = chunk_base
         while True:
             t0 = time.monotonic()
             item = next(it, None)
@@ -1538,6 +1803,7 @@ def _stream_call(
             phase["ingest"] += dt
             if tr is not None:
                 tr.span("ingest", t0, dt, chunk=i if item is not None else None)
+            _drain_live(chunk=i if item is not None else None)
             if item is None:
                 return
             i += 1
@@ -1551,13 +1817,16 @@ def _stream_call(
                 stall = phase["main_loop_stall"]
                 drain_busy = sum(phase[k] for k in DRAIN_PHASES)
                 retries = rep.n_retries
+                snap_seq = rep.snapshot_seq
             return {
                 "elapsed_s": round(elapsed, 1),
-                "chunks_done": frontier,
+                "chunks_done": frontier - chunk_base,
                 "chunks_inflight": len(inflight),
                 "stall_frac": round(stall / elapsed, 3),
                 "retries": retries,
                 "drain_util": round(min(drain_busy / (drain_workers * elapsed), 1.0), 3),
+                # follow-mode subscribers read snapshot progress here
+                "snapshot_seq": snap_seq,
             }
 
         hb_box.append(Heartbeat(heartbeat_s, _hb_stats, recorder=tr).start())
@@ -1595,7 +1864,7 @@ def _stream_call(
         def _ingest_producer():
             try:
                 it = iter(chunk_iter)
-                k = 0
+                k = chunk_base
                 while True:
                     t0 = time.monotonic()
                     item = next(it, None)
@@ -1604,6 +1873,7 @@ def _stream_call(
                         phase["ingest"] += dt
                     if tr is not None:
                         tr.span("ingest", t0, dt, chunk=k if item is not None else None)
+                    _drain_live(chunk=k if item is not None else None)
                     if item is None:
                         _q_put(("done", None), None)
                         return
@@ -1652,7 +1922,7 @@ def _stream_call(
     else:
 
         def _sync_chunks():
-            for k, item in enumerate(timed_chunks(iter(chunk_iter))):
+            for k, item in enumerate(timed_chunks(iter(chunk_iter)), start=chunk_base):
                 yield k, item, None
 
         chunk_stream = _sync_chunks()
@@ -1753,6 +2023,13 @@ def _stream_call(
                 pass
         raise
     finally:
+        if live_src is not None:
+            # stop the tailer on every exit path: a killed run must not
+            # leave a thread polling the input (close is idempotent)
+            try:
+                live_src.close()
+            except OSError:
+                pass
         if ingest_thread is not None and ingest_thread.is_alive():
             ingest_thread.join(timeout=30.0)
         drain.shutdown(wait=True, cancel_futures=True)
@@ -1812,6 +2089,17 @@ def _stream_call(
                 rm()
             except OSError:
                 pass
+    if live_mark is not None or snapshot_chunks:
+        # the finished output supersedes every partial snapshot, and a
+        # finished follow run resumes like any batch output
+        from duplexumiconsensusreads_torch.live import watermark as _wm
+
+        for leftover in (snap_path, snap_path + ".bai", snap_path + ".csi"):
+            try:
+                os.remove(leftover)
+            except OSError:
+                pass
+        _wm.clear(out_path)
     if write_index:
         write_bam_index(out_path, header_out.ref_lengths)
     dt_fin = time.monotonic() - t_fin
@@ -1821,6 +2109,8 @@ def _stream_call(
         tr.span("finalise", t_fin, dt_fin)
     rep.n_chunks_skipped = n_skipped
     rep.n_pipeline_compiles = len(spec_cache)
+    # follow residue: poll/wait accrued after the last chunk boundary
+    _drain_live()
     total = time.monotonic() - t_start
     for pk, pv in phase.items():
         rep.seconds[pk] = round(pv, 3)

@@ -168,9 +168,8 @@ def test_compact_keys_are_jax_and_each_skip_names_its_item():
     assert COMPACT_KEYS == JAX_KEYS
     assert benchhist.CANONICAL_METRICS == jax_benchhist.CANONICAL_METRICS
     assert set(SKIPPED_LEGS) == {
-        "e2e_mesh_skipped", "serve_n_jobs_skipped", "serve_fleet_skipped",
-        "serve_defense_skipped", "serve_shard_skipped", "serve_xhost_skipped",
-        "live_follow_skipped"}
+        "e2e_mesh_skipped", "serve_fleet_skipped", "serve_defense_skipped",
+        "serve_shard_skipped", "serve_xhost_skipped"}
     for v in SKIPPED_LEGS.values():
         assert v.startswith("not ported: ") and "ROADMAP queue 1 item" in v
 
@@ -422,20 +421,26 @@ def test_tiny_bench_final_stdout_line_is_compact_json(tmp_path):
     # no card: the MFU is scored against the table's named default
     assert full["peak_entry"] == "default-h100-sxm-f32" and full["device"] == "cpu"
     assert full["ssc_method"] == full["vec_cpu_ssc_method"] == "blockseg"
-    assert full["live_follow_skipped"].startswith("not ported")
+    assert full["serve_fleet_skipped"].startswith("not ported")
+    # the serve and live legs ride the e2e phase, which TINY turns off
+    assert "live_follow_skipped" not in full and "serve_n_jobs_skipped" not in full
+    assert "live_follow_reads" not in full and "serve_n_jobs" not in full
     assert "e2e_reads_per_sec" not in full and "tuner_ladder" in full
     assert "consensus_error_rate=" in r.stderr
 
 
 def test_bench_legs_on_the_cpu(tmp_path, monkeypatch, capsys):
-    """The per-config, e2e, A/B and CPU-denominator legs at a tiny size:
-    every key the card's run reports, and no wire probe without a wire."""
+    """The per-config, e2e, A/B, serve, live and CPU-denominator legs at a
+    tiny size: every key the card's run reports, and no wire probe
+    without a wire."""
     from duplexumiconsensusreads_torch import benchmark
 
     for k, v in dict(TINY, DUT_BENCH_PER_CONFIG="1", DUT_BENCH_CONFIG_READS="800",
                      DUT_BENCH_CONFIG_REPS="1", DUT_BENCH_TUNER="0",
                      DUT_BENCH_E2E_READS="2400", DUT_BENCH_E2E_AB="1600",
                      DUT_BENCH_CPU_E2E_READS="1600", DUT_BENCH_CPU_E2E_REPS="1",
+                     DUT_BENCH_SERVE_JOBS="2", DUT_BENCH_SERVE_READS="1600",
+                     DUT_BENCH_LIVE_READS="1600", DUT_BENCH_LIVE_SLAB_S="0.01",
                      DUT_BENCH_GATE="0", DUT_BENCH_CACHE=str(tmp_path / "c")).items():
         monkeypatch.setenv(k, v)
     monkeypatch.chdir(tmp_path)
@@ -455,4 +460,14 @@ def test_bench_legs_on_the_cpu(tmp_path, monkeypatch, capsys):
     assert full["e2e_device"] == "cpu"
     assert "wire_before_e2e" not in full and full["wire_probe_skipped"]
     assert not any(k.endswith("_error") for k in full)
+    # serve_n_jobs and live_follow: the JAX legs' keys
+    assert full["serve_n_jobs"] == 2 and len(full["serve_job_walls_s"]) == 2
+    assert full["serve_compile_hit_rate"] == 0.5 and full["serve_amortised_speedup"] > 0
+    assert full["serve_oneshot_cold_wall_s"] > 0
+    assert full["live_follow_reads"] == full["cpu_e2e_reads"]
+    assert full["live_snapshots_published"] == full["live_follow_chunks"] >= 1
+    assert full["live_first_snapshot_latency_s"] > 0
+    for key in ("live_steady_lag_chunks", "live_poll_s", "live_wait_s", "live_trace",
+                "serve_wall_s", "serve_trace"):
+        assert key in full, key
 

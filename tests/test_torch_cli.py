@@ -266,19 +266,10 @@ def test_config_file_and_flag_refusals_use_the_jax_words(inputs, tmp_path, conf,
 
 
 @pytest.mark.parametrize("conf, flags, words", [
-    ({}, ["--submit"], "--submit"), ({}, ["--status", "J1"], "--status"),
-    ({}, ["--wait", "J1"], "--wait"), ({}, ["--spool", "s"], "--spool"),
-    ({}, ["--priority", "0"], "--priority"), ({}, ["--json"], "--json"),
-    ({}, ["--deadline", "5"], "--deadline"), ({}, ["--shards", "2"], "--shards"),
-    ({}, ["--shard-bytes", "9"], "--shard-bytes"), ({}, ["--wait-timeout", "1"], "--wait-timeout"),
     ({}, ["--n-hosts", "2", "--host-id", "0"], "--n-hosts"), ({}, ["--index", "x"], "--index"),
     ({}, ["--devices", "2"], "--devices"), ({}, ["--mesh", "2", "--chunk-reads", "99"], "--mesh"),
     ({}, ["--cycle-shards", "2"], "--cycle-shards"),
-    ({}, ["--follow"], "--follow"),
-    ({}, ["--finalize-on", "marker"], "--finalize-on"),
-    ({}, ["--live-poll-s", "1"], "--live-poll-s"),
-    ({}, ["--snapshot-chunks", "2"], "--snapshot-chunks"),
-    ({"follow": True}, [], "--follow"), ({"mesh": 4}, [], "--mesh"),
+    ({"mesh": 4}, [], "--mesh"),
     ({"devices": 8}, [], "--devices"),
     ({"backend": "tpu"}, [], "--backend cuda"), ({}, ["--backend", "tpu"], "--backend cuda"),
     ({}, ["--backend", "cpu", "--chunk-reads", "50"], "requires --backend=cuda"),

@@ -103,12 +103,15 @@ def test_cli_call_runs_and_refuses_unported_flags(bams):
     )
     assert r.returncode == 0, r.stderr
     assert json.loads(r.stdout)["n_consensus"] == len(read_bam(out)[1]) > 0
-    r = subprocess.run(
-        [sys.executable, "-m", "duplexumiconsensusreads_torch", "call", paths["single"],
-         "-o", out, "--config", "config5", "--follow"],
-        capture_output=True, text=True, env=env, timeout=120,
-    )
-    assert r.returncode != 0 and "not supported by the torch port" in r.stderr
+    # --follow on the whole-file call: refused in the JAX CLI's words
+    from duplexumiconsensusreads_tpu.cli.main import main as jax_main
+
+    argv = ["call", paths["single"], "-o", out, "--config", "config5", "--follow"]
+    with pytest.raises(SystemExit) as e:
+        jax_main(argv)
+    r = subprocess.run([sys.executable, "-m", "duplexumiconsensusreads_torch", *argv],
+                       capture_output=True, text=True, env=env, timeout=120)
+    assert r.returncode != 0 and r.stderr.strip().endswith(str(e.value)) and str(e.value)
 
 
 def test_cuda_default_raises_without_a_card(bams, monkeypatch):

@@ -89,11 +89,30 @@ def test_every_module_imports_without_jax():
     "duplexumiconsensusreads_torch.tools.bench_history",
     "duplexumiconsensusreads_torch.tools.profile_components",
     "duplexumiconsensusreads_torch.tools.profile_phases",
+    "duplexumiconsensusreads_torch.tools.serve_report",
+    "duplexumiconsensusreads_torch.utils.compile_cache",
+    "duplexumiconsensusreads_torch.live",
+    "duplexumiconsensusreads_torch.live.tail",
+    "duplexumiconsensusreads_torch.live.watermark",
+    "duplexumiconsensusreads_torch.serve",
+    "duplexumiconsensusreads_torch.serve.states",
+    "duplexumiconsensusreads_torch.serve.job",
+    "duplexumiconsensusreads_torch.serve.store",
+    "duplexumiconsensusreads_torch.serve.queue",
+    "duplexumiconsensusreads_torch.serve.scheduler",
+    "duplexumiconsensusreads_torch.serve.worker",
+    "duplexumiconsensusreads_torch.serve.service",
+    "duplexumiconsensusreads_torch.serve.daemon",
+    "duplexumiconsensusreads_torch.serve.client",
+    "duplexumiconsensusreads_torch.serve.shard",
+    "duplexumiconsensusreads_torch.serve.shard.plan",
+    "duplexumiconsensusreads_torch.serve.shard.merge",
 ])
 def test_analysers_tuning_and_tools_are_scanned_and_import_alone(module):
-    """The capture analysers, tuning/ and the tools are among the modules
-    both checks above cover, and each imports in a fresh interpreter
-    without jax (the tools run offline, on a machine without jax)."""
+    """The capture analysers, tuning/, the tools, live/ and serve/ are
+    among the modules both checks above cover, and each imports in a
+    fresh interpreter without jax (the tools and the serving client run
+    on machines without jax)."""
     assert module in _modules()
     code = (
         "import importlib, sys\n"

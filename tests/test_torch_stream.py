@@ -277,9 +277,6 @@ def test_jax_manifest_is_not_resumed(bams, tmp_path, monkeypatch):
 # ---- refusals, the device rule, the CLI, the trace
 
 @pytest.mark.parametrize("name, value", [
-    ("input_range", (0, 0, None)), ("chunk_base", 4), ("first_read", 10),
-    ("follow", True), ("finalize_on", "idle:5"),
-    ("live_poll_s", 1.0), ("snapshot_chunks", 2),
     ("devices", (0,)), ("cycle_shards", 2), ("n_devices", 2),
 ])
 def test_unported_options_raise_by_name(bams, tmp_path, name, value):
@@ -349,9 +346,19 @@ def test_cli_streams_and_refuses(bams, tmp_path):
     rep = json.loads(r.stdout)
     assert rep["backend"] == "torch-stream" and rep["n_chunks"] >= 3
     assert rep["n_consensus"] == len(read_bam(out)[1]) > 0
-    for extra, what in ((["--resume"], "--resume"), (["--follow"], "--follow")):
-        r = subprocess.run(cmd + extra, capture_output=True, text=True, env=env, timeout=120)
-        assert r.returncode != 0 and what in r.stderr and "not supported" in r.stderr
+    r = subprocess.run(cmd + ["--resume"], capture_output=True, text=True, env=env,
+                       timeout=120)
+    assert r.returncode != 0 and "--resume" in r.stderr and "not supported" in r.stderr
+    # --follow without --chunk-reads: refused in the JAX CLI's words
+    from duplexumiconsensusreads_tpu.cli.main import main as jax_main
+
+    argv = ["call", paths["mates"], "-o", out, "--config", "config5", "--follow"]
+    with pytest.raises(SystemExit) as e:
+        jax_main(argv)
+    r = subprocess.run([sys.executable, "-m", "duplexumiconsensusreads_torch", *argv,
+                        "--device", "cpu"],
+                       capture_output=True, text=True, env=env, timeout=120)
+    assert r.returncode != 0 and r.stderr.strip().endswith(str(e.value)) and str(e.value)
 
 
 def test_config3_stream_matches_the_whole_file_call(bams, tmp_path):
