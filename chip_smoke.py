@@ -11,7 +11,9 @@ config5 streaming call through ``stream_call_consensus`` on the bench's
 ~2M-read e2e workload in 500k-read chunks, also under the bucket
 ladder, with its captures read back by the port's analysers and tools;
 the service path on that input (follow mode, the serve daemon with a
-takeover, scatter-gather shards); the CLI workflow (simulate, call, filter, validate, group) on the
+takeover, scatter-gather shards, the fleet recorder over their spools);
+the multi-host call (two hosts on one TCPStore); the cycle model's
+counts fit; the CLI workflow (simulate, call, filter, validate, group) on the
 whole-file input; the UmiGrouper/ConsensusCaller operators; and the
 ssc-method race — reading through the native BAM loader and deflating
 through it, and holds every hand-written kernel of those paths against
@@ -56,6 +58,13 @@ line:
   parity  >= 8 real buckets through the fused pipeline with the kernel
           and with the plain reduction: integer outputs identical,
           bases identical except at ties, quals within 1
+  fit_counts  the largest class's fused step with the cycle model fit
+          by gather and by counts (PipelineSpec.fit_impl, DUT_FIT_IMPL)
+          in turns gather, counts, counts, gather: cycle caps and every
+          output identical, each turn's step ms; then the counts pass's
+          segment_gemm launch (the fit columns plus 4L count columns,
+          C = 8L+1) against its plain version at tolerance 0, with the
+          kernel, plain, index_add_ and bound ms
   stream  the streaming call at full width (the bench's e2e workload
           and settings: capacity 2048, 500k-read chunks, 4 in flight,
           2 drain workers, prefetch depth 2, every wire rung on auto,
@@ -88,6 +97,26 @@ line:
           input run by two daemon subprocesses: ``call --wait`` exits 0,
           the merged BAM and .bai equal the unsharded one-shot run's; the
           sharded and unsharded walls
+  fleet   the port's tools.fleet_report over the serve, takeover and
+          shard spools those phases leave: each exits 0 with ok true,
+          every job's segments plus gaps tile its life exactly, one
+          takeover on the takeover spool, one split and one merge on the
+          shard spool, the --prom and --chrome files written; a copy of
+          the takeover spool with daemon B's job_started dropped exits
+          1. e2e p95 and the largest takeover gap. Launches no kernel
+  multihost  two host subprocesses of ``call --n-hosts 2 --host-id i
+          --config config3`` on the serve phase's 250k-read input in
+          50k-read chunks, concurrently on this card over a localhost
+          TCPStore (MASTER_ADDR/MASTER_PORT/WORLD_SIZE/RANK), with no
+          .dlix at the start: each reports a 2-process runtime and
+          launches both kernels (each host writes its counts at exit),
+          one .dlix is written, and the concatenation equals a one-host
+          config3 stream record by record (names aside: each carries its
+          host's tag and chunk numbering); each host's wall, the index
+          election's, the one-host wall. Then, the input indexed every
+          25k records, host 1 SIGKILLed after a committed chunk and
+          resumed alone skips exactly its manifest's chunks, and the
+          concatenation is unchanged
   stream_small_reference  a small paired config5 input streamed on the
           card and on the CPU (plain versions) must agree record by
           record, with per-base tags and a BAI too; on the card,
@@ -145,13 +174,17 @@ line:
           per_config at its default, the tuner leg, the wire probe, the
           e2e leg on the stream phase's input (reused from the bench's
           cache), the packed / d2h / ingest-overlap A/B legs at one
-          chunk, the serve_n_jobs leg (two jobs) and the live_follow leg
-          at the serve phase's small-job size, and the CPU e2e
+          chunk, the serve_n_jobs leg (two jobs), the four fleet legs
+          (serve_fleet with a takeover and its stitch, serve_defense,
+          serve_shard, serve_xhost: in-process daemons on the card; their
+          launches counted apart as the "fleet" path) and the live_follow
+          leg at the serve phase's small-job size, and the CPU e2e
           denominator at one chunk, one rep; then
           ``tools.profile_components`` and ``tools.profile_phases`` at
           BENCH_PROF_READS. Its compact and full result lines, checked:
           value > 0, peak entry h100-sxm-f32, five per_config rows, the
-          e2e, A/B, serve, live and tuner keys, the wire probe's MB/s, every
+          e2e, A/B, serve, fleet, live and tuner keys (serve_fleet_stitch_ok
+          true), the wire probe's MB/s, every
           ``*_skipped`` string, no ``*_error`` key, a consensus error
           rate below a tenth of the simulator's base error
   kernel_bench  the bench phase's largest segment_gemm launch at each
@@ -159,15 +192,17 @@ line:
           (tolerance 0), and the kernel, plain, index_add_ and bound ms
 
 Every path (whole_file, stream, per_base, workflow, operators, live,
-serve, shard, ladder, race, bench) must launch both kernels:
-segment_gemm and the grouping fixpoint (cluster_fixpoint); the serve
-and shard paths count the daemon subprocesses' launches too (each
-daemon writes its counts at exit). Then the nvidia-smi line, the ``kernels``
+serve, shard, multihost, ladder, race, bench, fleet, fit_counts) must
+launch both kernels: segment_gemm and the grouping fixpoint
+(cluster_fixpoint); the serve, shard and multihost paths count the
+daemon and host subprocesses' launches too (each writes its counts at
+exit). Then the nvidia-smi line, the ``kernels``
 JSON line (one row per kernel with its launches per path; under
 segment_gemm a ``rung_shapes`` sub-row with the kernel, plain,
 library and bound ms at each explicit ladder rung's largest launch,
-and a ``bench_shapes`` sub-row with the same at the bench phase's
-largest launch of each (rows, columns, f_max) it gave the kernel),
+a ``bench_shapes`` sub-row with the same at the bench phase's
+largest launch of each (rows, columns, f_max) it gave the kernel, and
+a ``fit_counts_shape`` sub-row at the counts fit's width),
 and last
 ``{"ok": true, "device": {...}}``. Any failed phase raises and exits
 non-zero; with no CUDA device, or without the package beside this
@@ -229,6 +264,10 @@ SERVE_SMALL_READS = (125_000, 250_000)
 SERVE_DAEMON_TIMEOUT_S = 300
 # the shard phase: one job of the stream cell's input split four ways
 SHARDS = 4
+# the multihost phase's kill and resume: its input (the serve phase's
+# 250k reads) indexed every 25k records, so each host's range spans
+# several of its 50k-read chunks and the kill lands between commits
+RESUME_INDEX_EVERY = 25_000
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (data sheet)
 F32_FLOPS = 67e12  # H100 SXM f32 rate outside the tensor cores (data sheet)
 
@@ -734,8 +773,17 @@ def main() -> int:
     emit("parity", buckets=n_par, spec_f_max=spec.f_max, spec_m_max=spec.m_max,
          spec_u_max=spec.u_max, keys=sorted(out_k), max_qual_diff=max_dq,
          bases_identical=True, integers_identical=True)
+    del out_k, out_p, sub
 
-    del out_k, out_p, sub, full, args, kw, cap_p
+    # ---- fit_counts: the counts fit of the cycle model in the fused
+    # step, against the gather fit, on the same class
+    launches["fit_counts"], fc_case, t_fc = fit_counts_phase(sg, full, spec, smi)
+    kernel_rows.append(fc_case)
+    seg_row["fit_counts_shape"] = {"shape": fc_case["shape"], "f_max": fc_case["f_max"],
+                                   **row_times(t_fc), "live_rows": t_fc["live_rows"],
+                                   "bound_fraction": t_fc["bound_fraction"]}
+
+    del full, args, kw, cap_p
     torch.cuda.empty_cache()
     # the bench's input cache: the stream phase simulates its input
     # there, and the bench phase's e2e leg reuses it
@@ -756,7 +804,7 @@ def main() -> int:
     emit("kernel_rungs", name="segment_gemm", rungs=rung_shapes, library_call="index_add_",
          nvidia_smi=smi)
     launches["race"] = race_phase(smi)
-    launches["bench"], bench_calls = bench_phase(bench_cache.name, smi)
+    launches["bench"], bench_calls, launches["fleet"] = bench_phase(bench_cache.name, smi)
     bench_cache.cleanup()
     # the bench's largest launch at each (rows, columns, f_max) it gave
     # the kernel (per_config's capacity 4096, the profile tools'
@@ -780,7 +828,7 @@ def main() -> int:
     seg_row["rung_shapes"] = rung_shapes
     seg_row["bench_shapes"] = bench_shapes
     paths = ("whole_file", "stream", "per_base", "workflow", "operators", "live", "serve",
-             "shard", "ladder", "race", "bench")
+             "shard", "multihost", "ladder", "race", "bench", "fleet", "fit_counts")
     seg_row["launches"] = {k: launches[k]["segment_gemm"] for k in paths}
     fix_row["launches"] = {k: launches[k]["cluster_fixpoint"] for k in paths}
 
@@ -790,6 +838,65 @@ def main() -> int:
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def fit_counts_phase(sg, full, spec, smi: str):
+    """The fused step on the largest whole-file class with the cycle
+    model fit by gather and by counts (the ``DUT_FIT_IMPL`` values, as
+    ``PipelineSpec.fit_impl``) in turns, gather, counts, counts, gather:
+    the cycle caps and every output identical, each turn's step ms.
+    Then the counts pass's segment_gemm launch (the fit columns plus 4L
+    count columns) against its plain version at tolerance 0, with its
+    times and bound. Returns the kernels' launches over the turns, that
+    launch's kernel case and its times."""
+    import torch
+
+    from duplexumiconsensusreads_torch.kernels import consensus
+    from duplexumiconsensusreads_torch.ops import pipeline
+
+    specs = {impl: dataclasses.replace(spec, fit_impl=impl) for impl in ("gather", "counts")}
+    torch.cuda.synchronize()
+    reset_launches()
+    first, turns = {}, []
+    for impl in ("gather", "counts", "counts", "gather"):
+        with Capture(pipeline, "apply_cycle_cap") as cap_c:
+            out = pipeline.fused_pipeline(*full, specs[impl])
+        got = (cap_c.args[0][1], out)
+        if impl not in first:
+            first[impl] = got
+        elif not (torch.equal(got[0], first[impl][0])
+                  and all(torch.equal(v, first[impl][1][k]) for k, v in out.items())):
+            raise AssertionError(f"fit_counts: the {impl} fit moved between turns")
+        turns.append({"fit_impl": impl,
+                      "step_ms": cuda_ms(lambda: pipeline.fused_pipeline(*full, specs[impl]),
+                                         reps=3)})
+        del cap_c, got, out
+    launches = read_launches("fit_counts")
+    (cap_g, out_g), (cap_n, out_n) = first["gather"], first["counts"]
+    if not torch.equal(cap_g, cap_n):
+        raise AssertionError("fit_counts: the cycle caps differ from the gather fit's")
+    bad = [k for k in out_g if not torch.equal(out_g[k], out_n[k])]
+    if bad:
+        raise AssertionError(f"fit_counts: {bad} differ from the gather fit's")
+    n_keys, caps = len(out_g), [int(cap_g.min()), int(cap_g.max())]
+    del first, cap_g, out_g, cap_n, out_n
+    with Capture(consensus, "segment_gemm") as cap_r:
+        pipeline.fused_pipeline(*full, specs["counts"])
+    (big, fid, f_max), _ = cap_r.args
+    del cap_r
+    case = kernel_case(sg, "real_fit_counts_path", big, fid, f_max)
+    t = kernel_times(sg, big, fid, f_max, plain_reps=1, lib_reps=5)
+    del big, fid
+    torch.cuda.empty_cache()
+    mean = {impl: sum(r["step_ms"] for r in turns if r["fit_impl"] == impl) / 2
+            for impl in ("gather", "counts")}
+    emit("fit_counts", shape=list(full[0].shape), turns=turns, mean_step_ms=mean,
+         counts_over_gather=mean["counts"] / mean["gather"], caps_identical=True,
+         outputs_identical=True, output_keys=n_keys, cycle_cap_range=caps,
+         segment_gemm={"shape": case["shape"], "f_max": f_max, **t,
+                       "library_call": "index_add_", "max_abs_err": case["max_abs_err"]},
+         launches=launches, nvidia_smi=smi)
+    return launches, case, t
 
 
 def kernel_case(sg, name: str, x, ids, f_max: int) -> dict:
@@ -1358,11 +1465,11 @@ def operators_phase() -> int:
 
 def stream_phases(gp, smi: str, bench_cache: str, launches: dict):
     """The streaming path: the "stream", "stream_turns", "live", "serve",
-    "shard", "stream_small_reference", "stream_resume", "ladder" and
-    "capture" phases, on the bench's e2e input simulated into
-    ``bench_cache``. Fills ``launches`` for the stream, live, serve,
-    shard and ladder paths and returns the ladder run's largest launch
-    at each explicit rung."""
+    "shard", "fleet", "multihost", "stream_small_reference",
+    "stream_resume", "ladder" and "capture" phases, on the bench's e2e
+    input simulated into ``bench_cache``. Fills ``launches`` for the
+    stream, live, serve, shard, multihost and ladder paths and returns
+    the ladder run's largest launch at each explicit rung."""
     import numpy as np
     import torch
 
@@ -1463,8 +1570,11 @@ def stream_phases(gp, smi: str, bench_cache: str, launches: dict):
         # ---- the service path: follow mode, the daemon, scatter-gather
         launches["live"] = live_phase(in_bam, out_bam, gp, cp, settings, td, smi)
         smalls = [benchmark._e2e_input(n, bench_cache)[0] for n in SERVE_SMALL_READS]
-        launches["serve"], ref_large, ref_wall = serve_phase(in_bam, smalls, td, smi)
-        launches["shard"] = shard_phase(in_bam, ref_large, ref_wall, td, smi)
+        launches["serve"], ref_large, ref_wall, spools = serve_phase(in_bam, smalls, td, smi)
+        launches["shard"], shard_spool = shard_phase(in_bam, ref_large, ref_wall, td, smi)
+        spools["shard"] = (shard_spool, None)
+        fleet_phase(spools, td, smi)
+        launches["multihost"] = multihost_phase(smalls[-1], td, smi)
         torch.cuda.empty_cache()
 
         # ---- stream_small_reference: card vs CPU, then the knobs
@@ -1729,7 +1839,7 @@ def live_phase(in_bam: str, stream_out: str, gp, cp, settings: dict, td: str, sm
 
 
 def serve_phase(in_bam: str, small_bams: list, td: str, smi: str,
-                device: str = "cuda") -> tuple[dict, str, float]:
+                device: str = "cuda") -> tuple[dict, str, float, dict]:
     """The service on the card: an in-process ConsensusService runs a job
     on the stream cell's input and two smaller jobs under a chunk budget
     that preempts the large one; each output equals the one-shot stream
@@ -1739,10 +1849,11 @@ def serve_phase(in_bam: str, small_bams: list, td: str, smi: str,
     the bytes equal the reference, the job's token is 2 or more, and
     the port's serve_report reads one takeover and no fenced slice.
     Reports each job's wall and queue wait and the takeover gap.
-    Returns the kernels' launches on the path (B's included), and the
-    large job's one-shot reference (its path, with a .bai, and wall)."""
+    Returns the kernels' launches on the path (B's included), the large
+    job's one-shot reference (its path, with a .bai, and wall), and the
+    two spools it leaves for the fleet phase ({"serve": (spool, the
+    in-process daemon's capture), "takeover": (spool, None)})."""
     import io
-    import shutil
     import signal
 
     import torch
@@ -1857,8 +1968,6 @@ def serve_phase(in_bam: str, small_bams: list, td: str, smi: str,
                    "kill_to_done_s": round(b_done - t_kill, 3),
                    "bytes_identical": True},
          launches=launches, nvidia_smi=smi)
-    shutil.rmtree(spool, ignore_errors=True)
-    shutil.rmtree(tk_spool, ignore_errors=True)
     for name in refs:
         if name != "large":
             os.remove(os.path.join(td, f"ref_{name}.bam"))
@@ -1866,20 +1975,21 @@ def serve_phase(in_bam: str, small_bams: list, td: str, smi: str,
     for path in (tk_out, os.path.join(td, "ref_takeover.bam")):
         os.remove(path)
         os.remove(path + ".bai")
-    return launches, os.path.join(td, "ref_large.bam"), refs["large"][1]
+    return (launches, os.path.join(td, "ref_large.bam"), refs["large"][1],
+            {"serve": (spool, trace), "takeover": (tk_spool, None)})
 
 
 def shard_phase(in_bam: str, ref: str, unsharded_s: float, td: str, smi: str,
-                device: str = "cuda") -> dict:
+                device: str = "cuda") -> tuple[dict, str]:
     """Scatter-gather on the card: ``call --submit --shards 4
     --write-index`` of the stream cell's input, run by two daemon
     subprocesses on one spool; ``call --wait`` exits 0 and the merged
     BAM and .bai equal the unsharded one-shot run's (the serve phase's
     large-job reference ``ref``, timed ``unsharded_s``: the job's @PG
     line is the same). Reports the sharded and the unsharded wall.
-    Returns the kernels' launches on the path (the daemons' counts)."""
+    Returns the kernels' launches on the path (the daemons' counts) and
+    the spool, which it leaves for the fleet phase."""
     import io
-    import shutil
 
     import torch
 
@@ -1928,9 +2038,285 @@ def shard_phase(in_bam: str, ref: str, unsharded_s: float, td: str, smi: str,
          sharded_wall_s=round(sharded_s, 3), unsharded_wall_s=round(unsharded_s, 3),
          merge_s=st["result"]["sharded"]["merge_s"], shard_states=st["shards"],
          bam_identical=True, bai_identical=True, launches=launches, nvidia_smi=smi)
-    shutil.rmtree(spool, ignore_errors=True)
     for p in (out, out + ".bai", ref, ref + ".bai"):
         os.remove(p)
+    return launches, spool
+
+
+def fleet_phase(spools: dict, td: str, smi: str) -> None:
+    """The port's fleet_report over the spools the serve and shard
+    phases left ({name: (spool, extra capture or None)}): each exits 0
+    with ok true, every job's segments plus gaps tile its admission to
+    terminal exactly, the takeover spool shows one takeover and the
+    shard spool one split and one merge, and the --prom and --chrome
+    files are written. Then a copy of the takeover spool's captures
+    with daemon B's job_started line dropped must exit 1. Launches no
+    kernel: it reads files. Removes the spools."""
+    import shutil
+
+    rows = {}
+    for name, (spool, capture) in spools.items():
+        prom, chrome = os.path.join(td, f"{name}.prom"), os.path.join(td, f"{name}.fleet.json")
+        argv = [spool, *([capture] if capture else []), "--json", "--prom", prom,
+                "--chrome", chrome]
+        rc, text, err = run_tool("fleet_report", argv)
+        doc = json.loads(text) if text else {}
+        if rc != 0 or not doc.get("ok"):
+            raise AssertionError(f"fleet_report on the {name} spool exited {rc}: "
+                                 f"{doc.get('problems')} {err[-1000:]}")
+        jobs = doc["jobs"]
+        for jid, tl in jobs.items():
+            tiled = sum(s["t1_us"] - s["t0_us"] for s in tl["segments"]) + sum(
+                g["t1_us"] - g["t0_us"] for g in tl["gaps"])
+            if tl["sum_check_ok"] is not True or tiled != tl["wall_us"]:
+                raise AssertionError(f"fleet {name}: job {jid} does not tile its life")
+        m = doc["metrics"]
+        if not (os.path.getsize(prom) > 0 and json.load(open(chrome))["traceEvents"]):
+            raise AssertionError(f"fleet {name}: empty --prom or --chrome output")
+        want = {"serve": {"fleet_takeovers": 0, "fleet_done": 3},
+                "takeover": {"fleet_takeovers": 1, "fleet_done": 1},
+                "shard": {"fleet_splits": 1, "fleet_merges": 1, "fleet_done": 1 + SHARDS}}[name]
+        got = {k: m[k] for k in want}
+        if got != want or (name == "serve" and m["fleet_preemptions"] < 1):
+            raise AssertionError(f"fleet {name}: {got} (want {want}), "
+                                 f"preemptions {m['fleet_preemptions']}")
+        rows[name] = {k: m[k] for k in ("fleet_daemons", "fleet_jobs", "fleet_done",
+                                        "fleet_takeovers", "fleet_preemptions",
+                                        "fleet_splits", "fleet_merges", "fleet_wall_s",
+                                        "queue_wait_p95_s", "e2e_p50_s", "e2e_p95_s",
+                                        "takeover_gap_max_s")}
+        rows[name].update(jobs=len(jobs), sum_checks_exact=True,
+                          daemons=sorted(m["daemons"]), warnings=len(doc["warnings"]))
+    # the tamper: daemon B's capture (a clean one) without its claim
+    tk_spool = spools["takeover"][0]
+    tampered = os.path.join(td, "fleet_tamper")
+    os.makedirs(tampered)
+    b_trace = os.path.join(tk_spool, "service.smoke-B.trace.jsonl")
+    with open(b_trace) as f:
+        recs = [json.loads(line) for line in f]
+    keep = [r for r in recs if r.get("name") != "job_started"]
+    if len(keep) != len(recs) - 1 or keep[-1].get("type") != "summary":
+        raise AssertionError("fleet tamper: B's capture is not a clean one-claim capture")
+    with open(os.path.join(tampered, "service.smoke-B.trace.jsonl"), "w") as f:
+        f.writelines(json.dumps(r) + "\n" for r in keep)
+    shutil.copy(os.path.join(tk_spool, "service.smoke-A.trace.jsonl"), tampered)
+    rc, _, err = run_tool("fleet_report", [os.path.join(tampered, n)
+                                           for n in sorted(os.listdir(tampered))])
+    if rc != 1 or "FLEET TIMELINE DRIFT" not in err:
+        raise AssertionError(f"fleet_report exited {rc} on the dropped job_started")
+    emit("fleet", spools=rows, tampered={"dropped": "job_started", "capture": "smoke-B",
+                                         "exit": rc},
+         e2e_p95_s=rows["serve"]["e2e_p95_s"],
+         takeover_gap_max_s=rows["takeover"]["takeover_gap_max_s"], nvidia_smi=smi)
+    for spool, _ in spools.values():
+        shutil.rmtree(spool, ignore_errors=True)
+    shutil.rmtree(tampered, ignore_errors=True)
+
+
+# one host of a multi-host call run in a subprocess by the multihost
+# phase: the port's CLI main, then its kernel launch counts, its wall
+# and its coordination barriers' times written to the file named by the
+# first argument (the counters live in the host's process)
+HOST_CHILD = """
+import json, sys, time
+sys.path.insert(0, {here!r})
+from duplexumiconsensusreads_torch.kernels import cluster_fixpoint, segment_gemm
+from duplexumiconsensusreads_torch.parallel import distributed
+from duplexumiconsensusreads_torch.cli.main import main
+barriers = []
+inner = distributed.coordination_barrier
+def timed(name, *a, **k):
+    t0 = time.monotonic()
+    out = inner(name, *a, **k)
+    barriers.append([name, t0, time.monotonic()])
+    return out
+distributed.coordination_barrier = timed
+t0 = time.monotonic()
+rc = main(sys.argv[2:])
+with open(sys.argv[1], "w") as f:
+    json.dump({{"segment_gemm": segment_gemm.segment_gemm.launches,
+               "cluster_fixpoint": cluster_fixpoint.propagate_min.launches,
+               "wall_s": time.monotonic() - t0, "barriers": barriers}}, f)
+sys.exit(rc)
+"""
+
+
+def start_host(in_bam: str, out: str, pid: int, chunk_reads: int, counts: str, env: dict,
+               *extra):
+    """Host ``pid`` of 2 of ``call --config config3`` on the card, in a
+    subprocess loading the kernels this process built."""
+    from duplexumiconsensusreads_torch.kernels import build
+    from duplexumiconsensusreads_torch.utils.compile_cache import ENV_VAR, build_dir
+
+    argv = [sys.executable, "-c", HOST_CHILD.format(here=HERE), counts, "call", in_bam,
+            "-o", out, "--config", "config3", "--chunk-reads", str(chunk_reads),
+            "--n-hosts", "2", "--host-id", str(pid), *extra]
+    env = {**os.environ, ENV_VAR: build_dir(build.BUILD_DIR), **env}
+    return subprocess.Popen(argv, cwd=HERE, env=env, stdout=subprocess.DEVNULL,
+                            stderr=subprocess.PIPE, text=True)
+
+
+def store_env(port: int, pid: int) -> dict:
+    return {"MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port), "WORLD_SIZE": "2",
+            "RANK": str(pid)}
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def compare_host_concat(parts: list, whole: str) -> dict:
+    """The hosts' outputs, concatenated in host order, against a one-host
+    stream of the same input: every record identical but its name. A
+    name carries its host's ``h{pid}_`` tag and its chunk's number and
+    molecule count, which follow each host's own chunking; the position
+    fields of the names must agree. An idle host (no records in its
+    range) wrote nothing. Raises otherwise."""
+    import numpy as np
+
+    from duplexumiconsensusreads_torch.io import read_bam
+
+    _, w = read_bam(whole)
+    cat = [(pid, read_bam(p)[1]) for pid, p in parts if os.path.exists(p)]
+    if sum(len(r) for _, r in cat) != len(w):
+        raise AssertionError("multihost: the hosts' record count is not the one-host run's")
+    if not all(n.startswith(f"consh{pid}_") for pid, r in cat for n in r.names):
+        raise AssertionError("multihost: a host's names lack its tag")
+    if [n.split(":")[1:3] for _, r in cat for n in r.names] != [
+            n.split(":")[1:3] for n in w.names]:
+        raise AssertionError("multihost: the names' positions differ from the one-host run's")
+    for f in ("flags", "ref_id", "pos", "mapq", "tlen", "seq", "qual", "lengths"):
+        got = np.concatenate([np.asarray(getattr(r, f)) for _, r in cat])
+        if not np.array_equal(got, np.asarray(getattr(w, f))):
+            raise AssertionError(f"multihost: the concatenation differs in {f}")
+    if [a for _, r in cat for a in r.aux_raw] != list(w.aux_raw):
+        raise AssertionError("multihost: the concatenation differs in its aux tags")
+    return {"records": len(w), "per_host": [len(r) for _, r in cat],
+            "identical_but_names": True}
+
+
+def multihost_phase(in_bam: str, td: str, smi: str) -> dict:
+    """Two hosts of ``call --n-hosts 2 --config config3`` on the serve
+    phase's 250k input in 50k-read chunks, concurrently on this card
+    over a localhost TCPStore, with no .dlix at the start: both report
+    a 2-process runtime and launch both kernels, one .dlix is written,
+    and the concatenated outputs equal a one-host config3 stream record
+    by record (names aside). Then, the input indexed every
+    RESUME_INDEX_EVERY records, host 1 is SIGKILLed once its manifest
+    holds a done chunk and relaunched alone with --resume: it skips
+    exactly the manifest's chunks and the concatenation is unchanged.
+    Reports each host's wall, the one-host wall and the index election's
+    time. Returns the kernels' launches, summed over the hosts."""
+    import shutil
+    import signal
+
+    from duplexumiconsensusreads_torch.cli.main import params_for
+    from duplexumiconsensusreads_torch.io.index import BamLinearIndex, build_linear_index
+    from duplexumiconsensusreads_torch.runtime.stream import stream_call_consensus
+
+    gp3, cp3, cap3 = params_for("config3")
+    mh = os.path.join(td, "multihost")
+    os.makedirs(mh)
+    src = os.path.join(mh, "in.bam")
+    os.link(in_bam, src)  # the .dlix lands here, not beside the cached input
+    whole = os.path.join(mh, "whole.bam")
+    t0 = time.monotonic()
+    stream_call_consensus(src, whole, gp3, cp3, device="cuda", capacity=cap3,
+                          chunk_reads=TAKEOVER_CHUNK_READS)
+    one_host_s = time.monotonic() - t0
+    port = free_port()
+    counts = [os.path.join(mh, f"host{pid}.counts") for pid in range(2)]
+    out = os.path.join(mh, "mh.bam")
+    t0 = time.monotonic()
+    procs = [start_host(src, out, pid, TAKEOVER_CHUNK_READS, counts[pid],
+                        store_env(port, pid)) for pid in range(2)]
+    errs = [finish_daemon(p, SERVE_DAEMON_TIMEOUT_S, f"host {pid}")
+            for pid, p in enumerate(procs)]
+    both_s = time.monotonic() - t0
+    hosts = []
+    launches = {}
+    for pid, (err, c) in enumerate(zip(errs, counts)):
+        if f"distributed runtime: process {pid}/2" not in err:
+            raise AssertionError(f"host {pid} ran without the 2-process runtime: {err[-1000:]}")
+        with open(c) as f:
+            got = json.load(f)
+        if min(got["segment_gemm"], got["cluster_fixpoint"]) == 0:
+            raise AssertionError(f"host {pid} launched {got}")
+        b = {name: (t0_, t1_) for name, t0_, t1_ in got["barriers"]}
+        hosts.append({"wall_s": round(got["wall_s"], 3),
+                      "launches": {k: got[k] for k in ("segment_gemm", "cluster_fixpoint")},
+                      "index_election_s": round(b["duplexumi:index:done"][1]
+                                                - b["duplexumi:index:elect"][0], 3)})
+        launches = {k: launches.get(k, 0) + got[k] for k in ("segment_gemm", "cluster_fixpoint")}
+    if sorted(n for n in os.listdir(mh) if ".dlix" in n) != ["in.bam.dlix"]:
+        raise AssertionError(f"multihost: index files {os.listdir(mh)}")
+    parts = [(pid, os.path.join(mh, f"mh.host{pid}.bam")) for pid in range(2)]
+    concat = compare_host_concat(parts, whole)
+    # a host is idle only when the index has a single tile
+    tiles = len(BamLinearIndex.load(src + ".dlix").pos_key)
+    if tiles > 1 and len(concat["per_host"]) != 2:
+        raise AssertionError(f"multihost: {tiles} index tiles, hosts {concat['per_host']}")
+    concat["index_tiles"] = tiles
+    for _, p in parts:
+        if os.path.exists(p):
+            os.remove(p)
+
+    # kill and resume: host 1 dies after a committed chunk and resumes
+    # alone (host 0 has finished: its store is gone)
+    build_linear_index(src, every=RESUME_INDEX_EVERY).save(src + ".dlix")
+    ckpt = os.path.join(mh, "ckpt")
+    port = free_port()
+    p0, p1 = (start_host(src, out, pid, TAKEOVER_CHUNK_READS, counts[pid], store_env(port, pid),
+                         "--checkpoint", ckpt) for pid in range(2))
+    try:
+        deadline = time.monotonic() + SERVE_DAEMON_TIMEOUT_S
+        while True:
+            try:
+                with open(ckpt + ".host1") as f:
+                    if json.load(f).get("done"):
+                        break
+            except (OSError, ValueError):
+                pass
+            if p1.poll() is not None:
+                raise AssertionError(f"host 1 exited {p1.returncode} before its kill: "
+                                     f"{p1.communicate()[1][-2000:]}")
+            if time.monotonic() > deadline:
+                raise AssertionError("host 1 committed no chunk in time")
+            time.sleep(0.02)
+        p1.send_signal(signal.SIGKILL)
+        p1.communicate(timeout=60)
+        finish_daemon(p0, SERVE_DAEMON_TIMEOUT_S, "host 0 beside the killed host")
+    finally:
+        for p in (p0, p1):
+            if p.poll() is None:
+                p.kill()
+                p.communicate(timeout=60)
+    with open(ckpt + ".host1") as f:
+        done_before = len(json.load(f)["done"])
+    report = os.path.join(mh, "report.json")
+    env = {k: "" for k in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK")}
+    r1 = start_host(src, out, 1, TAKEOVER_CHUNK_READS, counts[1], env, "--checkpoint", ckpt,
+                    "--resume", "--report", report)
+    err = finish_daemon(r1, SERVE_DAEMON_TIMEOUT_S, "the resumed host 1")
+    with open(report + ".host1") as f:
+        rep = json.load(f)
+    if "distributed runtime" in err or rep["n_chunks_skipped"] != done_before \
+            or rep["n_chunks"] <= rep["n_chunks_skipped"]:
+        raise AssertionError(f"resumed host 1: skipped {rep['n_chunks_skipped']} of "
+                             f"{rep['n_chunks']}, manifest {done_before}")
+    resumed = compare_host_concat(parts, whole)
+    shutil.rmtree(mh)
+    emit("multihost", config="config3", input="the serve phase's 250k-read input",
+         chunk_reads=TAKEOVER_CHUNK_READS, hosts=hosts, both_hosts_wall_s=round(both_s, 3),
+         one_host_wall_s=round(one_host_s, 3), concat=concat, dlix_written=1,
+         kill_resume={"index_every": RESUME_INDEX_EVERY, "done_before_kill": done_before,
+                      "chunks_skipped": rep["n_chunks_skipped"], "chunks": rep["n_chunks"],
+                      "concat": resumed},
+         launches=launches, nvidia_smi=smi)
     return launches
 
 
@@ -2287,8 +2673,10 @@ def bench_phase(bench_cache: str, smi: str):
     """The bench through ``benchmark.main(device="cuda")`` (what the
     CLI's ``bench`` runs) with its env knobs cut to fit the smoke's
     time, then the profile tools once each; every result checked.
-    Returns segment_gemm's launches over the phase, and the largest
-    launch at each (R, C, f_max) the phase gave the kernel."""
+    Returns the kernels' launches over the phase, the largest launch at
+    each (R, C, f_max) the phase gave segment_gemm, and the kernels'
+    launches within the four fleet legs (serve_fleet, serve_defense,
+    serve_shard, serve_xhost: in-process daemons on the card)."""
     import io
 
     import torch
@@ -2314,11 +2702,29 @@ def bench_phase(bench_cache: str, smi: str):
         DUT_BENCH_GATE="0",
         DUT_PROF_READS=str(BENCH_PROF_READS),
     )
+    fleet_legs = ("run_serve_fleet_bench", "run_serve_defense_bench",
+                  "run_serve_shard_bench", "run_serve_xhost_bench")
+    fleet_launches = dict.fromkeys(kernel_wrappers(), 0)
+
+    def counted(fn):
+        def wrapped(*args, **kwargs):
+            before = {n: w.launches for n, w in kernel_wrappers().items()}
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                for n, w in kernel_wrappers().items():
+                    fleet_launches[n] += w.launches - before[n]
+        return wrapped
+
     torch.cuda.synchronize()
     reset_launches()
     t0 = time.monotonic()
-    with environ(**knobs), \
+    with environ(**knobs), contextlib.ExitStack() as legs, \
             RungKeeper(consensus, key=lambda big, f_max: (*big.shape[1:], f_max)) as keep:
+        for leg in fleet_legs:
+            inner = getattr(benchmark, leg)
+            setattr(benchmark, leg, counted(inner))
+            legs.callback(setattr, benchmark, leg, inner)
         with contextlib.redirect_stdout(io.StringIO()) as buf:
             benchmark.main(device="cuda")
         bench_s = time.monotonic() - t0
@@ -2350,8 +2756,17 @@ def bench_phase(bench_cache: str, smi: str):
             "cpu_e2e_reads_per_sec", "e2e_vs_cpu_e2e", "serve_amortised_speedup",
             "serve_oneshot_cold_wall_s", "serve_job_walls_s", "serve_compile_hit_rate",
             "live_first_snapshot_latency_s", "live_steady_lag_chunks",
-            "live_snapshots_published")
+            "live_snapshots_published", "serve_fleet_takeover_latency_s",
+            "serve_fleet_recovered", "serve_fleet_class_queue_wait", "fleet_e2e_p95_s",
+            "fleet_takeover_gap_s", "serve_quarantine_after_crashes",
+            "serve_watchdog_detect_latency_s", "serve_shard_k1_wall_s",
+            "serve_shard_k4_wall_s", "serve_shard_speedup", "serve_shard_merge_s",
+            "serve_xhost_takeover_latency_s", "serve_xhost_recovered")
     problems += [f"no {k}" for k in want if k not in full]
+    if full.get("serve_fleet_stitch_ok") is not True:
+        problems.append(f"serve_fleet_stitch_ok {full.get('serve_fleet_stitch_ok')}")
+    if min(fleet_launches.values()) == 0:
+        problems.append(f"the fleet legs launched {fleet_launches}")
     for probe in ("wire_before_e2e", "wire_after_e2e"):
         p = full.get(probe, {})
         if not (p.get("wire_h2d_mb_s", 0) > 0 and p.get("wire_d2h_mb_s", 0) > 0):
@@ -2369,11 +2784,12 @@ def bench_phase(bench_cache: str, smi: str):
         raise AssertionError(f"bench: {problems}")
     emit("bench", compact=compact, full=full, profile_components=tools["profile_components"],
          profile_phases=tools["profile_phases"], launches=launches,
+         fleet_leg_launches=fleet_launches,
          segment_gemm_shapes=sorted(list(sh) for sh in keep.shapes),
          bench_seconds=round(bench_s, 3), tools_seconds=round(tools_s, 3), knobs=knobs,
          nvidia_smi=smi)
     torch.cuda.synchronize()
-    return launches, keep.calls
+    return launches, keep.calls, fleet_launches
 
 
 if __name__ == "__main__":

@@ -34,13 +34,20 @@ path) on a synthetic ctDNA-like batch. Legs, in order:
               one-shot in a fresh process with a throwaway kernel build
               directory (interpreter, CUDA context, nvcc and allocator
               growth paid per process): ``serve_*`` keys
+  serve_fleet  jobs through DUT_BENCH_SERVE_DAEMONS in-process daemons
+              on one spool and the device, one killed mid-job and taken
+              over, the spool stitched by telemetry/fleet.py; then the
+              defense (poison quarantine, watchdog), shard (K=1 against
+              K=4) and cross-host (sharedfs store, skewed epochs) legs:
+              ``serve_fleet_*``, ``fleet_*``, ``serve_quarantine_*``,
+              ``serve_watchdog_*``, ``serve_shard_*``, ``serve_xhost_*``
   live_follow  the stream following a BAM a paced writer is still
               appending, with a snapshot per committed chunk:
               ``live_*`` keys
 
-The mesh leg and the fleet, defense, shard and cross-host serve legs
-need modules the port does not have yet: they are not run, and the full
-JSON carries one ``*_skipped`` string per leg naming what is missing.
+The mesh leg needs dispatch across several devices, which the port
+does not have yet: it is not run, and the full JSON carries an
+``e2e_mesh_skipped`` string naming what is missing.
 
 Runs on the card; with no CUDA device it raises unless the caller asks
 for ``device="cpu"`` (``--device cpu``), which runs every leg's device
@@ -65,9 +72,11 @@ DUT_BENCH_AB_BUDGET_S (480), DUT_BENCH_INGEST_AB (1), DUT_BENCH_WIRE_MB
 (32), DUT_BENCH_CPU_E2E_READS (1000000), DUT_BENCH_CPU_E2E_REPS (2),
 DUT_BENCH_TRACE (1), DUT_BENCH_CACHE (.bench_cache), DUT_BENCH_GATE (1),
 DUT_BENCH_GATE_THRESHOLD (0.5), DUT_BENCH_SERVE_JOBS (3; 0 disables the
-serve_n_jobs leg), DUT_BENCH_SERVE_READS (120000), DUT_BENCH_LIVE_READS
-(120000; 0 disables the live_follow leg) and DUT_BENCH_LIVE_SLAB_S
-(0.2). The JAX bench's mesh and fleet knobs are read by nothing here.
+serve_n_jobs leg and the fleet legs), DUT_BENCH_SERVE_READS (120000),
+DUT_BENCH_SERVE_DAEMONS (2; below 2 disables the fleet legs),
+DUT_BENCH_LIVE_READS (120000; 0 disables the live_follow leg) and
+DUT_BENCH_LIVE_SLAB_S (0.2). The JAX bench's mesh knob is read by
+nothing here.
 
 Stdout contract: the LAST stdout line is the compact canonical JSON
 (COMPACT_KEYS, under 1400 bytes), the full result JSON is the line
@@ -121,14 +130,6 @@ COMPACT_KEYS = (
 SKIPPED_LEGS = {
     "e2e_mesh_skipped": "not ported: dispatch across several devices "
     "(ROADMAP queue 1 item 5)",
-    "serve_fleet_skipped": "not ported: the fleet bench leg with "
-    "telemetry/fleet.py (ROADMAP queue 1 item 10b)",
-    "serve_defense_skipped": "not ported: the defensive-serving bench leg "
-    "(ROADMAP queue 1 item 10b)",
-    "serve_shard_skipped": "not ported: the scatter-gather bench leg "
-    "(ROADMAP queue 1 item 10b)",
-    "serve_xhost_skipped": "not ported: the cross-host bench leg "
-    "(ROADMAP queue 1 item 10b)",
 }
 
 
@@ -713,6 +714,443 @@ print(json.dumps({{"wall": time.monotonic() - t0, "reads": rep.n_records}}))
     return out
 
 
+def _serve_workload(chunk_div: int) -> tuple[str, str, dict]:
+    """(cache dir, input BAM, job config) of the serve sub-legs: the e2e
+    workload cut to DUT_BENCH_SERVE_READS reads, in chunks of a
+    ``chunk_div``-th of it (at least 10k reads), as the JAX legs run it."""
+    n_reads = int(os.environ.get("DUT_BENCH_SERVE_READS", 120_000))
+    in_path, _ = _e2e_input(n_reads)
+    config = dict(
+        grouping="adjacency", mode="duplex", error_model="cycle",
+        capacity=int(os.environ.get("DUT_BENCH_CAPACITY", 2048)),
+        chunk_reads=max(n_reads // chunk_div, 10_000),
+    )
+    return _cache(), in_path, config
+
+
+def _remove(paths) -> None:
+    for p in paths:
+        try:
+            os.remove(p)
+        except OSError:
+            pass
+
+
+def _swallow(fn):
+    try:
+        fn()
+    except BaseException:  # noqa: BLE001 — bench harness, never fatal
+        pass
+
+
+def _kill_after_one_chunk(svc, why: str) -> None:
+    """Make ``svc``'s next slice commit one fresh chunk and then die with
+    its lease held: the budget check consults should_yield, which raises
+    ``faults.InjectedKill`` exactly as a SIGKILL mid-slice would."""
+    from duplexumiconsensusreads_torch.runtime import faults
+
+    orig_run_slice = svc.worker.run_slice
+
+    def dying_run_slice(spec, budget, should_yield, drain_event, lease=None):
+        def die():
+            raise faults.InjectedKill(why)
+
+        return orig_run_slice(spec, 1, die, drain_event, lease=lease)
+
+    svc.worker.run_slice = dying_run_slice
+
+
+def _run_until_dead(svc) -> float:
+    """Run ``svc`` in a thread until its injected death; the monotonic
+    time of death, or 0.0 if it never died."""
+    import threading
+
+    t_dead = [0.0]
+
+    def run():
+        try:
+            svc.run_until_idle()
+        except BaseException:  # noqa: BLE001 — the injected death
+            t_dead[0] = time.monotonic()
+
+    t = threading.Thread(target=run, daemon=True)
+    t.start()
+    t.join(timeout=600)
+    return 0.0 if t.is_alive() else t_dead[0]
+
+
+def _takeover_latency(spool: str, jid: str, victim_id: str, t_dead: float) -> float | None:
+    """Seconds from the victim's death until ``jid`` runs under another
+    daemon's lease (or is done); None after 300 s."""
+    from duplexumiconsensusreads_torch.serve.queue import SpoolQueue
+
+    q = SpoolQueue(spool)
+    deadline = time.monotonic() + 300
+    while time.monotonic() < deadline:
+        q.refresh()
+        e = q.jobs.get(jid, {})
+        if e.get("state") == "done" or (
+            e.get("state") == "running"
+            and (e.get("lease") or {}).get("owner") != victim_id
+        ):
+            return time.monotonic() - t_dead
+        time.sleep(0.005)
+    return None
+
+
+def _running_jobs(spool: str) -> list[str]:
+    from duplexumiconsensusreads_torch.serve.queue import SpoolQueue
+
+    q = SpoolQueue(spool)
+    q.refresh()
+    return [jid for jid, e in q.jobs.items() if e.get("state") == "running"]
+
+
+def _n_done(spool: str) -> int:
+    from duplexumiconsensusreads_torch.serve.queue import SpoolQueue
+
+    q = SpoolQueue(spool)
+    q.refresh()
+    return sum(1 for e in q.jobs.values() if e.get("state") == "done")
+
+
+def run_serve_fleet_bench(n_daemons: int, dev) -> dict:
+    """The ``serve_fleet`` leg (the JAX bench's keys): jobs submitted
+    through ``n_daemons`` in-process daemons on ``dev`` sharing ONE
+    spool; daemon 0 dies mid-job (``faults.InjectedKill`` from its own
+    slice, the modelled SIGKILL) and the survivors take its lease over.
+
+      serve_fleet_takeover_latency_s  the victim's death to its job
+                                      running again elsewhere
+      serve_fleet_class_queue_wait    per-priority-class queue-wait
+                                      p50/p95 from metrics.json
+      serve_fleet_stitch_ok, fleet_e2e_p95_s, fleet_takeover_gap_s
+                                      the spool's captures and journal
+                                      stitched by telemetry/fleet.py, as
+                                      tools/fleet_report prints them
+
+    All daemons share the one card in this process."""
+    import shutil
+    import threading
+
+    from duplexumiconsensusreads_torch.serve import ConsensusService, client
+
+    cache, in_path, config = _serve_workload(4)
+    spool = os.path.join(cache, "serve_fleet_spool")
+    shutil.rmtree(spool, ignore_errors=True)
+    n_jobs = max(3, n_daemons + 1)
+    outs = [os.path.join(cache, f"serve_fleet_out{i}.bam") for i in range(n_jobs)]
+    for i, o in enumerate(outs):
+        # one urgent job in the mix so the per-class latency table has
+        # two rows; the rest ride the default class
+        client.submit(spool, in_path, o, config=config,
+                      priority=(0 if i == n_jobs - 1 else 1))
+    out: dict = {"serve_fleet_daemons": n_daemons, "serve_fleet_jobs": n_jobs}
+
+    victim = ConsensusService(
+        spool, chunk_budget=0, poll_s=0.02, lease_s=5.0, daemon_id="fleet-victim",
+        trace_path=os.path.join(spool, "service.fleet-victim.trace.jsonl"), device=dev,
+    )
+    _kill_after_one_chunk(victim, "serve_fleet: victim daemon killed")
+    t_dead = _run_until_dead(victim)
+    if not t_dead:
+        return {**out, "serve_fleet_error": "victim did not die on schedule"}
+    victim_jobs = _running_jobs(spool)
+    if not victim_jobs:
+        return {**out, "serve_fleet_error": "victim died holding no lease"}
+
+    t0 = time.monotonic()
+    survivors = [
+        ConsensusService(
+            spool, chunk_budget=0, poll_s=0.02, lease_s=5.0,
+            daemon_id=f"fleet-survivor-{i}",
+            trace_path=os.path.join(spool, f"service.fleet-survivor-{i}.trace.jsonl"),
+            device=dev,
+        )
+        for i in range(1, n_daemons)
+    ]
+    sthreads = [threading.Thread(target=s.run_until_idle, daemon=True) for s in survivors]
+    for t in sthreads:
+        t.start()
+    takeover = _takeover_latency(spool, victim_jobs[0], "fleet-victim", t_dead)
+    for t in sthreads:
+        t.join(timeout=600)
+    fleet_wall = time.monotonic() - t0
+    n_done = _n_done(spool)
+    _remove(outs)
+    if n_done != n_jobs:
+        return {**out, "serve_fleet_error": f"fleet finished {n_done}/{n_jobs} jobs"}
+    out.update({
+        "serve_fleet_wall_s": round(fleet_wall, 2),
+        "serve_fleet_takeover_latency_s": (
+            round(takeover, 3) if takeover is not None else None
+        ),
+        "serve_fleet_recovered": sum(s.counters["jobs_recovered"] for s in survivors),
+    })
+    try:
+        with open(os.path.join(spool, "metrics.json")) as f:
+            metrics = json.load(f)
+        out["serve_fleet_class_queue_wait"] = {
+            pri: {
+                "p50_s": row.get("queue_wait_p50_s"),
+                "p95_s": row.get("queue_wait_p95_s"),
+                "n": row.get("n_queue_wait"),
+            }
+            for pri, row in metrics.get("class_latency", {}).items()
+        }
+    except (OSError, ValueError):
+        pass  # the metrics snapshot is best-effort observability
+    # the leg reads its own observability layer: a failed stitch is
+    # worth seeing in the trajectory (the keys go absent)
+    try:
+        from duplexumiconsensusreads_torch.telemetry import fleet
+
+        caps = fleet.load_captures(fleet.discover_service_captures(spool))
+        stitched = fleet.stitch(
+            caps, journal=fleet.load_journal(os.path.join(spool, "queue.json"))
+        )
+        fm = fleet.fleet_metrics(stitched, metrics_docs=fleet.load_metrics_docs(spool))
+        out["serve_fleet_stitch_ok"] = stitched["ok"]
+        if stitched["ok"]:
+            if isinstance(fm.get("e2e_p95_s"), (int, float)):
+                out["fleet_e2e_p95_s"] = round(fm["e2e_p95_s"], 3)
+            if isinstance(fm.get("takeover_gap_max_s"), (int, float)):
+                out["fleet_takeover_gap_s"] = round(fm["takeover_gap_max_s"], 3)
+        else:
+            out["serve_fleet_stitch_problems"] = stitched["problems"][:5]
+    except Exception as e:  # noqa: BLE001 — the bench must still report
+        out["serve_fleet_stitch_error"] = repr(e)[:200]
+    return out
+
+
+def run_serve_xhost_bench(dev) -> dict:
+    """The ``serve_xhost`` sub-leg (the JAX bench's keys): the
+    serve_fleet takeover re-run across two synthetic hosts on one
+    sharedfs-store spool (distinct host ids, epoch skews of +-3600 s the
+    store's clock calibration must cancel), host A killed mid-slice.
+    Detection is translated lease expiry, never a pid probe, so the
+    latency is lease-dominated by design (informational, non-gating).
+
+      serve_xhost_takeover_latency_s  the victim's death to its job
+                                      running (or done) under host B
+      serve_xhost_recovered           takeovers host B journaled"""
+    import shutil
+    import threading
+
+    from duplexumiconsensusreads_torch.serve import ConsensusService, client
+    from duplexumiconsensusreads_torch.serve.store import resolve_store
+
+    cache, in_path, config = _serve_workload(4)
+    spool = os.path.join(cache, "serve_xhost_spool")
+    shutil.rmtree(spool, ignore_errors=True)
+    lease_s = 2.0
+    store_a = resolve_store(spool, "sharedfs", pin=True, host_id="bench-host-A",
+                            epoch_skew=3600.0)
+    outs = [os.path.join(cache, f"serve_xhost_out{i}.bam") for i in range(2)]
+    for o in outs:
+        client.submit(spool, in_path, o, config=config)
+    out: dict = {"serve_xhost_hosts": 2, "serve_xhost_lease_s": lease_s}
+
+    victim = ConsensusService(
+        spool, chunk_budget=0, poll_s=0.02, lease_s=lease_s, daemon_id="xhost-victim",
+        store=store_a, trace_path=os.path.join(spool, "service.xhost-victim.trace.jsonl"),
+        device=dev,
+    )
+    _kill_after_one_chunk(victim, "serve_xhost: host A killed")
+    t_dead = _run_until_dead(victim)
+    if not t_dead:
+        return {**out, "serve_xhost_error": "victim did not die on schedule"}
+    running = _running_jobs(spool)
+    if not running:
+        return {**out, "serve_xhost_error": "victim died holding no lease"}
+
+    store_b = resolve_store(spool, "sharedfs", host_id="bench-host-B", epoch_skew=-3600.0)
+    survivor = ConsensusService(
+        spool, chunk_budget=0, poll_s=0.02, lease_s=lease_s, daemon_id="xhost-b",
+        store=store_b, trace_path=os.path.join(spool, "service.xhost-b.trace.jsonl"),
+        device=dev,
+    )
+    st = threading.Thread(target=survivor.run_until_idle, daemon=True)
+    st.start()
+    takeover = _takeover_latency(spool, running[0], "xhost-victim", t_dead)
+    st.join(timeout=600)
+    n_done = _n_done(spool)
+    _remove(outs)
+    if n_done != len(outs):
+        return {**out, "serve_xhost_error": f"fleet finished {n_done}/{len(outs)} jobs"}
+    out.update({
+        "serve_xhost_takeover_latency_s": (
+            round(takeover, 3) if takeover is not None else None
+        ),
+        "serve_xhost_recovered": survivor.counters["jobs_recovered"],
+    })
+    return out
+
+
+def run_serve_defense_bench(dev) -> dict:
+    """The defensive-serving sub-leg (the JAX bench's keys), on the same
+    workload and ``dev`` (informational, non-gating):
+
+      serve_quarantine_after_crashes  unclean aborts a deterministic
+                                      poison job (an injected kill at its
+                                      first shard write) survives before
+                                      the fleet quarantines it: the
+                                      max_crashes bound, no re-run past it
+      serve_watchdog_detect_latency_s a slice wedging (lease alive,
+                                      durable progress stopped) to the
+                                      watchdog's abort-requeue landing in
+                                      the journal"""
+    import shutil
+    import threading
+
+    from duplexumiconsensusreads_torch.runtime import faults
+    from duplexumiconsensusreads_torch.serve import ConsensusService, client
+    from duplexumiconsensusreads_torch.serve.queue import SpoolQueue
+
+    cache, in_path, config = _serve_workload(4)
+    out: dict = {}
+
+    # poison quarantine: crash-loop daemons until the fleet gives up on
+    # the job; the count of daemon deaths is the metric
+    spool = os.path.join(cache, "serve_defense_spool")
+    shutil.rmtree(spool, ignore_errors=True)
+    poison_out = os.path.join(cache, "serve_defense_poison.bam")
+    jid = client.submit(spool, in_path, poison_out, config=config,
+                        chaos="shard.write:1:kill")
+    deaths = 0
+    for i in range(8):
+        svc = ConsensusService(spool, chunk_budget=0, poll_s=0.02,
+                               daemon_id=f"defense-{i}", device=dev)
+        try:
+            svc.run_until_idle()
+            break
+        except faults.InjectedKill:
+            deaths += 1
+    q = SpoolQueue(spool)
+    q.refresh()
+    if q.jobs.get(jid, {}).get("state") != "quarantined":
+        out["serve_defense_error"] = (
+            f"poison job not quarantined after {deaths} daemon deaths"
+        )
+    else:
+        out["serve_quarantine_after_crashes"] = deaths
+
+    # watchdog detect latency: wedge a slice and time the journal's
+    # running -> queued transition
+    spool2 = os.path.join(cache, "serve_defense_wd_spool")
+    shutil.rmtree(spool2, ignore_errors=True)
+    wd_out = os.path.join(cache, "serve_defense_wd.bam")
+    jid2 = client.submit(spool2, in_path, wd_out, config=config)
+    svc = ConsensusService(spool2, chunk_budget=1, poll_s=0.02, lease_s=3600.0,
+                           watchdog_s=0.5, daemon_id="defense-wd", device=dev)
+    wedged = [0.0]
+    release = threading.Event()
+    orig = svc.worker.run_slice
+
+    def wedging_run_slice(spec, budget, should_yield, drain_event, lease=None):
+        def wedge(*_a):
+            if not wedged[0]:
+                wedged[0] = time.monotonic()
+            release.wait(timeout=120)
+            return False
+
+        return orig(spec, 1, wedge, drain_event, lease=lease)
+
+    svc.worker.run_slice = wedging_run_slice
+    th = threading.Thread(target=lambda: _swallow(svc.run_until_idle), daemon=True)
+    th.start()
+    detect = None
+    deadline = time.monotonic() + 240
+    q2 = SpoolQueue(spool2)
+    while time.monotonic() < deadline:
+        if wedged[0]:
+            q2.refresh()
+            if q2.jobs.get(jid2, {}).get("state") == "queued":
+                detect = time.monotonic() - wedged[0]
+                break
+        time.sleep(0.005)
+    # un-wedge: the fenced slice unwinds and the next claim (the
+    # requeued job) runs clean to completion, so the leg ends idle
+    svc.worker.run_slice = orig
+    release.set()
+    th.join(timeout=240)
+    if detect is None:
+        out["serve_defense_error"] = out.get(
+            "serve_defense_error", "watchdog never fired on the wedge"
+        )
+    else:
+        out["serve_watchdog_detect_latency_s"] = round(detect, 3)
+    _remove((poison_out, wd_out))
+    return out
+
+
+def run_serve_shard_bench(n_daemons: int, dev) -> dict:
+    """The ``serve_shard`` sub-leg (the JAX bench's keys): ONE job
+    through the fleet unsharded (K=1, through the full split/merge
+    pipeline) and scattered at K=4 across ``n_daemons`` in-process
+    daemons sharing the spool and ``dev``. Informational, non-gating:
+    the daemons share one card, so the ratio measures scheduling and
+    pipeline overlap, not K-way device parallelism.
+
+      serve_shard_speedup   wall(K=1) / wall(K=4), same input and config
+      serve_shard_merge_s   the K=4 merge stage's wall (splice + index)"""
+    import shutil
+    import threading
+
+    from duplexumiconsensusreads_torch.serve import ConsensusService, client
+    from duplexumiconsensusreads_torch.serve.queue import SpoolQueue
+
+    cache, in_path, config = _serve_workload(8)
+    out: dict = {"serve_shard_daemons": n_daemons}
+    # warm the process first (kernel libraries, allocator), so the K=1
+    # leg does not pay what the K=4 leg then gets for free
+    warm_spool = os.path.join(cache, "serve_shard_warmup_spool")
+    shutil.rmtree(warm_spool, ignore_errors=True)
+    warm_out = os.path.join(cache, "serve_shard_warmup.bam")
+    client.submit(warm_spool, in_path, warm_out, config=config)
+    _swallow(ConsensusService(warm_spool, poll_s=0.02, device=dev).run_until_idle)
+    _remove((warm_out,))
+    walls: dict[int, float] = {}
+    merge_s = None
+    for k in (1, 4):
+        spool = os.path.join(cache, f"serve_shard_spool_k{k}")
+        shutil.rmtree(spool, ignore_errors=True)
+        out_bam = os.path.join(cache, f"serve_shard_out_k{k}.bam")
+        jid = client.submit(spool, in_path, out_bam, config=config, shards=k)
+        svcs = [
+            ConsensusService(spool, chunk_budget=0, poll_s=0.02,
+                             daemon_id=f"shard-bench-{k}-{i}", device=dev)
+            for i in range(n_daemons)
+        ]
+        t0 = time.monotonic()
+        threads = [
+            threading.Thread(target=lambda s=s: _swallow(s.run_until_idle), daemon=True)
+            for s in svcs
+        ]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=1800)
+        walls[k] = time.monotonic() - t0
+        q = SpoolQueue(spool)
+        q.refresh()
+        entry = q.jobs.get(jid, {})
+        if entry.get("state") != "done":
+            return {**out, "serve_shard_error":
+                    f"K={k} parent finished {entry.get('state')!r}"}
+        if k == 4:
+            merge_s = ((q.status(jid).get("result") or {}).get("sharded") or {}).get("merge_s")
+        _remove((out_bam,))
+    out.update({
+        "serve_shard_k1_wall_s": round(walls[1], 2),
+        "serve_shard_k4_wall_s": round(walls[4], 2),
+        "serve_shard_speedup": round(walls[1] / max(walls[4], 1e-9), 2),
+    })
+    if merge_s is not None:
+        out["serve_shard_merge_s"] = merge_s
+    return out
+
+
 def run_live_follow_bench(dev) -> dict:
     """The ``live_follow`` leg (the JAX bench's keys; informational,
     non-gating): the stream on ``dev`` tailing a BAM a paced writer is
@@ -1134,6 +1572,16 @@ def main(device=None) -> None:
         n_serve = int(os.environ.get("DUT_BENCH_SERVE_JOBS", 3))
         if n_serve > 0:
             result.update(run_serve_bench(n_serve, dev))
+        # serve_fleet: jobs through N in-process daemons on ONE spool
+        # with daemon 0 killed mid-job, then the defense, scatter-gather
+        # and cross-host sub-legs on the same fleet workload
+        # (DUT_BENCH_SERVE_DAEMONS < 2 disables them)
+        n_fleet = int(os.environ.get("DUT_BENCH_SERVE_DAEMONS", 2))
+        if n_serve > 0 and n_fleet >= 2:
+            result.update(run_serve_fleet_bench(n_fleet, dev))
+            result.update(run_serve_defense_bench(dev))
+            result.update(run_serve_shard_bench(n_fleet, dev))
+            result.update(run_serve_xhost_bench(dev))
         # live_follow: the follower tailing a paced growing BAM
         # (DUT_BENCH_LIVE_READS=0 disables)
         if int(os.environ.get("DUT_BENCH_LIVE_READS", 120_000)) > 0:

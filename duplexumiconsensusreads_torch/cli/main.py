@@ -24,9 +24,12 @@ every parameter as the JAX CLI does — explicit flag > ``--config-file``
 neither the executor stack nor CUDA, exit 0 / 1 (failed, rejected,
 shed, expired, quarantined, unknown) / 3 (a ``--wait`` timeout) as the
 JAX CLI does, and a job carries no device: ``--submit --device`` is
-refused in favour of the daemon's ``--device``. Flags of the JAX CLI
-whose machinery is not ported (multi-host, several devices) are refused
-by name.
+refused in favour of the daemon's ``--device``. ``call --n-hosts N
+--host-id I [--index P]`` runs this host's key range of the streaming
+call (parallel/distributed.py), coordinated through a torch.distributed
+TCPStore when torchrun's MASTER_ADDR/MASTER_PORT/WORLD_SIZE/RANK are
+set. Flags of the JAX CLI whose machinery is not ported (several
+devices) are refused by name.
 """
 
 from __future__ import annotations
@@ -50,13 +53,6 @@ CONFIG_PRESETS = {
     "config5": dict(grouping="adjacency", mode="duplex", error_model="cycle"),
 }
 
-# Flags of the JAX CLI's ``call`` whose machinery this package does not
-# have yet: dest -> (what is missing, its ROADMAP section 1 item). Any
-# of them set is refused by name; none is dropped.
-_UNPORTED_FLAGS = {
-    d: ("multi-host partitioning (parallel/distributed.py)", 7)
-    for d in ("n_hosts", "host_id", "index")
-}
 # Knobs of runtime/knobs.py this package does not implement: refused when
 # their resolved value (flag or config file) leaves the one it supports.
 _UNPORTED_KNOBS = {
@@ -215,9 +211,13 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--snapshot-chunks", type=int, default=None,
                    help="publish an indexed partial snapshot (OUT.snapshot.bam, a "
                    "valid BAM prefix) every N committed chunks; 0 = off (default)")
+    c.add_argument("--n-hosts", type=int, default=0,
+                   help="multi-host partitioning: total hosts (with --host-id; "
+                   "requires a linear index, built on demand)")
+    c.add_argument("--host-id", type=int, default=None, help="this host's id")
+    c.add_argument("--index", help="linear index path (default: input + .dlix)")
     u = c.add_argument_group("accepted and refused by name (not ported yet)")
     for flag, kw in (
-        ("--n-hosts", dict(type=int)), ("--host-id", dict(type=int)), ("--index", {}),
         ("--devices", dict(type=int)), ("--mesh", {}), ("--cycle-shards", dict(type=int)),
     ):
         u.add_argument(flag, **{"default": None, **kw})
@@ -486,9 +486,6 @@ def _client_verb(args) -> int:
 
 
 def _cmd_call(args) -> int:
-    for dest, (what, item) in _UNPORTED_FLAGS.items():
-        if getattr(args, dest) is not None:
-            raise _not_ported("--" + dest.replace("_", "-"), what, item)
     if args.status is not None or args.wait is not None:
         return _client_verb(args)
     if args.json:
@@ -596,7 +593,7 @@ def _cmd_call(args) -> int:
                 "--ref-projected requires BAM input (the .npz "
                 "interchange carries no CIGARs)"
             )
-        if chunk_reads > 0:
+        if chunk_reads > 0 or args.n_hosts > 0:
             raise SystemExit(
                 "--ref-projected runs on the whole-file executor "
                 "(omit --chunk-reads / --n-hosts)"
@@ -605,7 +602,7 @@ def _cmd_call(args) -> int:
     wl_path = opt("umi_whitelist", None)
     umi_max_mismatches = int(opt("umi_max_mismatches", 1))
     if wl_path:
-        if chunk_reads > 0:
+        if chunk_reads > 0 or args.n_hosts > 0:
             raise SystemExit(
                 "--umi-whitelist runs on the whole-file executor "
                 "(omit --chunk-reads / --n-hosts)"
@@ -732,7 +729,20 @@ def _cmd_call(args) -> int:
         min_input_qual=opt("min_input_qual", 0),
         error_model=None if error_model == "none" else error_model,
     )
-    if chunk_reads > 0:
+    if args.n_hosts > 0:
+        rep = _multihost(args, gp, cp, device, dict(
+            capacity=capacity, chunk_reads=chunk_reads,
+            n_devices=1 if 1 in (mesh, devices) else None,
+            max_inflight=max_inflight, drain_workers=drain_workers,
+            packed=packed, prefetch_depth=prefetch_depth,
+            ingest_overlap=ingest_overlap, bucket_ladder=ladder_norm,
+            profile_dir=args.profile, mate_aware=mate_aware, max_reads=max_reads,
+            per_base_tags=per_base_tags, read_group=read_group,
+            write_index=write_index, heartbeat_s=args.heartbeat, device=device,
+        ))
+        if rep is None:
+            return 0
+    elif chunk_reads > 0:
         from duplexumiconsensusreads_torch.runtime import faults
         from duplexumiconsensusreads_torch.runtime.stream import stream_call_consensus
 
@@ -786,10 +796,67 @@ def _cmd_call(args) -> int:
     return 0
 
 
+def _multihost(args, gp, cp, device, stream_kw: dict):
+    """``call --n-hosts N --host-id I``: this host's partition of the
+    call (parallel/distributed.py), the JAX CLI's branch. The process
+    joins the run's coordination store when MASTER_ADDR/MASTER_PORT,
+    WORLD_SIZE and RANK are set (torchrun's environment, the port's
+    counterparts of JAX_COORDINATOR_ADDRESS/NUM_PROCESSES/PROCESS_ID)
+    and is a single-process emulation otherwise. Output, checkpoint,
+    trace and report get the per-host suffix. Returns the run report,
+    or None for an idle host."""
+    if args.host_id is None:
+        raise SystemExit("--n-hosts requires --host-id")
+    if stream_kw["chunk_reads"] <= 0:
+        raise SystemExit("multi-host mode streams: pass --chunk-reads")
+    import os
+
+    from duplexumiconsensusreads_torch.parallel.distributed import (
+        init_distributed,
+        multihost_call,
+    )
+
+    dist = init_distributed(auto=True, device=device)
+    if dist["num_processes"] > 1:
+        print(
+            f"[duplexumi] distributed runtime: process "
+            f"{dist['process_id']}/{dist['num_processes']}, "
+            f"{dist['local_devices']} local / "
+            f"{dist['global_devices']} global devices",
+            file=sys.stderr,
+        )
+    # hosts share storage: a verbatim --output, --checkpoint, --trace or
+    # --report path would have every host clobber one file ('-' stays
+    # stdout, per-host by nature)
+    base, ext = os.path.splitext(args.output)
+    host_out = f"{base}.host{args.host_id}{ext or '.bam'}"
+    suffix = f".host{args.host_id}"
+    rep = multihost_call(
+        args.input, host_out, gp, cp,
+        index_path=args.index, process_id=args.host_id, num_processes=args.n_hosts,
+        checkpoint_path=args.checkpoint + suffix if args.checkpoint else None,
+        resume=args.resume,
+        report_path=(args.report + suffix if args.report and args.report != "-"
+                     else args.report),
+        trace_path=args.trace + suffix if args.trace else None,
+        **stream_kw,
+    )
+    if rep is None:
+        print("[duplexumi] host has no records in range; idle", file=sys.stderr)
+        return None
+    print(f"[duplexumi] host output → {host_out}", file=sys.stderr)
+    return rep
+
+
 def _submit(args, opt, r: dict) -> int:
     """``call --submit``: spool the resolved call as a service job (the
     JAX CLI's checks and config, in its words). The job spec carries no
     device: the daemon that runs it owns its card."""
+    if args.n_hosts > 0:
+        raise SystemExit(
+            "--submit jobs are single-host (each host runs its own "
+            "daemon over its own partition); drop --n-hosts"
+        )
     if r["whole_file_only"]:
         raise SystemExit(
             "--submit jobs run on the streaming executor; "

@@ -56,11 +56,6 @@ _METHOD_NAMES = {
     "segment_gemm": "segment_gemm",
 }
 
-# JAX spec fields the port does not carry, each with the only value it
-# takes
-_FIXED_FIELDS = {"fit_impl": "gather"}
-
-
 def _params(cls, value):
     if isinstance(value, cls):
         return value
@@ -73,13 +68,9 @@ def spec_from_fields(**fields) -> PipelineSpec:
     """The port's PipelineSpec from the field values of a JAX
     PipelineSpec (grouping/consensus may be dataclass instances of
     either package or plain dicts). Raises on a field value the port
-    does not implement (the counts fit) or that is inconsistent (a
-    sub-byte width without its dictionary)."""
+    does not implement (an unknown ssc method or fit formulation) or
+    that is inconsistent (a sub-byte width without its dictionary)."""
     fields = dict(fields)
-    for k, implied in _FIXED_FIELDS.items():
-        v = fields.pop(k, implied)
-        if v != implied:
-            raise ValueError(f"{k}={v!r} is not ported (only {implied!r})")
     method = fields.get("ssc_method", "segment_gemm")
     if method not in _METHOD_NAMES:
         raise ValueError(f"ssc_method {method!r} is not ported")

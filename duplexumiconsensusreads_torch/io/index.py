@@ -7,8 +7,9 @@ are independently decompressible, a host can open the file AT an index
 entry (seek + skip) and stream only its genomic key range: each
 host's share of the key space maps to a byte region it can read
 without touching the rest of the file. A copy of the JAX package's
-io/index.py (its multi-host partitioner is not ported yet; ``index``
-writes the same .dlix bytes).
+io/index.py (``index`` writes the same .dlix bytes); the multi-host
+partitioner that reads it is parallel/distributed.py
+(``host_tile_range``, ``host_input_range``, ``multihost_call``).
 
 Range semantics: a host owns pos_keys in [key_lo, key_hi) (None = open
 end). Since families never span pos_keys, any such partition preserves

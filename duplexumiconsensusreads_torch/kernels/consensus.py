@@ -82,13 +82,20 @@ def _contributions(bases, quals, valid, max_input_qual, min_input_qual=0):
 
 def _evidence_columns(
     bases, quals, ok, max_input_qual, min_input_qual, want_err, want_depth=True,
+    want_fit_counts=False,
 ):
     """(N, R, C) evidence block: loglik contributions (4L)[, depth
     indicators (L)], read-count (1)[, real-masked base counts (4L) for
-    the err reduction]. Written into a ``padded_rows`` buffer, so the
+    the err reduction][, UNfiltered base counts (4L) for the
+    error-model fit]. Written into a ``padded_rows`` buffer, so the
     block is a view whose rows start 16 bytes apart (segment_gemm's
     kernel copies them 16 bytes at a time); its values are those of
-    the columns concatenated."""
+    the columns concatenated.
+
+    The fit counts skip the min_input_qual mask, as in the JAX package:
+    the error-model fit tallies every real base of a contributing read
+    against the consensus, while the argmax excludes sub-threshold
+    bases."""
     n, r, l = bases.shape
     contrib, real = _contributions(bases, quals, ok, max_input_qual, min_input_qual)
     cols = [contrib.reshape(n, r, 4 * l)]
@@ -101,6 +108,12 @@ def _evidence_columns(
             & (real > 0)[..., None]
         ).to(torch.float32)
         cols.append(oh.reshape(n, r, 4 * l))
+    if want_fit_counts:
+        ohf = (
+            (bases[..., None] == torch.arange(N_REAL_BASES, dtype=bases.dtype, device=bases.device))
+            & ok[..., None, None]
+        ).to(torch.float32)
+        cols.append(ohf.reshape(n, r, 4 * l))
     big = padded_rows(n, r, sum(x.shape[-1] for x in cols), bases.device)
     c0 = 0
     for x in cols:
@@ -229,17 +242,26 @@ def ssc_kernel(
     cancel a tiny loglik to exact 0.0, so the sign test is unsound
     there, and the (exact, integer) depth > 0 test is used instead.
 
+    columns="fit_counts" is the fit pass of the counts fit
+    (``PipelineSpec.fit_impl="counts"``): the fit columns plus 4L
+    unfiltered per-base count columns, reduced by the same method in
+    the same launch (on the card, one ``segment_gemm`` at the wider
+    width). It returns (cons_base, fam_size, fam_valid, counts) with
+    counts the flat (N, F, 4L) f32 sums, column l*4+b, as the JAX
+    package returns them (f32 sums of 0/1 are exact below 2^24).
+
     ``blockseg``/``runsum`` first sort the rows of each bucket by id (a
     stable argsort; the u8 inputs are permuted, so the f32 evidence is
     built directly in id order); ``blockseg_t`` is blockseg's tile
     height.
     """
     n, r, l = bases.shape
-    if columns not in ("full", "fit"):
-        raise ValueError(f"unknown ssc columns mode {columns!r} (ported: full, fit)")
+    if columns not in ("full", "fit", "fit_counts"):
+        raise ValueError(f"unknown ssc columns mode {columns!r}")
     if method not in SSC_METHODS:
         raise ValueError(f"unknown ssc method {method!r} (ported: {SSC_METHODS})")
-    fit_mode = columns == "fit"
+    fit_mode = columns in ("fit", "fit_counts")
+    fit_counts = columns == "fit_counts"
     if fit_mode and want_err:
         raise ValueError("columns='fit' is incompatible with want_err")
     want_depth = (not fit_mode) or method == "runsum"
@@ -253,7 +275,8 @@ def ssc_kernel(
         quals = torch.take_along_dim(quals, perm[..., None], dim=1)
 
     big = _evidence_columns(
-        bases, quals, ok, max_input_qual, min_input_qual, want_err, want_depth
+        bases, quals, ok, max_input_qual, min_input_qual, want_err, want_depth,
+        fit_counts,
     )
     # every method takes the padded view as it is
     out = _reduce(big, fid.contiguous(), f_max, method, blockseg_t=blockseg_t)
@@ -261,15 +284,18 @@ def ssc_kernel(
 
     loglik = out[..., : 4 * l].reshape(n, f_max, l, 4)
     if fit_mode:
+        size_col = 5 * l if want_depth else 4 * l
+        fam_size = out[..., size_col].to(torch.int32)
         if want_depth:  # runsum: exact integer depth, a sound mask
-            fam_size = out[..., 5 * l].to(torch.int32)
             has_evidence = out[..., 4 * l : 5 * l] > 0
         else:
-            fam_size = out[..., 4 * l].to(torch.int32)
             has_evidence = loglik.amax(dim=-1) < 0
         cons_base = torch.where(
             has_evidence, loglik.argmax(dim=-1), torch.full_like(has_evidence, BASE_N, dtype=torch.int64)
         ).to(torch.int32)
+        if fit_counts:
+            counts = out[..., size_col + 1 : size_col + 1 + 4 * l]
+            return cons_base, fam_size, fam_size >= min_reads, counts
         return cons_base, fam_size, fam_size >= min_reads
     depth = out[..., 4 * l : 5 * l].to(torch.int32)
     fam_size = out[..., 5 * l].to(torch.int32)

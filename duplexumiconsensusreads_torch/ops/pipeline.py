@@ -30,10 +30,15 @@ from duplexumiconsensusreads_torch.kernels.consensus import (
 from duplexumiconsensusreads_torch.kernels.encoding import unpack_bitplanes
 from duplexumiconsensusreads_torch.kernels.error_model import (
     apply_cycle_cap,
+    fit_cycle_cap_from_counts,
     fit_cycle_cap_kernel,
 )
 from duplexumiconsensusreads_torch.kernels.grouping import group_kernel
 from duplexumiconsensusreads_torch.types import ConsensusParams, GroupingParams
+
+
+# the error model's fit formulations (PipelineSpec.fit_impl)
+FIT_IMPLS = ("gather", "counts")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,12 +80,22 @@ class PipelineSpec:
     cycles_len: int | None = None
     # True: also compute per-base disagreement counts (the ce tag)
     per_base_counts: bool = False
+    # the error model's fit formulation: "gather" re-visits read space
+    # with the consensus row-gather; "counts" tallies the mismatches
+    # family-side from 4L extra columns of the fit pass's reduction (on
+    # the card, segment_gemm at the wider width). Both exact and
+    # bit-identical; "gather" is the default, as in the JAX package.
+    fit_impl: str = "gather"
 
     def __post_init__(self):
         if self.consensus.mode == "duplex" and not self.grouping.paired:
             raise ValueError(
                 "duplex consensus requires paired grouping "
                 "(GroupingParams(paired=True))"
+            )
+        if self.fit_impl not in FIT_IMPLS:
+            raise ValueError(
+                f"unknown fit_impl {self.fit_impl!r} (allowed: {FIT_IMPLS})"
             )
         if self.ssc_method not in SSC_METHODS:
             raise ValueError(
@@ -223,11 +238,16 @@ def spec_for_buckets(
     so the unique (pos, UMI) count per bucket bounds the cluster count:
       u_max >= max unique, f_max >= mult*unique, m_max >= unique
     (mult: 2 for the strand, 2 again for the mate-aware fragment end),
-    all rounded to powers of two and capped at the read capacity R."""
+    all rounded to powers of two and capped at the read capacity R.
+    The fit formulation comes from ``DUT_FIT_IMPL`` ("gather", the
+    default, or "counts"), the JAX package's knob."""
+    import os
+
+    fit_impl = os.environ.get("DUT_FIT_IMPL", "gather")
     if not buckets:
         return PipelineSpec(
             grouping, consensus, ssc_method=ssc_method, blockseg_t=blockseg_t,
-            packed_io=packed_io, per_base_counts=per_base_counts,
+            packed_io=packed_io, per_base_counts=per_base_counts, fit_impl=fit_impl,
         )
     umi_len = int(buckets[0].umi.shape[1]) if packed_io else None
     cycles_len = int(buckets[0].bases.shape[1]) if packed_qbits else None
@@ -251,6 +271,7 @@ def spec_for_buckets(
         qual_lut=qual_lut,
         cycles_len=cycles_len,
         per_base_counts=per_base_counts,
+        fit_impl=fit_impl,
     )
 
 
@@ -427,8 +448,13 @@ def fused_pipeline(
 
     quals_eff = quals
     if c.error_model == "cycle":
-        cb0, _sz0, fv0 = ssc(quals, columns="fit")
-        cap = fit_cycle_cap_kernel(bases, red, valid, cb0, fv0)
+        if spec.fit_impl == "counts":
+            cb0, _sz0, fv0, counts0 = ssc(quals, columns="fit_counts")
+            cap = fit_cycle_cap_from_counts(cb0, counts0, fv0)
+            del counts0
+        else:
+            cb0, _sz0, fv0 = ssc(quals, columns="fit")
+            cap = fit_cycle_cap_kernel(bases, red, valid, cb0, fv0)
         quals_eff = apply_cycle_cap(quals, cap)
         del cb0, _sz0, fv0
     elif c.error_model is not None:

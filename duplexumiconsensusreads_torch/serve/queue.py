@@ -1,11 +1,9 @@
 """Durable spool + admission queue for the consensus service.
 
-The JAX package's serve/queue.py, copied with the imports rewritten.
-One change: the quarantine diagnosis finds the spool's service
-captures through :func:`discover_service_captures`, a copy of the JAX
-package's telemetry/fleet.py helper kept here until that module is
-ported (ROADMAP queue 1 item 10b.5). The journal format is the JAX
-package's, key for key.
+The JAX package's serve/queue.py, copied with the imports rewritten
+(the quarantine diagnosis finds the spool's service captures through
+telemetry/fleet.py's ``discover_service_captures``, as there). The
+journal format is the JAX package's, key for key.
 
 Spool layout (one directory, shared by clients and N daemons):
 
@@ -110,22 +108,6 @@ from duplexumiconsensusreads_torch.serve.states import (  # noqa: F401
 
 JOURNAL_VERSION = 1
 
-
-def discover_service_captures(dir_path: str) -> list[str]:
-    """Every service capture in a spool directory, name-sorted: the
-    per-daemon ``service.<id>.trace.jsonl`` files, their rotated
-    ``.prev`` siblings, and the legacy shared ``service.trace.jsonl``
-    (the JAX package's telemetry/fleet.py naming rule)."""
-    try:
-        names = sorted(os.listdir(dir_path))
-    except OSError:
-        return []
-    return [
-        os.path.join(dir_path, n) for n in names
-        if n.startswith("service.") and (
-            n.endswith(".trace.jsonl") or n.endswith(".trace.jsonl.prev")
-        )
-    ]
 
 # helpers that may touch the in-memory jobs cache OUTSIDE a lexical
 # `with self._txn():` body because their caller owns the transaction
@@ -993,6 +975,10 @@ class SpoolQueue:
         # clocks, coarse shared-fs timestamps) and only ranks the
         # pre-fleet captures that carry no epoch — those sort behind
         # every epoch-bearing capture.
+        from duplexumiconsensusreads_torch.telemetry.fleet import (
+            discover_service_captures,
+        )
+
         svc = []
         for p in discover_service_captures(self.root):
             end = _capture_stitched_end(p)

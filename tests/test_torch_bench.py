@@ -167,9 +167,7 @@ def test_compact_keys_are_jax_and_each_skip_names_its_item():
 
     assert COMPACT_KEYS == JAX_KEYS
     assert benchhist.CANONICAL_METRICS == jax_benchhist.CANONICAL_METRICS
-    assert set(SKIPPED_LEGS) == {
-        "e2e_mesh_skipped", "serve_fleet_skipped", "serve_defense_skipped",
-        "serve_shard_skipped", "serve_xhost_skipped"}
+    assert set(SKIPPED_LEGS) == {"e2e_mesh_skipped"}
     for v in SKIPPED_LEGS.values():
         assert v.startswith("not ported: ") and "ROADMAP queue 1 item" in v
 
@@ -421,7 +419,8 @@ def test_tiny_bench_final_stdout_line_is_compact_json(tmp_path):
     # no card: the MFU is scored against the table's named default
     assert full["peak_entry"] == "default-h100-sxm-f32" and full["device"] == "cpu"
     assert full["ssc_method"] == full["vec_cpu_ssc_method"] == "blockseg"
-    assert full["serve_fleet_skipped"].startswith("not ported")
+    assert full["e2e_mesh_skipped"].startswith("not ported")
+    assert not [k for k in full if k.startswith("serve_") and k.endswith("_skipped")]
     # the serve and live legs ride the e2e phase, which TINY turns off
     assert "live_follow_skipped" not in full and "serve_n_jobs_skipped" not in full
     assert "live_follow_reads" not in full and "serve_n_jobs" not in full

@@ -266,7 +266,6 @@ def test_config_file_and_flag_refusals_use_the_jax_words(inputs, tmp_path, conf,
 
 
 @pytest.mark.parametrize("conf, flags, words", [
-    ({}, ["--n-hosts", "2", "--host-id", "0"], "--n-hosts"), ({}, ["--index", "x"], "--index"),
     ({}, ["--devices", "2"], "--devices"), ({}, ["--mesh", "2", "--chunk-reads", "99"], "--mesh"),
     ({}, ["--cycle-shards", "2"], "--cycle-shards"),
     ({"mesh": 4}, [], "--mesh"),
@@ -288,6 +287,39 @@ def test_unported_and_port_only_refusals_name_the_flag(inputs, tmp_path, conf, f
     if "--backend" not in msg and "--device" not in msg:
         assert "not supported by the torch port" in msg
     assert not os.path.exists(out)
+
+
+@pytest.mark.parametrize("flags", [
+    ["--n-hosts", "2", "--host-id", "0"],
+    ["--n-hosts", "2", "--host-id", "0", "--index", "x"],
+], ids=" ".join)
+def test_multihost_flags_refuse_as_the_jax_cli_does(inputs, tmp_path, flags):
+    """--n-hosts without --chunk-reads: the JAX CLI's own refusal (the
+    multi-host call is parallel/distributed.py's, tests/
+    test_torch_distributed.py)."""
+    _, paths = inputs
+    out = str(tmp_path / "o.bam")
+    argv = ["call", paths["single"], "-o", out, *flags]
+    theirs = _exit_message(jax_main, argv)
+    assert _exit_message(cli_main, argv + ["--device", "cpu"]) == theirs
+    assert theirs == "multi-host mode streams: pass --chunk-reads"
+    assert not os.path.exists(out)
+
+
+def test_index_flag_alone_runs_the_call_as_the_jax_cli_does(inputs, tmp_path):
+    """--index without --n-hosts is inert on the JAX CLI (only the
+    multi-host call reads it): the port runs the same call."""
+    from duplexumiconsensusreads_torch.io import read_bam
+
+    _, paths = inputs
+    outs = {}
+    for name, fn, extra in (("jax", jax_main, []), ("port", cli_main, ["--device", "cpu"])):
+        outs[name] = str(tmp_path / f"{name}.bam")
+        argv = ["call", paths["single"], "-o", outs[name], "--config", "config3",
+                "--index", str(tmp_path / "unused.dlix"), *extra]
+        assert fn(argv) == 0
+    assert not os.path.exists(str(tmp_path / "unused.dlix"))
+    assert len(read_bam(outs["port"])[1]) == len(read_bam(outs["jax"])[1]) > 0
 
 
 def test_chaos_kills_the_stream_and_resume_finishes_it(inputs, tmp_path):

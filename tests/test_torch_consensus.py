@@ -113,8 +113,10 @@ def test_unknown_method_and_columns_raise():
     x = _inputs(4)
     with pytest.raises(ValueError):
         _port(*x, f_max=F_MAX, method="bogus")
-    with pytest.raises(ValueError):
-        _port(*x, f_max=F_MAX, columns="fit_counts")
+    # "fit_counts" is a columns mode since the counts fit landed
+    # (tests/test_torch_fit_counts.py); an unknown mode still raises
+    with pytest.raises(ValueError, match="columns mode"):
+        _port(*x, f_max=F_MAX, columns="counts")
 
 
 @pytest.mark.parametrize("want_err", [False, True])

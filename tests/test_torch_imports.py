@@ -107,6 +107,10 @@ def test_every_module_imports_without_jax():
     "duplexumiconsensusreads_torch.serve.shard",
     "duplexumiconsensusreads_torch.serve.shard.plan",
     "duplexumiconsensusreads_torch.serve.shard.merge",
+    "duplexumiconsensusreads_torch.telemetry.fleet",
+    "duplexumiconsensusreads_torch.tools.fleet_report",
+    "duplexumiconsensusreads_torch.parallel",
+    "duplexumiconsensusreads_torch.parallel.distributed",
 ])
 def test_analysers_tuning_and_tools_are_scanned_and_import_alone(module):
     """The capture analysers, tuning/, the tools, live/ and serve/ are
@@ -206,6 +210,23 @@ def test_spec_from_fields_maps_jax_specs():
     assert ps.ssc_method == "segment_gemm"
     assert (ps.u_max, ps.f_max, ps.m_max, ps.presorted) == (64, 128, 64, True)
     assert ps.grouping.strategy == "adjacency" and ps.consensus.error_model == "cycle"
-    for bad in ({"ssc_method": "bogus"}, {"fit_impl": "counts"}, {"packed_qbits": 5}):
+    # the counts fit maps across (JAX fit_impl="counts")
+    assert ps.fit_impl == "gather"
+    assert spec_from_fields(**{**fields, "fit_impl": "counts"}).fit_impl == "counts"
+    for bad in ({"ssc_method": "bogus"}, {"fit_impl": "bogus"}, {"packed_qbits": 5}):
         with pytest.raises(ValueError):
             spec_from_fields(**{**fields, **bad})
+
+
+def test_serve_queue_finds_captures_through_the_fleet_recorder():
+    """serve/queue.py keeps no copy of discover_service_captures: the
+    quarantine diagnosis imports telemetry/fleet.py's, as the JAX
+    package's queue does."""
+    path = os.path.join(PORT, "serve", "queue.py")
+    tree = ast.parse(open(path).read(), filename=path)
+    defs = {n.name for n in ast.walk(tree) if isinstance(n, ast.FunctionDef)}
+    assert "discover_service_captures" not in defs
+    imports = [a.name for n in ast.walk(tree) if isinstance(n, ast.ImportFrom)
+               and n.module == "duplexumiconsensusreads_torch.telemetry.fleet"
+               for a in n.names]
+    assert imports == ["discover_service_captures"]
