@@ -20,7 +20,7 @@ path) on a synthetic ctDNA-like batch. Legs, in order:
               DUT_BENCH_CPU_SAMPLE reads) and ``vs_vectorized_cpu``
               (``run_bucket`` on the host CPU with the CPU's default
               ssc method, best of DUT_BENCH_VEC_REPS)
-  per_config  configs 1-5 at their plans on the one device
+  per_config  configs 1-5 at their plans on the compute leg's mesh
   tuner       the bucket auto-tuner's measured fill (host only)
   e2e         the wire probe (pinned H2D/D2H MB/s), a cached
               simulated BAM streamed through ``stream_call_consensus``
@@ -45,9 +45,15 @@ path) on a synthetic ctDNA-like batch. Legs, in order:
               appending, with a snapshot per committed chunk:
               ``live_*`` keys
 
-The mesh leg needs dispatch across several devices, which the port
-does not have yet: it is not run, and the full JSON carries an
-``e2e_mesh_skipped`` string naming what is missing.
+The compute and ``per_config`` legs run on the mesh of every visible
+card (parallel/mesh.py:run_mesh; one lane on the CPU), each class
+padded to the data lanes. ``DUT_BENCH_MESH=K`` sizes the e2e legs'
+mesh and, for K > 1, adds the mesh-scaling A/B: the A/B leg's input at
+K devices (``e2e_meshk_*``) and at 1 (``e2e_mesh1_*``), with
+``e2e_mesh_devices`` and ``e2e_mesh_scaling`` (1-device wall over
+K-device wall); with fewer than K devices in the pool it reports
+``e2e_mesh_error`` instead (and the other e2e legs run at the
+default mesh, where the JAX bench's would raise).
 
 Runs on the card; with no CUDA device it raises unless the caller asks
 for ``device="cpu"`` (``--device cpu``), which runs every leg's device
@@ -75,8 +81,8 @@ DUT_BENCH_GATE_THRESHOLD (0.5), DUT_BENCH_SERVE_JOBS (3; 0 disables the
 serve_n_jobs leg and the fleet legs), DUT_BENCH_SERVE_READS (120000),
 DUT_BENCH_SERVE_DAEMONS (2; below 2 disables the fleet legs),
 DUT_BENCH_LIVE_READS (120000; 0 disables the live_follow leg) and
-DUT_BENCH_LIVE_SLAB_S (0.2). The JAX bench's mesh knob is read by
-nothing here.
+DUT_BENCH_LIVE_SLAB_S (0.2) and DUT_BENCH_MESH (0: the executor's
+default mesh).
 
 Stdout contract: the LAST stdout line is the compact canonical JSON
 (COMPACT_KEYS, under 1400 bytes), the full result JSON is the line
@@ -125,23 +131,18 @@ COMPACT_KEYS = (
     "live_first_snapshot_latency_s", "live_steady_lag_chunks",
 )
 
-# The JAX bench's legs the port cannot run yet, each with what it needs
-# (ROADMAP queue 1): reported, never stubbed
-SKIPPED_LEGS = {
-    "e2e_mesh_skipped": "not ported: dispatch across several devices "
-    "(ROADMAP queue 1 item 5)",
-}
-
-
 def _cache() -> str:
     return os.environ.get("DUT_BENCH_CACHE", ".bench_cache")
 
 
 def _sync(dev) -> None:
+    """Wait for the device's work: a torch.device, or every card of a
+    mesh (parallel/mesh.py:DeviceMesh)."""
     import torch
 
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+    for d in set(getattr(dev, "devices", [dev])):
+        if d.type == "cuda":
+            torch.cuda.synchronize(d)
 
 
 def time_step(fn, dev, reps: int) -> float:
@@ -187,8 +188,8 @@ def bench_batch(n_target: int):
 def device_classes(buckets, gp, cp, ssc_method, dev) -> list:
     """[(class buckets, spec, [device tensors in fused_pipeline's
     argument order])]: the dispatch classes exactly as the executors
-    make them, each stacked onto ``dev`` once (one device, no mesh: no
-    padding buckets), so a timed loop measures compute, not the H2D of
+    make them, each stacked onto ``dev`` once (one device: no mesh-pad
+    buckets; the profile tools' form), so a timed loop measures compute, not the H2D of
     its inputs. ``ssc_method`` None: ``dev``'s default."""
     from duplexumiconsensusreads_torch.bucketing import stack_buckets
     from duplexumiconsensusreads_torch.interop import ARRAY_KEYS, stacked_from_numpy
@@ -200,6 +201,36 @@ def device_classes(buckets, gp, cp, ssc_method, dev) -> list:
         classes.append((cbuckets, cspec, [args[k] for k in ARRAY_KEYS]))
     _sync(dev)
     return classes
+
+
+def mesh_classes(buckets, gp, cp, ssc_method, mesh, streams) -> list:
+    """[(class buckets, spec, per-lane device tensor dicts)]: the
+    dispatch classes as the executors make them, each stacked to a
+    multiple of the mesh's data lanes and put on its lanes once
+    (parallel/sharded.py:shard_stacked), so a timed loop of
+    ``presharded_pipeline`` measures compute, not the H2D of its
+    inputs. ``ssc_method`` None: the lanes' default."""
+    from duplexumiconsensusreads_torch.bucketing import stack_buckets
+    from duplexumiconsensusreads_torch.parallel.sharded import shard_stacked
+    from duplexumiconsensusreads_torch.runtime.executor import partition_buckets
+
+    classes = []
+    for cbuckets, cspec in partition_buckets(buckets, gp, cp, ssc_method,
+                                             device=mesh.devices[0]):
+        stacked = stack_buckets(cbuckets, multiple_of=mesh.n_data)
+        classes.append((cbuckets, cspec, shard_stacked(stacked, mesh, cspec, streams=streams)))
+    _sync(mesh)
+    return classes
+
+
+def bench_mesh(dev):
+    """(mesh, lane streams) of the compute and per_config legs: every
+    card visible to ``dev``'s pool, one lane on the CPU."""
+    from duplexumiconsensusreads_torch.parallel.mesh import run_mesh
+    from duplexumiconsensusreads_torch.parallel.sharded import lane_streams
+
+    mesh = run_mesh(dev)
+    return mesh, lane_streams(mesh)
 
 
 def compact_result(result: dict, full_path: str | None = None) -> dict:
@@ -324,6 +355,7 @@ def _e2e_input(n_target: int, cache: str | None = None) -> tuple[str, float]:
 def run_e2e(
     n_target: int, dev, packed: str = "auto", prefix: str = "e2e",
     d2h_packed: str = "auto", ingest_overlap: str = "auto",
+    n_devices: int | None = None,
 ) -> dict:
     """Stream a cached large simulated BAM through the full pipeline on
     ``dev``; return wall-clock metrics including ingest and write.
@@ -347,12 +379,22 @@ def run_e2e(
         trace_path = os.path.join(cache, f"{prefix}_trace.jsonl")
     gp, cp = _e2e_params()
     prefetch_depth = int(os.environ.get("DUT_BENCH_PREFETCH_DEPTH", 2))
+    # mesh size for this leg: the explicit kwarg (the scaling A/B), or
+    # DUT_BENCH_MESH when the pool holds that many devices (0/unset, or
+    # more than the pool = the executor default, every card: the
+    # scaling A/B then reports e2e_mesh_error instead of the run dying)
+    if n_devices is None:
+        from duplexumiconsensusreads_torch.parallel.mesh import device_pool
+
+        n_env = int(os.environ.get("DUT_BENCH_MESH", 0))
+        n_devices = n_env if 0 < n_env <= len(device_pool(dev)) else None
     t0 = time.monotonic()
     rep = stream_call_consensus(
         in_path,
         out_path,
         gp,
         cp,
+        n_devices=n_devices,
         capacity=int(os.environ.get("DUT_BENCH_CAPACITY", 2048)),
         chunk_reads=E2E_CHUNK_READS,
         max_inflight=E2E_MAX_INFLIGHT,
@@ -523,11 +565,12 @@ def run_per_config(dev) -> dict:
     import torch
 
     from duplexumiconsensusreads_torch.bucketing import build_buckets
-    from duplexumiconsensusreads_torch.ops.pipeline import fused_pipeline
+    from duplexumiconsensusreads_torch.parallel.sharded import presharded_pipeline
     from duplexumiconsensusreads_torch.simulate import SimConfig, simulate_batch
 
     n_target = int(os.environ.get("DUT_BENCH_CONFIG_READS", 200_000))
     reps = int(os.environ.get("DUT_BENCH_CONFIG_REPS", 6))
+    mesh, streams = bench_mesh(dev)
     out = {}
     for name, (sim_kw, gp, cp, capacity) in _config_plans().items():
         per_mol = sim_kw["mean_family_size"] * (2 if sim_kw["duplex"] else 1)
@@ -536,13 +579,14 @@ def run_per_config(dev) -> dict:
         )
         n_reads = int(np.asarray(batch.valid).sum())
         buckets = build_buckets(batch, capacity=capacity, grouping=gp)
-        classes = device_classes(buckets, gp, cp, None, dev)
+        classes = mesh_classes(buckets, gp, cp, None, mesh, streams)
 
         def run_all():
-            return [fused_pipeline(*args, cspec) for _, cspec, args in classes]
+            return [presharded_pipeline(args, cspec, mesh, streams=streams)
+                    for _, cspec, args in classes]
 
         with torch.no_grad():
-            dt = min(time_step(run_all, dev, reps) for _ in range(2))
+            dt = min(time_step(run_all, mesh, reps) for _ in range(2))
         del classes
         out[name] = {
             "reads_per_sec": round(n_reads / dt, 1),
@@ -1357,8 +1401,13 @@ def main(device=None) -> None:
 
     from duplexumiconsensusreads_torch.bucketing import build_buckets
     from duplexumiconsensusreads_torch.ops import ConsensusCaller, run_bucket
-    from duplexumiconsensusreads_torch.ops.pipeline import analytic_flops, fused_pipeline
+    from duplexumiconsensusreads_torch.ops.pipeline import analytic_flops
     from duplexumiconsensusreads_torch.oracle import group_reads
+    from duplexumiconsensusreads_torch.parallel.mesh import device_pool
+    from duplexumiconsensusreads_torch.parallel.sharded import (
+        gather_outputs,
+        presharded_pipeline,
+    )
     from duplexumiconsensusreads_torch.runtime.executor import (
         DEFAULT_SSC_METHOD_CPU,
         resolve_device,
@@ -1383,19 +1432,21 @@ def main(device=None) -> None:
     sim_s = time.monotonic() - t0
 
     ssc_method = compute_ssc_method(dev)
-    classes = device_classes(buckets, gp, cp, ssc_method, dev)
+    mesh, streams = bench_mesh(dev)
+    classes = mesh_classes(buckets, gp, cp, ssc_method, mesh, streams)
 
     def run_all():
-        return [fused_pipeline(*args, cspec) for _, cspec, args in classes]
+        return [presharded_pipeline(args, cspec, mesh, streams=streams)
+                for _, cspec, args in classes]
 
     with torch.no_grad():
         # the first call loads the kernel library and grows the
         # allocator: timed apart, as the JAX bench times its compile
         t0 = time.monotonic()
         run_all()
-        _sync(dev)
+        _sync(mesh)
         compile_s = time.monotonic() - t0
-        dev_s = time_step(run_all, dev, int(os.environ.get("DUT_BENCH_REPS", 10)))
+        dev_s = time_step(run_all, mesh, int(os.environ.get("DUT_BENCH_REPS", 10)))
         # the pipeline is deterministic: one more step gives the
         # outputs the error rate reads
         outs = run_all()
@@ -1408,7 +1459,8 @@ def main(device=None) -> None:
     l_ = batch.read_len
     b_ = batch.umi_len
     step_flops = sum(
-        analytic_flops(cspec, cbuckets[0].capacity, l_, b_) * args[0].shape[0]
+        analytic_flops(cspec, cbuckets[0].capacity, l_, b_)
+        * args[0]["pos"].shape[0] * mesh.n_data
         for cbuckets, cspec, args in classes
     )
     peak, peak_entry = device_peak_flops(device_name)
@@ -1418,7 +1470,7 @@ def main(device=None) -> None:
     # consensus error rate vs simulation truth (the "matched error
     # rate" side of the metric)
     class_outs = [
-        ({k: v.cpu().numpy() for k, v in o.items()}, cbuckets)
+        (gather_outputs(o, mesh, streams), cbuckets)
         for o, (cbuckets, _, _) in zip(outs, classes)
     ]
     del outs
@@ -1481,7 +1533,6 @@ def main(device=None) -> None:
         "device": device_name,
         "device_count": torch.cuda.device_count() if on_cuda else 0,
         "consensus_error_rate": err_rate,
-        **SKIPPED_LEGS,
     }
 
     # ---- per-config compute matrix
@@ -1567,6 +1618,29 @@ def main(device=None) -> None:
                     / max(packed_leg["e2e_ab_packed_wall_s"], 1e-9),
                     3,
                 )
+            # mesh-scaling A/B (DUT_BENCH_MESH=K, needs K devices in the
+            # pool): the same leg at K devices vs 1, same warm caches.
+            # With K lanes on CPU the ratio is informational (lanes
+            # share the host's cores); across K cards it is the K-way
+            # scaling headline
+            n_mesh = int(os.environ.get("DUT_BENCH_MESH", 0))
+            if n_mesh > 1:
+                n_pool = len(device_pool(dev))
+                if n_pool >= n_mesh:
+                    mesh_leg = run_e2e(n_ab, dev, prefix="e2e_meshk", n_devices=n_mesh)
+                    result.update(mesh_leg)
+                    mesh_one = run_e2e(n_ab, dev, prefix="e2e_mesh1", n_devices=1)
+                    result.update(mesh_one)
+                    result["e2e_mesh_devices"] = n_mesh
+                    result["e2e_mesh_scaling"] = round(
+                        mesh_one["e2e_mesh1_wall_s"]
+                        / max(mesh_leg["e2e_meshk_wall_s"], 1e-9),
+                        3,
+                    )
+                else:
+                    result["e2e_mesh_error"] = (
+                        f"DUT_BENCH_MESH={n_mesh} but only {n_pool} devices visible"
+                    )
         # serve_n_jobs: jobs through the in-process daemon vs a cold
         # one-shot process (DUT_BENCH_SERVE_JOBS=0 disables)
         n_serve = int(os.environ.get("DUT_BENCH_SERVE_JOBS", 3))

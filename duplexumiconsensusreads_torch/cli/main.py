@@ -28,8 +28,10 @@ refused in favour of the daemon's ``--device``. ``call --n-hosts N
 --host-id I [--index P]`` runs this host's key range of the streaming
 call (parallel/distributed.py), coordinated through a torch.distributed
 TCPStore when torchrun's MASTER_ADDR/MASTER_PORT/WORLD_SIZE/RANK are
-set. Flags of the JAX CLI whose machinery is not ported (several
-devices) are refused by name.
+set. ``--devices N`` (the whole-file and streaming mesh size),
+``--mesh N|auto`` (the streaming mesh) and ``--cycle-shards K`` take
+the JAX CLI's semantics over parallel/mesh.py's pool: the visible
+cards, or with ``--device cpu`` logical lanes of the CPU.
 """
 
 from __future__ import annotations
@@ -53,22 +55,8 @@ CONFIG_PRESETS = {
     "config5": dict(grouping="adjacency", mode="duplex", error_model="cycle"),
 }
 
-# Knobs of runtime/knobs.py this package does not implement: refused when
-# their resolved value (flag or config file) leaves the one it supports.
-_UNPORTED_KNOBS = {
-    "devices": ("dispatch across several devices", 5),
-    "mesh": ("dispatch across several devices", 5),
-    "cycle_shards": ("dispatch across several devices", 5),
-}
 # the job states --status/--wait exit 1 on (the JAX CLI's)
 _BAD_STATES = ("failed", "rejected", "expired", "quarantined", "unknown")
-
-
-def _not_ported(flag: str, what: str, item: int) -> SystemExit:
-    return SystemExit(
-        f"not supported by the torch port: {flag} ({what} is not ported yet, "
-        f"ROADMAP queue 1 item {item})"
-    )
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -216,11 +204,22 @@ def build_parser() -> argparse.ArgumentParser:
                    "requires a linear index, built on demand)")
     c.add_argument("--host-id", type=int, default=None, help="this host's id")
     c.add_argument("--index", help="linear index path (default: input + .dlix)")
-    u = c.add_argument_group("accepted and refused by name (not ported yet)")
-    for flag, kw in (
-        ("--devices", dict(type=int)), ("--mesh", {}), ("--cycle-shards", dict(type=int)),
-    ):
-        u.add_argument(flag, **{"default": None, **kw})
+    c.add_argument("--devices", type=int, default=None, help="mesh size (default: all)")
+    c.add_argument(
+        "--mesh", default=None, metavar="{auto,1,2,4,8,..}",
+        help="streaming mesh size: shard each chunk's bucket batch across this "
+        "many devices ('auto' = all local devices). Output bytes are identical "
+        "at ANY device count — chunk order is the commit order and mesh-pad "
+        "buckets emit nothing — so this is a pure throughput knob, A/B-tested "
+        "like --drain-workers. Carried by --submit jobs (the daemon resolves "
+        "'auto' against its own device pool); requires --chunk-reads. With "
+        "--device cpu the devices are logical lanes of the CPU",
+    )
+    c.add_argument(
+        "--cycle-shards", type=int, default=None,
+        help="shard the read-length axis this many ways (long reads); "
+        "devices must be divisible by it",
+    )
 
     sm = sub.add_parser("simulate", help="write a truth-aware synthetic BAM")
     sm.add_argument("-o", "--output", required=True, help="output BAM path")
@@ -637,14 +636,6 @@ def _cmd_call(args) -> int:
     if chunk_reads < 0:
         raise SystemExit(f"--chunk-reads must be >= 0 (got {chunk_reads})")
 
-    # what this package does not implement, by its resolved value
-    supported = {"devices": devices in (None, 1), "mesh": mesh in ("auto", 1),
-                 "cycle_shards": cycle_shards == 1}
-    for name, ok in supported.items():
-        if not ok:
-            what, item = _UNPORTED_KNOBS[name]
-            raise _not_ported(knobs.KNOBS[name].flag, what, item)
-
     if args.submit:
         return _submit(args, opt, dict(
             grouping=grouping, mode=mode, error_model=error_model, capacity=capacity,
@@ -732,7 +723,7 @@ def _cmd_call(args) -> int:
     if args.n_hosts > 0:
         rep = _multihost(args, gp, cp, device, dict(
             capacity=capacity, chunk_reads=chunk_reads,
-            n_devices=1 if 1 in (mesh, devices) else None,
+            n_devices=mesh if mesh != "auto" else devices, cycle_shards=cycle_shards,
             max_inflight=max_inflight, drain_workers=drain_workers,
             packed=packed, prefetch_depth=prefetch_depth,
             ingest_overlap=ingest_overlap, bucket_ladder=ladder_norm,
@@ -753,7 +744,7 @@ def _cmd_call(args) -> int:
             rep = stream_call_consensus(
                 args.input, args.output, gp, cp,
                 capacity=capacity, chunk_reads=chunk_reads,
-                n_devices=1 if 1 in (mesh, devices) else None,
+                n_devices=mesh if mesh != "auto" else devices, cycle_shards=cycle_shards,
                 max_inflight=max_inflight, drain_workers=drain_workers,
                 checkpoint_path=args.checkpoint, resume=args.resume,
                 report_path=args.report, profile_dir=args.profile,
@@ -780,6 +771,7 @@ def _cmd_call(args) -> int:
                 ref_projected=ref_projected, umi_whitelist=umi_whitelist,
                 umi_max_mismatches=umi_max_mismatches, device=device,
                 backend=backend, profile_dir=args.profile,
+                n_devices=devices, cycle_shards=cycle_shards,
             )
         except ValueError as e:
             # the whitelist/UMI length check runs inside the load

@@ -100,9 +100,10 @@ def propagate_min(edge: torch.Tensor, s0: torch.Tensor, u_pos: torch.Tensor) -> 
     (and raise if it cannot launch); CPU tensors take the plain version.
     The kernel's in-neighbour list holds default_list_cap(U) entries; a
     bucket with more in-group edges re-reads its edge grid every sweep
-    instead. Every launch adds one to ``propagate_min.launches`` (under
-    a lock: the streaming executor's transfer workers launch at
-    once)."""
+    instead. Every launch adds one to ``propagate_min.launches`` and to
+    ``propagate_min.stream_launches[(device index, stream handle)]`` of
+    the stream it was queued on (under a lock: the streaming executor's
+    transfer workers launch at once)."""
     _check(edge, s0, u_pos)
     if s0.device.type == "cpu":
         return propagate_min_plain(edge, s0, u_pos)
@@ -116,13 +117,16 @@ def propagate_min(edge: torch.Tensor, s0: torch.Tensor, u_pos: torch.Tensor) -> 
     if n == 0:
         return out
     edge, s0, u_pos = edge.contiguous(), s0.contiguous(), u_pos.contiguous()
+    stream = torch.cuda.current_stream(s0.device).cuda_stream
     with device_guard(s0.device):
         rc = _kernel()(edge.data_ptr(), s0.data_ptr(), u_pos.data_ptr(), out.data_ptr(),
-                       n, u, cap, torch.cuda.current_stream(s0.device).cuda_stream)
+                       n, u, cap, stream)
     if rc != 0:
         raise RuntimeError(f"cluster_fixpoint kernel launch failed (cudaError {rc})")
     with _COUNT_LOCK:
         propagate_min.launches += 1
+        on = (s0.device.index, stream)
+        propagate_min.stream_launches[on] = propagate_min.stream_launches.get(on, 0) + 1
     return out
 
 
@@ -139,4 +143,5 @@ def _kernel():
 
 _FN = None
 propagate_min.launches = 0
+propagate_min.stream_launches = {}
 _COUNT_LOCK = threading.Lock()

@@ -132,8 +132,10 @@ def segment_gemm(big: torch.Tensor, fid: torch.Tensor, f_max: int) -> torch.Tens
     MAX_GRID_Z, so a class of more buckets (a small ladder rung of a
     large chunk) runs as several launches over consecutive bucket
     ranges, each at the tile :func:`choose_tiles` picks for it. Every
-    launch adds one to ``segment_gemm.launches`` (under a lock: several
-    threads launch at once in the streaming executor)."""
+    launch adds one to ``segment_gemm.launches`` and to
+    ``segment_gemm.stream_launches[(device index, stream handle)]`` of
+    the stream it was queued on (under a lock: several threads launch
+    at once in the streaming executor)."""
     _check(big, fid, f_max)
     if big.device.type == "cpu":
         return segment_gemm_plain(big, fid, f_max)
@@ -159,6 +161,8 @@ def segment_gemm(big: torch.Tensor, fid: torch.Tensor, f_max: int) -> torch.Tens
                 raise RuntimeError(f"segment_gemm kernel launch failed (cudaError {rc})")
             with _COUNT_LOCK:
                 segment_gemm.launches += 1
+                on = (big.device.index, stream)
+                segment_gemm.stream_launches[on] = segment_gemm.stream_launches.get(on, 0) + 1
     return out
 
 
@@ -178,4 +182,5 @@ def _kernel():
 MAX_GRID_Z = 65535
 _FN = None
 segment_gemm.launches = 0
+segment_gemm.stream_launches = {}
 _COUNT_LOCK = threading.Lock()

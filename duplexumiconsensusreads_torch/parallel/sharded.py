@@ -1,10 +1,54 @@
-"""The parts of the JAX package's parallel/sharded.py the streaming
-executor reads: the stacked array keys that cross the wire, and their
-byte count. One device: stacked bucket counts are padded to a multiple
-of 1 (``stack_buckets(..., multiple_of=1)``), so no mesh-pad bucket is
-ever shipped."""
+"""Mesh-sharded execution of the fused pipeline: one contiguous bucket
+block per data lane, each on its own device and CUDA stream.
+
+The JAX package shards the stacked buckets over a ``jax.sharding``
+mesh and lets GSPMD (or a shard_map) partition the vmapped pipeline.
+The port has neither, and needs neither: buckets are independent, so
+the per-lane loop below *is* the partition. Its decisions:
+
+- **Data lanes.** ``stack_buckets(..., multiple_of=n_data)`` pads a
+  class to a multiple of the data-axis size with empty buckets (the
+  mesh pad); lane d takes buckets ``[d*per, (d+1)*per)``. Each lane
+  runs :func:`fused_pipeline` on its block alone, on its device, on
+  its own CUDA stream. No collective exists, so no lane's work ever
+  waits on another lane's (the JAX shard_map form is collective-free
+  for the same reason; a cross-shard reduction there deadlocked
+  concurrent dispatches). Nothing synchronises across devices inside
+  a dispatch: every lane's results come back to the host by its own
+  D2H copies, and the host joins them.
+- **Cycle lanes** (a ('data', 'cycle') mesh). GSPMD would partition the
+  read-length axis and insert what the cross-cycle parts need; here it
+  is split by hand. Grouping reads no cycle, so each cycle lane runs it
+  on the whole data block and computes the same ids (it is cheap next
+  to the consensus, and sharing ids would need a cross-device copy).
+  The consensus math, the error model's fit and cap, and the duplex
+  merge are per cycle: a lane runs them on its slice of the cycles
+  (:func:`cycle_bounds`: multiples of 8 cycles, so the sub-byte rung's
+  bit planes and the packed D2H's 2-bit bases split on byte
+  boundaries). Family sizes, validity, mate and pair metadata read no
+  cycle, so every lane computes them identically and the host keeps
+  lane 0's. The reductions over L are combined after the lanes finish
+  (:func:`combine_lane_outputs`): ``depth_max`` is the maximum over
+  lanes and ``depth_min_pos`` the minimum of the lanes' positive
+  values. Every per-cycle element is computed by the same f32
+  operations as on one lane, so a cycle mesh's outputs are the
+  one-lane outputs byte for byte (held exactly by
+  tests/test_torch_parallel.py; JAX holds its GSPMD form only to a
+  qual tolerance).
+- **Kernels on every device.** Each lane runs inside
+  :func:`lane_context` (the lane's device and stream), so both kernels
+  launch there: their wrappers take ``torch.cuda.current_stream`` of
+  the tensor's device under its device guard, and set their per-device
+  function attributes under it.
+"""
 
 from __future__ import annotations
+
+import contextlib
+import dataclasses
+
+import numpy as np
+import torch
 
 from duplexumiconsensusreads_torch.interop import ARRAY_KEYS as _ARRAY_KEYS
 
@@ -14,3 +58,212 @@ def stacked_nbytes(stacked: dict) -> int:
     _ARRAY_KEYS set); host-only bookkeeping (read_index,
     n_real_buckets) never leaves the host."""
     return sum(stacked[k].nbytes for k in _ARRAY_KEYS)
+
+
+# cycles per cycle-lane boundary: one byte of a bit plane
+CYCLE_ALIGN = 8
+
+
+def cycle_bounds(l: int, cycle_shards: int) -> list[tuple[int, int]]:
+    """[(l0, l1)] per cycle lane: contiguous slices of the L cycles,
+    each but the last a multiple of CYCLE_ALIGN wide. Raises when L is
+    too short to give every lane a cycle."""
+    if cycle_shards <= 1:
+        return [(0, l)]
+    w = -(-l // (cycle_shards * CYCLE_ALIGN)) * CYCLE_ALIGN
+    if (cycle_shards - 1) * w >= l:
+        raise ValueError(
+            f"read length {l} is too short for cycle_shards={cycle_shards}: "
+            f"each cycle shard but the last takes a multiple of {CYCLE_ALIGN} cycles"
+        )
+    return [(c * w, min((c + 1) * w, l)) for c in range(cycle_shards)]
+
+
+def _cycles_of(stacked: dict, spec) -> int:
+    if spec is not None and spec.packed_qbits:
+        return spec.cycles_len
+    return int(stacked["bases"].shape[-1])
+
+
+def _cycle_slice(stacked: dict, spec, l0: int, l1: int) -> dict:
+    """The stacked arrays restricted to cycles [l0, l1): unpacked and
+    byte-rung cycles are the last axis; the sub-byte rung's bit planes
+    are (2 + qbits) planes of ceil(L/8) bytes each."""
+    out = dict(stacked)
+    bases = stacked["bases"]
+    if spec is not None and spec.packed_qbits:
+        planes = 2 + spec.packed_qbits
+        b, r, w = bases.shape
+        pl = bases.reshape(b, r, planes, w // planes)
+        out["bases"] = np.ascontiguousarray(
+            pl[..., l0 // CYCLE_ALIGN : -(-l1 // CYCLE_ALIGN)]
+        ).reshape(b, r, -1)
+    else:
+        out["bases"] = bases[..., l0:l1]
+    quals = stacked["quals"]
+    if quals.shape[-1]:  # unpacked; the packed rungs send a zero-width dummy
+        out["quals"] = quals[..., l0:l1]
+    return out
+
+
+def lane_blocks(stacked: dict, mesh, spec=None) -> list[dict]:
+    """Host-side split of a stacked class (bucket count a multiple of
+    ``mesh.n_data``) into one numpy dict per lane, in lane order: data
+    lane d's contiguous bucket block, restricted to cycle lane c's
+    cycles. ``spec`` is needed on a cycle mesh for the sub-byte rung."""
+    n = int(stacked["pos"].shape[0])
+    if n % mesh.n_data:
+        raise ValueError(f"{n} stacked buckets do not divide over {mesh.n_data} data lanes")
+    per = n // mesh.n_data
+    bounds = cycle_bounds(_cycles_of(stacked, spec), mesh.n_cycle)
+    out = []
+    for d in range(mesh.n_data):
+        block = {k: stacked[k][d * per : (d + 1) * per] for k in _ARRAY_KEYS}
+        for l0, l1 in bounds:
+            out.append(block if mesh.n_cycle == 1 else _cycle_slice(block, spec, l0, l1))
+    return out
+
+
+def lane_specs(spec, mesh) -> list:
+    """The spec each lane runs, in lane order: on a cycle mesh the
+    sub-byte rung's lanes decode their own slice's cycle count; every
+    other field is the class's."""
+    if mesh.n_cycle == 1 or spec is None or not spec.packed_qbits:
+        return [spec] * mesh.size
+    bounds = cycle_bounds(spec.cycles_len, mesh.n_cycle)
+    return [dataclasses.replace(spec, cycles_len=l1 - l0)
+            for _ in range(mesh.n_data) for l0, l1 in bounds]
+
+
+def lane_streams(mesh, fresh: bool = False) -> list:
+    """The CUDA stream of each lane: None (the card's current stream)
+    for a lane alone on its card, a new stream for each lane of a card
+    that serves several (two lanes on one card get two streams), or a
+    new stream for every lane with ``fresh`` (a caller that dispatches
+    from several threads). None per lane on the CPU."""
+    devs = mesh.devices
+    return [
+        torch.cuda.Stream(d) if d.type == "cuda" and (fresh or devs.count(d) > 1) else None
+        for d in devs
+    ]
+
+
+@contextlib.contextmanager
+def lane_context(device, stream=None):
+    """Make ``device`` the current CUDA device and ``stream`` its current
+    stream for the block (nothing on the CPU)."""
+    if device.type != "cuda":
+        yield
+        return
+    with torch.cuda.device(device):
+        if stream is None:
+            yield
+        else:
+            with torch.cuda.stream(stream):
+                yield
+
+
+def shard_stacked(stacked: dict, mesh, spec=None, streams=None, keep=None) -> list[dict]:
+    """Put each lane's block on its device (see :func:`lane_blocks`),
+    on the lane's stream; returns the per-lane tensor dicts. On the
+    card the copies are staged in pinned memory and do not block; the
+    pinned buffers are appended to ``keep[i]`` (a list per lane) for a
+    caller that holds them until its copies are known done."""
+    from duplexumiconsensusreads_torch.interop import stacked_from_numpy
+
+    streams = streams or [None] * mesh.size
+    out = []
+    for i, (dev, block) in enumerate(zip(mesh.devices, lane_blocks(stacked, mesh, spec))):
+        with lane_context(dev, streams[i]):
+            pin = dev.type == "cuda"
+            out.append(stacked_from_numpy(block, dev, pin=pin,
+                                          keep=None if keep is None else keep[i]))
+    return out
+
+
+def presharded_pipeline(args: list, spec, mesh, streams=None) -> list[dict]:
+    """Run :func:`fused_pipeline` on each lane's device-resident block
+    (from :func:`shard_stacked`), on the lane's device and stream; the
+    pure-compute path benchmarks time. Returns the per-lane output
+    dicts, in lane order."""
+    from duplexumiconsensusreads_torch.ops.pipeline import fused_pipeline
+
+    streams = streams or [None] * mesh.size
+    specs = lane_specs(spec, mesh)
+    outs = []
+    for i, dev in enumerate(mesh.devices):
+        with lane_context(dev, streams[i]):
+            a = args[i]
+            outs.append(fused_pipeline(*(a[k] for k in _ARRAY_KEYS), specs[i]))
+    return outs
+
+
+def sharded_pipeline(stacked: dict, spec, mesh, streams=None) -> list[dict]:
+    """All buckets of a stacked class across the mesh: per-lane outputs
+    (:func:`gather_outputs` joins them on the host)."""
+    streams = streams or lane_streams(mesh)
+    return presharded_pipeline(
+        shard_stacked(stacked, mesh, spec, streams=streams), spec, mesh, streams=streams
+    )
+
+
+def _min_positive(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    return np.where((a > 0) & (b > 0), np.minimum(a, b), np.maximum(a, b))
+
+
+# per-cycle outputs: unpacked (B, F, L) matrices and the packed D2H
+# rows' quals (K, L) and 2-bit bases (K, ceil(L/4))
+_CYCLE_KEYS = ("cons_base", "cons_qual", "cons_depth", "cons_err", "cons_q", "cons_b2")
+
+
+def combine_lane_outputs(lanes: list[dict], mesh) -> dict:
+    """Host join of per-lane numpy outputs (in lane order) into the
+    one-lane form: the cycle lanes of each data block are joined first
+    (per-cycle keys concatenated along their last axis; ``depth_max``
+    by maximum and ``depth_min_pos`` by minimum positive value, in the
+    packed D2H's ``cons_dstats`` columns too; every other key is the
+    same on each cycle lane and lane 0's is kept), then the data
+    blocks are concatenated along the leading axis (buckets, or the
+    packed D2H's per-shard row blocks, shard-major)."""
+    rows = []
+    for d in range(mesh.n_data):
+        group = lanes[d * mesh.n_cycle : (d + 1) * mesh.n_cycle]
+        if len(group) == 1:
+            rows.append(group[0])
+            continue
+        joined = {}
+        for k, v in group[0].items():
+            vals = [g[k] for g in group]
+            if k in _CYCLE_KEYS:
+                joined[k] = np.concatenate(vals, axis=-1)
+            elif k == "depth_max":
+                joined[k] = np.maximum.reduce(vals)
+            elif k == "depth_min_pos":
+                acc = vals[0]
+                for x in vals[1:]:
+                    acc = _min_positive(acc, x)
+                joined[k] = acc
+            elif k == "cons_dstats":
+                mx = np.maximum.reduce([x[:, 0] for x in vals])
+                mn = vals[0][:, 1]
+                for x in vals[1:]:
+                    mn = _min_positive(mn, x[:, 1])
+                joined[k] = np.stack([mx, mn], axis=1).astype(v.dtype)
+            else:
+                joined[k] = v
+        rows.append(joined)
+    if len(rows) == 1:
+        return rows[0]
+    return {k: np.concatenate([r[k] for r in rows], axis=0) for k in rows[0]}
+
+
+def gather_outputs(outs: list[dict], mesh, streams=None) -> dict:
+    """Per-lane device outputs -> one host numpy dict (the one-lane
+    form, :func:`combine_lane_outputs`). Each lane's copy runs on the
+    lane's stream, after its work."""
+    streams = streams or [None] * mesh.size
+    host = []
+    for i, dev in enumerate(mesh.devices):
+        with lane_context(dev, streams[i]):
+            host.append({k: v.cpu().numpy() for k, v in outs[i].items()})
+    return combine_lane_outputs(host, mesh)

@@ -101,9 +101,8 @@ class RunReport:
     # streaming padding: real read rows dispatched vs padded row-slots
     n_rows_real: int = 0
     n_rows_padded: int = 0
-    # empty buckets appended to round a class to a device multiple
-    # (always 0 on one device; kept so the counters read as the JAX
-    # package's)
+    # empty buckets appended to round a class to a multiple of the
+    # mesh's data lanes (0 on one lane)
     n_mesh_pad_buckets: int = 0
     # resolved bucket ladder of the run ([] = single-capacity): explicit
     # rungs verbatim, or the tuner verdict an auto run settled on
@@ -392,16 +391,40 @@ def start_fetch(out: dict, keys: tuple = FETCH_KEYS, staging=(), extra: tuple = 
     return sel
 
 
-def fetch_outputs(sel: Fetch) -> dict:
-    """Wait for THIS fetch's copies (its event, never a device-wide
+class MeshFetch(list):
+    """One mesh dispatch's fetches: a :class:`Fetch` per lane, in lane
+    order, each with its own copies, event, staging and span.
+    :func:`fetch_outputs` joins them on the host
+    (parallel/sharded.py:combine_lane_outputs) into the one-lane form."""
+
+    def __init__(self, fetches, mesh):
+        super().__init__(fetches)
+        self.mesh = mesh
+
+
+def lane_fetches(sel) -> list:
+    """The per-lane fetches of a dispatch (a plain Fetch is one lane)."""
+    return list(sel) if isinstance(sel, MeshFetch) else [sel]
+
+
+def fetch_outputs(sel) -> dict:
+    """Wait for THIS fetch's copies (its events, never a device-wide
     synchronize: other dispatches stay in flight) and hand back the
-    host arrays as numpy."""
+    host arrays as numpy; a mesh dispatch's lanes are joined into the
+    one-lane form."""
     # chaos site: a scheduled fault here lands in the streaming
     # executor's retry/isolation ladder
     fault_point("fetch.result")
-    if sel.event is not None:
-        sel.event.synchronize()
-    return {k: v.numpy() for k, v in sel.items()}
+    host = []
+    for f in lane_fetches(sel):
+        if f.event is not None:
+            f.event.synchronize()
+        host.append({k: v.numpy() for k, v in f.items()})
+    if not isinstance(sel, MeshFetch):
+        return host[0]
+    from duplexumiconsensusreads_torch.parallel.sharded import combine_lane_outputs
+
+    return combine_lane_outputs(host, sel.mesh)
 
 
 # ------------------------------------------------------- packed D2H rung
@@ -419,8 +442,12 @@ def fetch_outputs(sel: Fetch) -> dict:
 # only the id array the scatter consumes is fetched. The host unpack
 # reconstructs the exact unpacked FETCH_KEYS arrays at every position
 # the scatter reads, so output bytes are identical with the rung on or
-# off. The wire layout is the JAX package's byte for byte (one shard:
-# this executor runs one device).
+# off. The wire layout is the JAX package's byte for byte: S shards
+# (the mesh's data lanes) send S blocks of k_pad rows, shard-major,
+# each compacted from its own bucket block alone: each lane compacts its
+# own block on its own device (the counterpart of the JAX package's
+# _pack_d2h_shmap: no collective, no cross-device traffic) and the host
+# concatenates the lanes' rows.
 
 PACKED_FETCH_KEYS = (
     "n_families",
@@ -600,11 +627,28 @@ def d2h_k_pad(cbuckets, spec, n_shards: int = 1) -> int:
     return min(_pow2(max(bound, 1)), per * f)
 
 
-def pack_fetch_outputs(out: dict, spec, k_pad: int) -> dict:
-    """Apply the packed-D2H epilogue to a pipeline output dict (on the
-    device the outputs live on); returns the compact dict
-    (PACKED_FETCH_KEYS)."""
-    return _pack_d2h(out, spec.consensus.mode == "duplex", k_pad)
+def pack_fetch_outputs(out, spec, k_pad: int, mesh=None, streams=None):
+    """Apply the packed-D2H epilogue on the device the outputs live on;
+    returns the compact dict (PACKED_FETCH_KEYS) of one lane's outputs.
+
+    With a ``mesh``, ``out`` is the per-lane output list of
+    parallel/sharded.py:presharded_pipeline, and each lane compacts its
+    own block into its own ``k_pad`` rows, on its device and stream
+    (``streams``, one per lane): the return is the per-lane list of
+    compact dicts, whose host join (a cycle mesh's lanes first, then
+    the data blocks' rows in order) is the wire of the mesh's n_data
+    shards, shard-major."""
+    duplex = spec.consensus.mode == "duplex"
+    if mesh is None:
+        return _pack_d2h(out, duplex, k_pad)
+    from duplexumiconsensusreads_torch.parallel.sharded import lane_context
+
+    streams = streams or [None] * mesh.size
+    packed = []
+    for i, dev in enumerate(mesh.devices):
+        with lane_context(dev, streams[i]):
+            packed.append(_pack_d2h(out[i], duplex, k_pad))
+    return packed
 
 
 def _unpack_2bit_np(packed: np.ndarray, l: int) -> np.ndarray:
@@ -868,8 +912,13 @@ def call_batch(
     report: RunReport | None = None,
     device="cuda",
     per_base_tags: bool = False,
+    n_devices: int | None = None,
+    cycle_shards: int = 1,
+    devices=None,
 ):
-    """Run one host ReadBatch through the bucketed pipeline on one device.
+    """Run one host ReadBatch through the bucketed pipeline on a mesh of
+    lanes (parallel/mesh.py:run_mesh: every visible card unless
+    ``n_devices``/``devices`` narrow it, one lane on the CPU).
 
     Returns (cons_base, cons_qual, cons_dstats, cons_valid, fam_pos,
     fam_umi, cons_mate, cons_pair, cons_end) over all buckets, sorted
@@ -877,14 +926,25 @@ def call_batch(
     per_base_tags=True appends TWO elements, the (n, L) per-base depth
     and disagreement-count matrices (the pipeline's full ssc pass then
     reduces the err columns too, and both matrices cross the wire).
+    Each class is stacked to a multiple of the mesh's data lanes and
+    every lane runs its block on its own stream
+    (parallel/sharded.py); the result does not depend on the mesh.
     """
     from duplexumiconsensusreads_torch.bucketing import build_buckets, stack_buckets
-    from duplexumiconsensusreads_torch.interop import ARRAY_KEYS, stacked_from_numpy
-    from duplexumiconsensusreads_torch.ops.pipeline import fused_pipeline, pack_stacked
+    from duplexumiconsensusreads_torch.ops.pipeline import pack_stacked
+    from duplexumiconsensusreads_torch.parallel.mesh import run_mesh
+    from duplexumiconsensusreads_torch.parallel.sharded import (
+        lane_blocks,
+        lane_context,
+        lane_streams,
+        presharded_pipeline,
+        shard_stacked,
+    )
 
-    dev = resolve_device(device)
+    mesh = run_mesh(device, n_devices, devices, cycle_shards)
     rep = report or RunReport()
-    rep.device = str(dev)
+    rep.device = str(resolve_device(device))
+    rep.n_devices = mesh.size
     duplex = consensus.mode == "duplex"
 
     t0 = time.monotonic()
@@ -906,26 +966,34 @@ def call_batch(
 
     part = partition_buckets(
         buckets, grouping, consensus, packed_io=packed_io_ok(consensus),
-        per_base_counts=per_base_tags, device=dev,
+        per_base_counts=per_base_tags, device=mesh.devices[0],
     )
     rep.n_size_classes = len(part)
+    streams = lane_streams(mesh)
     pending = []
     for cbuckets, cspec in part:
         t0 = time.monotonic()
-        stacked = stack_buckets(cbuckets)
+        stacked = stack_buckets(cbuckets, multiple_of=mesh.n_data)
         if cspec.packed_io:
             pack_stacked(stacked)
-        rep.bytes_h2d += sum(int(stacked[k].nbytes) for k in ARRAY_KEYS)
+        rep.bytes_h2d += sum(
+            int(v.nbytes) for blk in lane_blocks(stacked, mesh, cspec) for v in blk.values()
+        )
+        rep.n_mesh_pad_buckets += int(stacked["pos"].shape[0]) - len(cbuckets)
         t1 = time.monotonic()
         _add(rep, "stack_pack", t1 - t0)
-        staging = []
-        args = stacked_from_numpy(stacked, dev, pin=True, keep=staging)
-        out = fused_pipeline(*(args[k] for k in ARRAY_KEYS), cspec)
+        staging = [[] for _ in range(mesh.size)]
+        args = shard_stacked(stacked, mesh, cspec, streams=streams, keep=staging)
+        outs = presharded_pipeline(args, cspec, mesh, streams=streams)
         del args
-        sel = start_fetch(out, staging=staging,
-                          extra=PER_BASE_KEYS if per_base_tags else ())
-        del out
-        rep.bytes_d2h += sum(int(v.nbytes) for v in sel.values())
+        fetches = []
+        for i, dev in enumerate(mesh.devices):
+            with lane_context(dev, streams[i]):
+                fetches.append(start_fetch(outs[i], staging=staging[i],
+                                           extra=PER_BASE_KEYS if per_base_tags else ()))
+        del outs
+        sel = fetches[0] if mesh.size == 1 else MeshFetch(fetches, mesh)
+        rep.bytes_d2h += sum(int(v.nbytes) for f in fetches for v in f.values())
         pending.append((cbuckets, sel))
         _add(rep, "device_dispatch", time.monotonic() - t1)
 
@@ -1071,12 +1139,17 @@ def call_consensus_file(
     device="cuda",
     backend: str = "cuda",
     profile_dir: str | None = None,
+    n_devices: int | None = None,
+    cycle_shards: int = 1,
+    devices=None,
 ) -> RunReport:
     """End-to-end: read BAM/npz -> consensus -> write consensus BAM.
 
     The counterpart of the JAX package's whole-file call_consensus_file
     (``chunk_reads`` 0). ``backend="cuda"`` runs the bucketed device
-    pipeline on ``device``; ``backend="cpu"`` runs the NumPy oracle
+    pipeline on ``device`` (over the mesh of ``n_devices`` lanes, the
+    ``devices`` index subset and ``cycle_shards``, as :func:`call_batch`
+    does); ``backend="cpu"`` runs the NumPy oracle
     (:func:`call_batch_cpu`) and touches no device. Output is
     coordinate-sorted by construction and the header says so;
     write_index=True also writes the standard .bai beside it (.csi when
@@ -1147,6 +1220,7 @@ def call_consensus_file(
         if backend == "cuda":
             cb, cq, cd, cv, fp, fu, mate, pair, end, *rest = call_batch(
                 batch, grouping, consensus, capacity, rep, dev, per_base_tags=per_base_tags,
+                n_devices=n_devices, cycle_shards=cycle_shards, devices=devices,
             )
         else:
             cb, cq, cd, cv, fp, fu, mate, pair, end, *rest = call_batch_cpu(

@@ -11,9 +11,9 @@ checkpoint fingerprint, the compile ``spec_signature``, the ``@PG CL``
 provenance line, the serve job config, the streaming-only CLI
 refusals — is declared here once. The CLI (``cli/main.py``) derives
 its ``--config-file`` keys and its whole-file refusals from the table.
-Knobs this package does not implement yet (``mesh`` and ``devices``
-above one device, ``cycle_shards``) stay in the table, and the CLI
-refuses each by name when it is set away from its default.
+``devices``, ``mesh`` and ``cycle_shards`` resolve as in the JAX
+package, over parallel/mesh.py's device pool (the visible cards, or
+logical CPU lanes).
 
 ``KNOB_TABLE`` is a PURE LITERAL on purpose: it can be read from the
 parsed source with ``ast.literal_eval``, without importing this module.

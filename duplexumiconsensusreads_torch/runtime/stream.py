@@ -38,7 +38,6 @@ data); violations raise.
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import hashlib
 import itertools
@@ -88,12 +87,14 @@ from duplexumiconsensusreads_torch.runtime.executor import (
     PER_BASE_KEYS,
     XFER_WORKERS,
     D2hCompactionOverflow,
+    MeshFetch,
     RunReport,
     d2h_k_pad,
     d2h_logical_nbytes,
     d2h_pack_ok,
     d2h_rung_for_class,
     fetch_outputs,
+    lane_fetches,
     pack_fetch_outputs,
     pack_ids_u16,
     partition_buckets,
@@ -103,6 +104,12 @@ from duplexumiconsensusreads_torch.runtime.executor import (
     start_fetch,
     unpack_fetch_outputs,
     write_bam_index,
+)
+from duplexumiconsensusreads_torch.parallel.sharded import (
+    lane_blocks,
+    lane_context,
+    lane_streams,
+    presharded_pipeline,
 )
 from duplexumiconsensusreads_torch.runtime.faults import (
     InjectedFault,
@@ -838,15 +845,6 @@ def _iterator_flavor() -> str:
 
 # -------------------------------------------------------------- executor
 
-# options of the JAX package's stream_call_consensus that this package
-# does not implement, each with the only value it accepts (ROADMAP queue
-# 1 item 5: dispatch across several devices)
-_UNPORTED = {
-    "devices": None,
-    "cycle_shards": 1,
-}
-
-
 def stream_call_consensus(
     in_path: str,
     out_path: str,
@@ -886,16 +884,25 @@ def stream_call_consensus(
     finalize_on: str = "eof",
     live_poll_s: float = 0.25,
     snapshot_chunks: int = 0,
+    cycle_shards: int = 1,
+    devices=None,
     device="cuda",
-    **unported,
 ) -> RunReport:
-    """Chunked, pipelined consensus calling on one device.
+    """Chunked, pipelined consensus calling on a mesh of devices.
 
     The options are the JAX package's (see its stream_call_consensus),
     with ``device`` ("cuda" unless the caller asks for "cpu"; no card
-    raises, nothing falls back). ``n_devices`` other than None/1 and
-    every option in ``_UNPORTED`` set to another value than its default
-    raise NotImplementedError naming the option.
+    raises, nothing falls back). The mesh (parallel/mesh.py:run_mesh)
+    is ``n_devices`` lanes of the pool — every visible card, narrowed
+    to the index subset ``devices``; ``n_devices=None`` takes the whole
+    pool on the card and one lane on the CPU, where lanes are logical
+    — split ``cycle_shards`` ways along the read length. Each class is
+    stacked to a multiple of the data lanes (``n_mesh_pad_buckets``
+    counts the empty pad buckets) and every lane runs its bucket block
+    on its own device and stream, with its own H2D, compaction and D2H
+    (parallel/sharded.py). Output bytes are identical at any device
+    count, subset or cycle split, so the mesh stays out of the
+    checkpoint fingerprint: a mesh run resumes a one-device prefix.
 
     Range mode (``input_range`` = (start voffset, key_lo, key_hi),
     ``chunk_base``, ``first_read``) runs one shard of a planned split
@@ -924,20 +931,10 @@ def stream_call_consensus(
     path, and a crashed run still leaves a valid (summary-less) capture.
     The recorder is also installed as the process-global hook, so the
     fault switchboard and the durable-write layer emit into it."""
-    for name, value in unported.items():
-        if name not in _UNPORTED:
-            raise TypeError(f"stream_call_consensus() got an unexpected keyword argument {name!r}")
-        if value != _UNPORTED[name]:
-            raise NotImplementedError(
-                f"{name}={value!r} is not ported to the torch package "
-                f"(only {_UNPORTED[name]!r})"
-            )
-    if n_devices not in (None, 1):
-        raise NotImplementedError(
-            f"n_devices={n_devices!r} is not ported to the torch package "
-            "(one device per run)"
-        )
+    from duplexumiconsensusreads_torch.parallel.mesh import run_mesh
+
     dev = resolve_device(device)
+    mesh = run_mesh(dev, n_devices, devices, cycle_shards)
     tr: TraceRecorder | None = None
     hb_box: list = []
     hooked = False
@@ -968,7 +965,7 @@ def stream_call_consensus(
             prefetch_depth=prefetch_depth, ingest_overlap=ingest_overlap,
             bucket_ladder=bucket_ladder,
             tr=tr, heartbeat_s=heartbeat_s, hb_box=hb_box,
-            provenance_cl=provenance_cl, dev=dev,
+            provenance_cl=provenance_cl, dev=dev, mesh=mesh,
             input_range=input_range, chunk_base=chunk_base, first_read=first_read,
             follow=follow, finalize_on=finalize_on, live_poll_s=live_poll_s,
             snapshot_chunks=snapshot_chunks,
@@ -1022,6 +1019,7 @@ def _stream_call(
     hb_box: list,
     provenance_cl: str | None,
     dev: torch.device,
+    mesh,
     input_range,
     chunk_base: int,
     first_read: int | None,
@@ -1051,9 +1049,8 @@ def _stream_call(
     atomic rename, inside the finalise stage."""
     from duplexumiconsensusreads_torch import tuning
     from duplexumiconsensusreads_torch.bucketing import build_buckets, stack_buckets
-    from duplexumiconsensusreads_torch.interop import ARRAY_KEYS, stacked_from_numpy
+    from duplexumiconsensusreads_torch.interop import stacked_from_numpy
     from duplexumiconsensusreads_torch.io.bam import serialize_bam
-    from duplexumiconsensusreads_torch.ops.pipeline import fused_pipeline
     from duplexumiconsensusreads_torch.parallel.sharded import stacked_nbytes
     from duplexumiconsensusreads_torch.runtime.executor import resolve_mate_aware
 
@@ -1108,6 +1105,12 @@ def _stream_call(
         run_ladder = ladder_mode if len(ladder_mode) > 1 else None
         capacity = ladder_mode[-1]
     rep = RunReport(backend="torch-stream", device=str(dev))
+    rep.n_devices = mesh.size
+    n_data = mesh.n_data
+    # per-device telemetry lanes exist only on a 1-D multi-lane mesh: on
+    # a ('data', 'cycle') mesh a data block spans several lanes, so a
+    # dev-N lane would name no one device (the JAX package's rule)
+    dev_lanes_on = n_data > 1 and mesh.n_cycle == 1
     if isinstance(ladder_mode, tuple):
         rep.bucket_ladder = [int(r) for r in ladder_mode]
     rep.n_drain_workers = drain_workers
@@ -1194,27 +1197,28 @@ def _stream_call(
     # set when the run is going down: drain workers stop their retry
     # ladders instead of grinding through backoff the shutdown waits on
     aborting = threading.Event()
-    # one CUDA stream per thread that dispatches (transfer workers, and
-    # drain workers on the retry path): a class's H2D, pipeline,
-    # compaction and D2H all run on it, in order, so no tensor crosses
-    # streams and the caching allocator reuses a block only after the
-    # stream's earlier work on it
+    # one CUDA stream per (thread that dispatches, mesh lane): transfer
+    # workers, and drain workers on the retry path. A lane's H2D,
+    # pipeline, compaction and D2H all run on its stream, in order, so
+    # no tensor crosses streams and the caching allocator reuses a block
+    # only after the stream's earlier work on it; two lanes on one card
+    # get two streams
     streams = threading.local()
 
-    def _stream_ctx():
+    def _lane_streams():
         if not on_cuda:
-            return contextlib.nullcontext()
-        s = getattr(streams, "s", None)
-        if s is None:
-            s = streams.s = torch.cuda.Stream(dev)
-        return torch.cuda.stream(s)
+            return [None] * mesh.size
+        ss = getattr(streams, "s", None)
+        if ss is None:
+            ss = streams.s = lane_streams(mesh, fresh=True)
+        return ss
 
     # per-stage BUSY seconds accrued on whichever thread runs the stage
     # (they overlap, so they do not sum to the wall); every += pairs
     # with a trace span of the SAME (t0, dt), so a capture's per-stage
     # sums reproduce these totals (the trace sum-check)
     phase = {
-        "ingest": 0.0, "bucketing": 0.0, "dispatch": 0.0,
+        "ingest": 0.0, "bucketing": 0.0, "dispatch": 0.0, "mesh_h2d": 0.0,
         "device_wait_fetch": 0.0, "scatter": 0.0, "deflate": 0.0,
         "shard_write": 0.0, "ckpt": 0.0, "finalise": 0.0,
         "main_loop_stall": 0.0, "prefetch_stall": 0.0,
@@ -1263,22 +1267,61 @@ def _stream_call(
     # (None = overflowed every dictionary width; scanning stopped)
     alpha_seen: set | None = set()
 
+    def _mesh_put(blocks, buckets, bucket_rows, chunk, sstreams, staging):
+        """Per-lane H2D of one dispatch: each lane's block goes to its
+        device on its stream (pinned, non-blocking), timed per lane.
+        On a 1-D multi-lane mesh each lane's window is a ``mesh_h2d``
+        span on its dev-N lane, with its wire bytes, fill rows and
+        mesh-pad buckets for the ledger; otherwise the dispatch span
+        owns the copies. Returns (per-lane tensor dicts, per-lane
+        ledger stats)."""
+        per = int(blocks[0]["pos"].shape[0])
+        cap = buckets[0].capacity
+        args, stats = [], []
+        for i, lane in enumerate(mesh.devices):
+            td = time.monotonic()
+            with lane_context(lane, sstreams[i]):
+                args.append(stacked_from_numpy(blocks[i], lane, pin=on_cuda, keep=staging[i]))
+            dtd = time.monotonic() - td
+            if not dev_lanes_on:
+                continue
+            with phase_lock:
+                phase["mesh_h2d"] += dtd
+            if tr is not None:
+                tr.span("mesh_h2d", td, dtd, chunk=chunk, lane=f"dev-{i}")
+            sub_rows = bucket_rows[i * per : (i + 1) * per]
+            stats.append({
+                "t0": td, "dt": dtd,
+                "wire": sum(v.nbytes for v in blocks[i].values()),
+                "rows_real": sum(sub_rows),
+                "rows_pad": per * cap,
+                "mesh_pad": per - len(sub_rows),
+            })
+        return args, stats
+
     def dispatch(buckets, spec, chunk=None):
-        """Stack + pack one class on the host, then on this thread's
-        stream: H2D, the fused pipeline, the packed-D2H compaction and
-        the D2H copies into pinned buffers. Returns the Fetch whose
-        event closes the class's device work."""
+        """Stack + pack one class on the host (to a multiple of the data
+        lanes), then on each lane's device and stream: H2D, the fused
+        pipeline, the packed-D2H compaction and the D2H copies into
+        pinned buffers. Returns the Fetch (a MeshFetch of one per lane
+        on a multi-lane mesh) whose events close the class's device
+        work."""
         t0 = time.monotonic()
         fault_point("dispatch.device_put")
-        stacked = stack_buckets(buckets, multiple_of=1)
+        stacked = stack_buckets(buckets, multiple_of=n_data)
         logical = stacked_nbytes(stacked) if tr is not None else 0
         fault_point("dispatch.pack")
         if spec.packed_io:
             pack_stacked(stacked, spec)
-        h2d = stacked_nbytes(stacked)
+        blocks = lane_blocks(stacked, mesh, spec)
+        # the bytes that cross the wire: every lane's block (a cycle
+        # mesh ships each data block's non-cycle arrays to every lane)
+        h2d = sum(v.nbytes for blk in blocks for v in blk.values())
         n_stacked = int(stacked["pos"].shape[0])
         rows_pad = n_stacked * buckets[0].capacity
-        rows_real = sum(int(bk.valid.sum()) for bk in buckets)
+        bucket_rows = [int(bk.valid.sum()) for bk in buckets]
+        rows_real = sum(bucket_rows)
+        mesh_pad = n_stacked - len(buckets)
         l_cyc = int(buckets[0].bases.shape[1])
         flops_d = analytic_flops(
             spec, buckets[0].capacity, l_cyc, int(buckets[0].umi.shape[1])
@@ -1297,52 +1340,72 @@ def _stream_call(
                 "packed_fallback", scope="d2h",
                 reason=fallback, capacity=buckets[0].capacity,
             )
-        with _stream_ctx():
-            staging: list = []
+        sstreams = _lane_streams()
+        staging = [[] for _ in range(mesh.size)]
+        spans = []
+        for i, lane in enumerate(mesh.devices):
             ev0 = None
             if on_cuda:
-                # the class's device span opens before its first H2D copy
-                ev0 = torch.cuda.Event(enable_timing=True)
-                ev0.record()
-            args = stacked_from_numpy(stacked, dev, pin=on_cuda, keep=staging)
-            t_pipe = time.monotonic()
-            out = fused_pipeline(*(args[k] for k in ARRAY_KEYS), spec)
-            del args
-            if tr is not None and first_call:
-                # the first call of a fresh class on this engine: host
-                # wall of an eager call that pays lazy CUDA module
-                # loading and allocator growth (nothing is compiled)
-                tr.event(
-                    "jit_compile", chunk=chunk,
-                    compile_s=round(time.monotonic() - t_pipe, 6),
-                    cap=int(buckets[0].capacity), cycles=l_cyc,
-                    method=spec.ssc_method,
-                )
-            if rung == "packed":
-                out = start_fetch(
-                    pack_fetch_outputs(out, spec, d2h_k_pad(buckets, spec)),
-                    keys=PACKED_FETCH_KEYS, staging=staging,
-                )
-            elif rung == "ids16":
-                out = start_fetch(
-                    pack_ids_u16(out, duplex), keys=IDS16_FETCH_KEYS,
-                    staging=staging, extra=fetch_extra,
-                )
-            else:
-                out = start_fetch(out, staging=staging, extra=fetch_extra)
-            if ev0 is not None:
-                # ... and closes after its last D2H copy: the stream's
-                # first-to-last op span, read by the drain as device time
-                ev1 = torch.cuda.Event(enable_timing=True)
-                ev1.record()
-                out.span = (ev0, ev1)
-        disp_dt = time.monotonic() - t0
+                # a lane's device span opens before its first H2D copy
+                with lane_context(lane, sstreams[i]):
+                    ev0 = torch.cuda.Event(enable_timing=True)
+                    ev0.record()
+            spans.append(ev0)
+        t_pre = time.monotonic() - t0  # stack + pack, "dispatch"
+        args, dev_stats = _mesh_put(blocks, buckets, bucket_rows, chunk, sstreams, staging)
+        del blocks
+        t0b = time.monotonic() if dev_lanes_on else t0
+        t_pipe = time.monotonic()
+        outs = presharded_pipeline(args, spec, mesh, streams=sstreams)
+        del args
+        if tr is not None and first_call:
+            # the first call of a fresh class on this engine: host
+            # wall of an eager call that pays lazy CUDA module
+            # loading and allocator growth (nothing is compiled)
+            tr.event(
+                "jit_compile", chunk=chunk,
+                compile_s=round(time.monotonic() - t_pipe, 6),
+                cap=int(buckets[0].capacity), cycles=l_cyc,
+                method=spec.ssc_method,
+            )
+        if rung == "packed":
+            # each lane compacts its own bucket block (no collective):
+            # S = n_data blocks of k_pad rows, shard-major on the wire
+            outs = pack_fetch_outputs(
+                outs, spec, d2h_k_pad(buckets, spec, n_data), mesh=mesh, streams=sstreams,
+            )
+        fetches = []
+        for i, lane in enumerate(mesh.devices):
+            with lane_context(lane, sstreams[i]):
+                if rung == "packed":
+                    f = start_fetch(outs[i], keys=PACKED_FETCH_KEYS, staging=staging[i])
+                elif rung == "ids16":
+                    f = start_fetch(
+                        pack_ids_u16(outs[i], duplex), keys=IDS16_FETCH_KEYS,
+                        staging=staging[i], extra=fetch_extra,
+                    )
+                else:
+                    f = start_fetch(outs[i], staging=staging[i], extra=fetch_extra)
+                if spans[i] is not None:
+                    # ... and closes after its last D2H copy: the stream's
+                    # first-to-last op span, read by the drain as device time
+                    ev1 = torch.cuda.Event(enable_timing=True)
+                    ev1.record()
+                    f.span = (spans[i], ev1)
+            fetches.append(f)
+        del outs
+        out = fetches[0] if mesh.size == 1 else MeshFetch(fetches, mesh)
+        dt_post = time.monotonic() - t0b
+        # dispatch busy time excludes the per-lane put loop on a 1-D
+        # multi-lane mesh: the "mesh_h2d" stage owns it there
+        disp_dt = t_pre + dt_post if dev_lanes_on else dt_post
         with phase_lock:
             phase["dispatch"] += disp_dt
             rep.bytes_h2d += h2d
             rep.device_flops += flops_d
             rep.n_rows_real += rows_real
             rep.n_rows_padded += rows_pad
+            rep.n_mesh_pad_buckets += mesh_pad
             if tr is not None:
                 led["h2d_logical"] += logical
                 led["h2d_wire"] += h2d
@@ -1356,30 +1419,53 @@ def _stream_call(
                 ent["h2d_wire"] += h2d
                 ent["disp_s"] += disp_dt
         if tr is not None:
-            tr.span("dispatch", t0, disp_dt, chunk=chunk, n_buckets=len(buckets))
+            if not dev_lanes_on:
+                tr.span("dispatch", t0, disp_dt, chunk=chunk, n_buckets=len(buckets))
+            else:
+                # the stack/pack prologue and the pipeline epilogue are
+                # separate dispatch spans bracketing the mesh_h2d spans
+                tr.span("dispatch", t0, t_pre, chunk=chunk, n_buckets=len(buckets))
+                tr.span("dispatch", t0b, dt_post, chunk=chunk)
             # bpc = wire bits per base/qual cycle of this class's rung
             bpc = (
                 2 + spec.packed_qbits if spec.packed_qbits
                 else 8 if spec.packed_io else 16
             )
-            tr.xfer(
-                "h2d", logical, h2d, t0, disp_dt, chunk=chunk,
-                bpc=bpc, rows_real=rows_real, rows_pad=rows_pad,
-                cap=buckets[0].capacity, mesh_pad=0,
-            )
+            if dev_lanes_on:
+                # one record per device lane, each with ITS slice: the
+                # logical bytes split exactly (every stacked array's
+                # bucket axis divides by n_data)
+                log_d = logical // n_data
+                for di, st in enumerate(dev_stats):
+                    tr.xfer(
+                        "h2d",
+                        logical - log_d * (n_data - 1) if di == n_data - 1 else log_d,
+                        st["wire"], st["t0"], st["dt"], chunk=chunk,
+                        lane=f"dev-{di}", bpc=bpc,
+                        rows_real=st["rows_real"], rows_pad=st["rows_pad"],
+                        cap=buckets[0].capacity, mesh_pad=st["mesh_pad"],
+                    )
+            else:
+                tr.xfer(
+                    "h2d", logical, h2d, t0, disp_dt, chunk=chunk,
+                    bpc=bpc, rows_real=rows_real, rows_pad=rows_pad,
+                    cap=buckets[0].capacity, mesh_pad=mesh_pad,
+                )
         return out
 
-    def unpack(raw, cbuckets, cspec):
-        """Exact unpacked FETCH_KEYS arrays from a fetched dict (identity
-        when the rung is off). Returns (full dict, wire bytes moved,
-        logical bytes the unpacked fetch would have moved)."""
-        wire = sum(v.nbytes for v in raw.values() if hasattr(v, "nbytes"))
+    def unpack(raw, lanes, cbuckets, cspec):
+        """Exact unpacked FETCH_KEYS arrays from a fetched (lane-joined)
+        dict, identity when the rung is off; the packed rows arrive as
+        n_data per-shard blocks. Returns (full dict, wire bytes the
+        lanes' copies moved, logical bytes the unpacked fetch would have
+        moved, ``lanes`` — each lane's (wire, logical) bytes)."""
         full = _io_retry(
             "fetch.unpack",
-            lambda: unpack_fetch_outputs(raw, cbuckets, cspec),
+            lambda: unpack_fetch_outputs(raw, cbuckets, cspec, n_shards=n_data),
             "packed d2h unpack",
         )
-        return full, wire, d2h_logical_nbytes(raw, cbuckets, cspec)
+        wire = sum(w for w, _ in lanes)
+        return full, wire, d2h_logical_nbytes(raw, cbuckets, cspec), lanes
 
     def _backoff(err, attempt, k, **attrs):
         delay = min(0.5 * (2 ** attempt), 8.0)
@@ -1404,21 +1490,29 @@ def _stream_call(
         """Device results -> host arrays, with recovery for retryable
         failures: bounded backoff class retries, then bucket-by-bucket
         re-dispatch to isolate a poisoned bucket. Returns (outputs,
-        wire_bytes, logical_bytes, device seconds): the last is the sum
-        of the CUDA-event spans of every dispatch it waited on (retries
-        re-count, as the FLOPs do), 0.0 on the CPU."""
+        wire_bytes, logical_bytes, per-lane (wire, logical) bytes,
+        device seconds): the last is the sum of the CUDA-event spans of
+        every dispatch it waited on (retries re-count, as the FLOPs
+        do), 0.0 on the CPU."""
         dev_s = [0.0]
 
         def fetched(sel):
+            """(host dict, per-lane (wire, logical) bytes): every lane's
+            copies awaited and joined, each lane's bytes read off its own
+            fetch; device time sums each lane's event span."""
             host = fetch_outputs(sel)
-            if sel.span is not None:
-                ev0, ev1 = sel.span
-                ev1.synchronize()
-                dev_s[0] += ev0.elapsed_time(ev1) / 1e3
-            return host
+            lanes = []
+            for f in lane_fetches(sel):
+                lanes.append((sum(v.nbytes for v in f.values()),
+                              d2h_logical_nbytes(f, cbuckets, cspec)))
+                if f.span is not None:
+                    ev0, ev1 = f.span
+                    ev1.synchronize()
+                    dev_s[0] += ev0.elapsed_time(ev1) / 1e3
+            return host, lanes
 
         try:
-            return (*unpack(fetched(out.result()), cbuckets, cspec), dev_s[0])
+            return (*unpack(*fetched(out.result()), cbuckets, cspec), dev_s[0])
         except D2hCompactionOverflow:
             raise  # deterministic invariant violation: no retry
         except Exception as e:
@@ -1431,7 +1525,7 @@ def _stream_call(
             _backoff(err, attempt, k)
             try:
                 return (
-                    *unpack(fetched(dispatch(cbuckets, cspec, chunk=k)), cbuckets, cspec),
+                    *unpack(*fetched(dispatch(cbuckets, cspec, chunk=k)), cbuckets, cspec),
                     dev_s[0],
                 )
             except D2hCompactionOverflow:
@@ -1449,6 +1543,7 @@ def _stream_call(
         )
         rows: dict[str, list] = {}
         wire_total = logical_total = 0
+        lanes_total = None
         for bi, bk in enumerate(cbuckets):
             last = None
             for attempt in range(max_retries):
@@ -1457,8 +1552,9 @@ def _stream_call(
                         f"chunk {k} bucket {bi}: run aborting"
                     ) from (last or err)
                 try:
-                    raw = fetched(dispatch([bk], cspec, chunk=k))
-                    single, w1, l1 = unpack(raw, [bk], cspec)
+                    single, w1, l1, lanes1 = unpack(
+                        *fetched(dispatch([bk], cspec, chunk=k)), [bk], cspec
+                    )
                     single = {key: np.asarray(v)[0] for key, v in single.items()}
                     break
                 except D2hCompactionOverflow:
@@ -1475,11 +1571,14 @@ def _stream_call(
                 ) from last
             wire_total += w1
             logical_total += l1
+            lanes_total = lanes1 if lanes_total is None else [
+                (w + wa, g + ga) for (w, g), (wa, ga) in zip(lanes_total, lanes1)
+            ]
             for key, v in single.items():
                 rows.setdefault(key, []).append(v)
         return (
             {key: np.stack(v) for key, v in rows.items()},
-            wire_total, logical_total, dev_s[0],
+            wire_total, logical_total, lanes_total, dev_s[0],
         )
 
     def drain_chunk(k, entries, batch):
@@ -1511,7 +1610,7 @@ def _stream_call(
         pair_base = 0
         for i, (fut, cbuckets, cspec) in enumerate(entries):
             t0 = time.monotonic()
-            out, d2h_wire, d2h_logical, dev_s = materialize(fut, cbuckets, cspec, k)
+            out, d2h_wire, d2h_logical, d2h_lanes, dev_s = materialize(fut, cbuckets, cspec, k)
             if i == len(entries) - 1:
                 # every class of this chunk is off the device: open the
                 # prefetch window before the host-heavy tail
@@ -1541,7 +1640,14 @@ def _stream_call(
                         h2d_wire=dent["h2d_wire"], d2h_wire=d2h_wire,
                         disp_s=round(dent["disp_s"], 6),
                     )
-                tr.xfer("d2h", d2h_logical, d2h_wire, t0, dt, chunk=k)
+                # on a 1-D multi-lane mesh the fetch is one record per
+                # device lane, each with the bytes of that lane's own
+                # copies; the (t0, dt) window is shared
+                if dev_lanes_on:
+                    for di, (w, g) in enumerate(d2h_lanes):
+                        tr.xfer("d2h", g, w, t0, dt, chunk=k, lane=f"dev-{di}")
+                else:
+                    tr.xfer("d2h", d2h_logical, d2h_wire, t0, dt, chunk=k)
             t0 = time.monotonic()
             parts.append(
                 _io_retry(

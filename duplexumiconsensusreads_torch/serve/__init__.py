@@ -1,6 +1,6 @@
 """serve/ — the multi-job consensus service.
 
-One warm process multiplexes many consensus jobs onto one device:
+One warm process multiplexes many consensus jobs onto its devices:
 
   client (``call --submit`` / serve.client) durably spools a job file
   into ``<spool>/inbox/`` → the daemon (``dut-serve`` / serve.service)

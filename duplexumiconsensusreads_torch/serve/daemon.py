@@ -87,10 +87,13 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument(
         "--devices", default=None,
-        help="pin the daemon's card: a single local index with a trailing "
-        "comma ('2,' runs on cuda:2, so daemons on a host with several "
-        "cards each own one) or the count 1 (the current card). Wider "
-        "sets are not ported (ROADMAP queue 1 item 5)",
+        help="this daemon's devices: a local-device INDEX list ('0,1'; a "
+        "single device is the one-element list '2,') or a COUNT ('4' = the "
+        "first 4 local devices). Slices of every job shard over them (a "
+        "job's own 'mesh' config narrows the count), so daemons on a host "
+        "with several cards each own a disjoint set. With --device cpu "
+        "the devices are logical lanes of the CPU. Default: all local "
+        "devices",
     )
     p.add_argument(
         "--build-dir", default=None, metavar="DIR",
@@ -256,16 +259,6 @@ def main(argv: list[str] | None = None) -> int:
     except ValueError as e:
         raise SystemExit(str(e))
     device = args.device
-    if (n_devices or 1) > 1 or (device_indices and len(device_indices) > 1):
-        raise SystemExit(
-            f"not supported by the torch port: --devices {args.devices} "
-            f"(dispatch across several devices is not ported yet, ROADMAP "
-            f"queue 1 item 5)"
-        )
-    if device_indices:
-        if device != "cuda":
-            raise SystemExit("--devices pins a card: it needs --device cuda")
-        device = f"cuda:{device_indices[0]}"
     os.makedirs(args.spool, exist_ok=True)
     try:
         service = ConsensusService(
@@ -278,6 +271,7 @@ def main(argv: list[str] | None = None) -> int:
             trace_path=None if args.no_trace else args.trace,
             n_devices=n_devices,
             device=device,
+            device_indices=device_indices,
             build_dir=args.build_dir,
             lease_s=(
                 args.lease if args.lease is not None else LEASE_DEFAULT_S

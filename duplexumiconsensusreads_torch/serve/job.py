@@ -4,9 +4,10 @@ The JAX package's serve/job.py, copied with the imports rewritten;
 the spec, its validation, ``job_params`` and ``serve_provenance`` are
 the JAX package's, so a job file and its @PG line read the same for
 both engines. The spec carries no device (the daemon's ``--device``
-owns it). ``mesh`` stays in the config: a value other than "auto" or
-1 fails the job when its slice runs, since this package runs one card
-per daemon (ROADMAP queue 1 item 5). ``spec_signature`` keeps its
+and ``--devices`` own it). ``mesh`` stays in the config, validated as
+the JAX package validates it: "auto" is the daemon's device pool, an
+int the lanes a slice shards over (checked against the pool only when
+the slice runs). ``spec_signature`` keeps its
 meaning as the job's bucket-geometry identity; here it keys the
 worker's warm-signature count (serve/worker.py) instead of jit
 programs.

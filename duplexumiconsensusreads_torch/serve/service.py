@@ -156,6 +156,7 @@ class ConsensusService:
         trace_path: str | None = None,
         n_devices: int | None = None,
         device="cuda",
+        device_indices: list[int] | None = None,
         lease_s: float = LEASE_DEFAULT_S,
         class_depths: dict | None = None,
         daemon_id: str | None = None,
@@ -176,6 +177,9 @@ class ConsensusService:
         backend — "local"/"sharedfs"/a LeaseStore instance; None
         inherits the spool's store.json pin, defaulting to local).
         ``device``: where every slice runs (no card raises here);
+        ``n_devices`` and ``device_indices``: the daemon's mesh size and
+        its index subset of that device's pool (serve.daemon
+        --devices), checked against the pool here;
         ``build_dir``: the kernel build directory :meth:`run` points
         the process at (None keeps ``$DUT_BUILD_DIR`` or the default)."""
         from duplexumiconsensusreads_torch.runtime.executor import resolve_device
@@ -206,19 +210,25 @@ class ConsensusService:
         self.queue.admission_policy = (
             lambda jobs, spec: self.sched.shed_reason(jobs, spec.priority)
         )
-        # the daemon's one device (serve.daemon --device, pinned to an
-        # index by --devices i,): several daemons on a host with several
-        # cards each own one
+        # the daemon's devices (serve.daemon --device, narrowed to an
+        # index subset by --devices i,j,..): a fleet on one host can
+        # partition the cards so each daemon's jobs own real devices —
+        # mesh size then resolves within the subset
+        from duplexumiconsensusreads_torch.parallel.mesh import run_mesh
+
         dev = resolve_device(device)
         self.device = str(dev)
+        lanes = run_mesh(dev, n_devices, device_indices).devices
         if dev.type == "cuda":
             import torch
 
-            self._device_kind = torch.cuda.get_device_name(dev)
+            self._device_kind = torch.cuda.get_device_name(lanes[0])
         else:
             self._device_kind = "cpu"
         self.build_dir = build_dir
-        self.worker = WarmWorker(n_devices=n_devices, device=self.device)
+        self.worker = WarmWorker(
+            n_devices=n_devices, device=self.device, devices=device_indices
+        )
         # fleet-shared tuner verdicts (tuning/store.py): auto-ladder
         # jobs consult/persist per-input-profile bucket-shape verdicts
         # through the spool, so every daemon serving this traffic mix

@@ -16,9 +16,10 @@ counts what is real here: the share of jobs whose FIRST slice had a
 bucket-spec signature (``serve.job.spec_signature``) that this worker
 had already run to a chunk commit, i.e. jobs that started with the
 kernel libraries loaded and the allocator warm for their dispatch
-classes. Slices run on the daemon's one device (``device``: "cuda",
-"cuda:<i>" or "cpu"), never on a device the job names: the job spec
-carries none.
+classes. Slices run on the daemon's devices (``device``: "cuda",
+"cuda:<i>" or "cpu", narrowed by ``devices``, the daemon's --devices
+index subset; a job's ``mesh`` config sizes the mesh within them),
+never on a device the job names: the job spec carries none.
 
 A SLICE is one bounded run of a job: ``stream_call_consensus`` with
 ``resume=True`` under the job's own checkpoint (the executor's default
@@ -186,11 +187,12 @@ def _ckpt_done_count(out_path: str) -> int:
 class WarmWorker:
     """Executes slices; owns the warm-compile bookkeeping."""
 
-    def __init__(self, n_devices: int | None = None, device="cuda"):
+    def __init__(self, n_devices: int | None = None, device="cuda", devices=None):
         self.n_devices = n_devices
-        # the one device this worker's slices run on (the daemon's
-        # --device, pinned to an index by --devices i,)
+        # where this worker's slices run: the daemon's --device, and its
+        # --devices index subset of that pool (None = all local devices)
         self.device = device
+        self.devices = list(devices) if devices else None
         self._lock = threading.Lock()
         self._warm_specs: set[str] = set()
         self._job_plans: dict[str, faults.FaultPlan] = {}
@@ -318,9 +320,9 @@ class WarmWorker:
 
         gp, cp, kwargs = job_params(spec)
         # job-level mesh (config "mesh": device count, "auto" = None):
-        # an explicit job mesh wins over the daemon's default count; the
-        # executor runs one device, so a mesh past 1 fails the job with
-        # its by-name refusal (ROADMAP queue 1 item 5). Mesh size never
+        # an explicit job mesh wins over the daemon's default count;
+        # over-subscription (mesh 8 on a 2-device daemon) fails the job
+        # in make_mesh's words when the slice starts. Mesh size never
         # changes job bytes, so serve_provenance excludes it.
         job_mesh = kwargs.pop("mesh", None)
         if spec.shard is not None:
@@ -479,6 +481,7 @@ class WarmWorker:
                 gp,
                 cp,
                 n_devices=job_mesh or self.n_devices,
+                devices=self.devices,
                 device=self.device,
                 resume=True,
                 progress=progress,

@@ -22,7 +22,7 @@ hand-picked ``--capacity`` into a measured decision:
                  factors/speedup (tuning/store.py keeps verdicts
                  durably, one per input profile);
   micro race     ``race_ssc_methods`` times the FUSED pipeline per ssc
-                 method on one device — tools/tune_ssc.py runs it
+                 method on the run's mesh — tools/tune_ssc.py runs it
                  from the command line.
 
 The functions, verdicts and error texts are the JAX package's
@@ -359,14 +359,16 @@ def race_ssc_methods(
     seed: int = 7,
     device="cuda",
 ) -> dict:
-    """Timed fused-pipeline race over the ssc reduction methods on one
-    device (the only honest scope: a method's cost depends on the
+    """Timed fused-pipeline race over the ssc reduction methods on the
+    run's mesh (parallel/mesh.py:run_mesh: every visible card, one lane
+    on the CPU; the only honest scope: a method's cost depends on the
     pipeline around it). Each method's dispatch classes are built once
     from ``race_workload``'s buckets (``partition_buckets`` -> stacked
-    tensors on the device), then ``fused_pipeline`` runs every class
-    ``reps`` times; the step time is the best of two such rounds (the first
-    round can absorb one-off allocator growth), closed by a device
-    synchronize. ``blockseg`` runs once per tile height in
+    tensors on the lanes, each class's bucket count padded to the data
+    lanes as the executors pad it), then every class runs ``reps``
+    times through ``presharded_pipeline``; the step time is the best of
+    two such rounds (the first round can absorb one-off allocator
+    growth), closed by a synchronize of every lane's card. ``blockseg`` runs once per tile height in
     ``blockseg_ts``. ``segment`` is the kernel's plain version (a
     row-by-row loop): it races only when named in ``methods``.
 
@@ -377,19 +379,25 @@ def race_ssc_methods(
     import torch
 
     from duplexumiconsensusreads_torch.bucketing import stack_buckets
-    from duplexumiconsensusreads_torch.interop import ARRAY_KEYS, stacked_from_numpy
-    from duplexumiconsensusreads_torch.ops.pipeline import fused_pipeline
+    from duplexumiconsensusreads_torch.parallel.mesh import run_mesh
+    from duplexumiconsensusreads_torch.parallel.sharded import (
+        lane_streams,
+        presharded_pipeline,
+        shard_stacked,
+    )
     from duplexumiconsensusreads_torch.runtime.executor import (
         partition_buckets,
         resolve_device,
     )
 
     dev = resolve_device(device)
-    on_cuda = dev.type == "cuda"
+    mesh = run_mesh(dev)
+    streams = lane_streams(mesh)
 
     def sync():
-        if on_cuda:
-            torch.cuda.synchronize(dev)
+        for d in set(mesh.devices):
+            if d.type == "cuda":
+                torch.cuda.synchronize(d)
 
     gp, cp, n_reads, buckets = race_workload(
         n_molecules, read_len, n_positions, capacity, seed
@@ -405,14 +413,17 @@ def race_ssc_methods(
     rows: dict[str, dict] = {}
     with torch.no_grad():
         for method, t in plans:
-            part = partition_buckets(buckets, gp, cp, method, blockseg_t=t)
-            classes = []
-            for cb, cspec in part:
-                args = stacked_from_numpy(stack_buckets(cb, multiple_of=1), dev)
-                classes.append((cspec, [args[k] for k in ARRAY_KEYS]))
+            part = partition_buckets(buckets, gp, cp, method, blockseg_t=t,
+                                     device=mesh.devices[0])
+            classes = [
+                (cspec, shard_stacked(stack_buckets(cb, multiple_of=mesh.n_data), mesh,
+                                      cspec, streams=streams))
+                for cb, cspec in part
+            ]
 
             def run_all():
-                return [fused_pipeline(*args, cspec) for cspec, args in classes]
+                return [presharded_pipeline(args, cspec, mesh, streams=streams)
+                        for cspec, args in classes]
 
             run_all()  # warm-up
             sync()

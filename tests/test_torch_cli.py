@@ -12,7 +12,8 @@ cpu``). Outputs are compared record by record, and the header less its
 - ``--config-file``: the precedence flag > file > preset > default
   resolves the same parameters; bad keys and values, and the whole-file
   refusals driven by the knob table, fail with the JAX CLI's words;
-  what the port does not implement is refused by name;
+  the mesh knobs (``--devices``, ``--mesh``, ``--cycle-shards``) do
+  what the JAX CLI does with the same argv, on CPU lanes;
 - ``simulate`` (records and truth npz), ``filter`` (each threshold, the
   warning counters, the malformed-record exit), ``validate`` and
   ``stats`` (JSON), and ``group`` (MI tags on both backends): equal.
@@ -265,11 +266,52 @@ def test_config_file_and_flag_refusals_use_the_jax_words(inputs, tmp_path, conf,
     assert not os.path.exists(out)
 
 
+@pytest.mark.parametrize("conf, flags", [
+    ({}, ["--devices", "2"]), ({}, ["--mesh", "2", "--chunk-reads", "99"]),
+    ({}, ["--devices", "2", "--cycle-shards", "2"]),
+    ({"mesh": 4}, []),
+    ({"devices": 8}, []),
+], ids=lambda v: json.dumps(v) if isinstance(v, dict) else " ".join(v))
+def test_mesh_knobs_do_what_the_jax_cli_does(inputs, tmp_path, conf, flags):
+    """The mesh knobs, by flag and by config file, with the JAX CLI's
+    argv: where the JAX CLI refuses, the port refuses in its words;
+    where it runs (on the suite's two virtual devices), the port runs
+    the same mesh on CPU lanes and the outputs meet the parity bar.
+    ``devices`` 8 is past the JAX suite's two devices (JAX raises
+    "requested 8 devices, have 2"), inside the port's 8 CPU lanes: the
+    port's output is held against JAX's on its whole pool, and the port
+    raises the same words one lane past its own pool."""
+    import re
+
+    _, paths = inputs
+    path = tmp_path / "c.json"
+    path.write_text(json.dumps(conf))
+    jout, tout = str(tmp_path / "j.bam"), str(tmp_path / "t.bam")
+    argv = ["call", paths["single"], "--config-file", str(path), *flags]
+    try:
+        jrc = jax_main(argv[:2] + ["-o", jout] + argv[2:])
+    except SystemExit as e:
+        assert _exit_message(cli_main, argv[:2] + ["-o", tout] + argv[2:]
+                             + ["--device", "cpu"]) == str(e) != ""
+        assert not os.path.exists(tout)
+        return
+    except ValueError as e:
+        m = re.fullmatch(r"requested (\d+) devices, have (\d+)", str(e))
+        assert m, e
+        path.write_text(json.dumps({**conf, "devices": int(m.group(2))}))
+        jrc = jax_main(argv[:2] + ["-o", jout] + argv[2:])
+        past = dict(conf, devices=int(m.group(1)) + 1)
+        (tmp_path / "past.json").write_text(json.dumps(past))
+        with pytest.raises(ValueError, match=f"requested {past['devices']} devices, have 8"):
+            cli_main(["call", paths["single"], "-o", tout, "--config-file",
+                      str(tmp_path / "past.json"), "--device", "cpu"])
+        path.write_text(json.dumps(conf))
+    assert jrc == 0
+    assert cli_main(argv[:2] + ["-o", tout] + argv[2:] + ["--device", "cpu"]) == 0
+    assert_parity(jout, tout, duplex=False)
+
+
 @pytest.mark.parametrize("conf, flags, words", [
-    ({}, ["--devices", "2"], "--devices"), ({}, ["--mesh", "2", "--chunk-reads", "99"], "--mesh"),
-    ({}, ["--cycle-shards", "2"], "--cycle-shards"),
-    ({"mesh": 4}, [], "--mesh"),
-    ({"devices": 8}, [], "--devices"),
     ({"backend": "tpu"}, [], "--backend cuda"), ({}, ["--backend", "tpu"], "--backend cuda"),
     ({}, ["--backend", "cpu", "--chunk-reads", "50"], "requires --backend=cuda"),
     ({}, ["--backend", "cpu", "--device", "cuda"], "--device applies to --backend cuda"),

@@ -54,9 +54,12 @@ def test_cuda_kernel_matches_plain_bitwise(kind, cuda):
     big = sg.pad_rows(torch.from_numpy(rng.standard_normal((N_B, R, C)).astype(np.float32)).to(cuda))
     fid = torch.from_numpy(_ids(kind, rng)).to(cuda)
     before = sg.segment_gemm.launches
+    on = (big.device.index, torch.cuda.current_stream(big.device).cuda_stream)
+    before_on = sg.segment_gemm.stream_launches.get(on, 0)
     got = sg.segment_gemm(big, fid, F)
     torch.cuda.synchronize()
     assert sg.segment_gemm.launches == before + 1
+    assert sg.segment_gemm.stream_launches[on] == before_on + 1
     # same f32 adds in the same (ascending row) order: bit-identical
     assert torch.equal(got, sg.segment_gemm_plain(big, fid, F))
 
@@ -318,9 +321,12 @@ def test_cuda_fixpoint_matches_plain(kind, n, u, cuda):
     if kind == "dense" and u >= 1024:
         assert int(edge[0].sum()) > cf.default_list_cap(u)
     before = cf.propagate_min.launches
+    on = (s0.device.index, torch.cuda.current_stream(s0.device).cuda_stream)
+    before_on = cf.propagate_min.stream_launches.get(on, 0)
     got = cf.propagate_min(edge, s0, u_pos)
     torch.cuda.synchronize()
     assert cf.propagate_min.launches == before + 1
+    assert cf.propagate_min.stream_launches[on] == before_on + 1
     want = cf.propagate_min_plain(edge, s0, u_pos)
     assert torch.equal(got, want)
     if kind == "chain_down":
@@ -357,3 +363,40 @@ def test_cuda_group_kernel_matches_cpu_without_a_host_sync(strategy, cuda):
     assert cf.propagate_min.launches == before + 1
     for g, w in zip(got, want):
         assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.cuda
+def test_cuda_mesh_lanes_give_the_one_lane_bytes(cuda, tmp_path):
+    """The mesh path on the card: the stream at one lane and at two (two
+    lanes of the visible cards, or two streams of cuda:0 on a one-card
+    machine), with cycle lanes too, gives the same bytes, and both
+    kernels launch on every lane's card."""
+    from duplexumiconsensusreads_torch.cli.main import params_for
+    from duplexumiconsensusreads_torch.io import simulated_bam
+    from duplexumiconsensusreads_torch.kernels import cluster_fixpoint
+    from duplexumiconsensusreads_torch.parallel import mesh
+    from duplexumiconsensusreads_torch.runtime.stream import stream_call_consensus
+    from duplexumiconsensusreads_torch.simulate import SimConfig
+
+    gp, cp, _ = params_for("config5")
+    path = str(tmp_path / "in.bam")
+    simulated_bam(SimConfig(n_molecules=120, read_len=40, n_positions=8, umi_error=0.02,
+                            duplex=True, seed=11), path=path, sort=True)
+    inner = mesh.device_pool
+    if torch.cuda.device_count() < 2:
+        mesh.device_pool = lambda device="cuda", devices=None: [torch.device("cuda", 0)] * 2
+    try:
+        outs = {}
+        for name, kw in (("one", dict(n_devices=1)), ("two", dict(n_devices=2)),
+                         ("cycle", dict(n_devices=2, cycle_shards=2))):
+            before = (sg.segment_gemm.launches, cluster_fixpoint.propagate_min.launches)
+            out = str(tmp_path / f"{name}.bam")
+            rep = stream_call_consensus(path, out, gp, cp, capacity=128, chunk_reads=150,
+                                        device="cuda", **kw)
+            assert rep.n_devices == kw["n_devices"]
+            assert sg.segment_gemm.launches > before[0]
+            assert cluster_fixpoint.propagate_min.launches > before[1]
+            outs[name] = open(out, "rb").read()
+    finally:
+        mesh.device_pool = inner
+    assert outs["one"] == outs["two"] == outs["cycle"]

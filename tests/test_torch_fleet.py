@@ -393,9 +393,24 @@ def test_sigkill_takeover_stitches_exactly_once(sim, tmp_path):
                                    "0.2", "--lease", "30", "--daemon-id", "fl-A"],
                          env=ENV, cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                          text=True)
+    cap_a = os.path.join(spool, "service.fl-A.trace.jsonl")
+
+    def a_in_slice():
+        """A holds a job's lease and its capture has recorded that
+        slice's start: killed between the claim's journal commit and
+        that record, A would leave no slice of its own to take over."""
+        try:
+            with open(cap_a) as f:
+                started = {json.loads(line).get("job") for line in f
+                           if '"job_started"' in line and line.endswith("\n")}
+        except OSError:
+            return False
+        return any(j in started
+                   and (client.status(spool, j).get("lease") or {}).get("owner") == "fl-A"
+                   for j, _ in jobs)
+
     try:
-        _wait_for(lambda: any((client.status(spool, j).get("lease") or {}).get("owner") == "fl-A"
-                              for j, _ in jobs), 120, "a claim", a)
+        _wait_for(a_in_slice, 120, "a claimed slice in A's capture", a)
         a.send_signal(signal.SIGKILL)
         a.communicate(timeout=30)
     finally:

@@ -111,6 +111,8 @@ def test_every_module_imports_without_jax():
     "duplexumiconsensusreads_torch.tools.fleet_report",
     "duplexumiconsensusreads_torch.parallel",
     "duplexumiconsensusreads_torch.parallel.distributed",
+    "duplexumiconsensusreads_torch.parallel.mesh",
+    "duplexumiconsensusreads_torch.parallel.sharded",
 ])
 def test_analysers_tuning_and_tools_are_scanned_and_import_alone(module):
     """The capture analysers, tuning/, the tools, live/ and serve/ are

@@ -276,17 +276,6 @@ def test_jax_manifest_is_not_resumed(bams, tmp_path, monkeypatch):
 
 # ---- refusals, the device rule, the CLI, the trace
 
-@pytest.mark.parametrize("name, value", [
-    ("devices", (0,)), ("cycle_shards", 2), ("n_devices", 2),
-])
-def test_unported_options_raise_by_name(bams, tmp_path, name, value):
-    _, paths = bams
-    gp, cp, _ = params_for("config5")
-    with pytest.raises(NotImplementedError, match=name):
-        stream_call_consensus(paths["single"], str(tmp_path / "o.bam"), gp, cp,
-                              device="cpu", **{name: value})
-
-
 @pytest.mark.parametrize("knobs, match", [
     (dict(drain_workers=0), "drain_workers"), (dict(prefetch_depth=0), "prefetch_depth"),
     (dict(packed="subbyte"), "packed"), (dict(d2h_packed="on"), "d2h_packed"),
