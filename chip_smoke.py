@@ -4,7 +4,8 @@
     python3 chip_smoke.py [--mesh-only]
 
 ``--mesh-only`` runs the env and build phases and the mesh phase alone
-(for a machine with several cards: every card a data lane). With no
+(for a machine with several cards: every card a data lane), then the
+entry module's ``dryrun_multichip`` over every card. With no
 arguments it drives the port's paths on the card — the config5 whole-file call
 (adjacency grouping, paired duplex, per-cycle error model) through
 ``call_consensus_file`` on a simulated ~600k-read BAM, one dispatch of
@@ -140,6 +141,16 @@ line:
           2048 reads (cut from the stream cell's input) resident on
           the lanes, one fused step at 1 lane and at all lanes in turns
           (compute_step_ms, compute_scaling)
+  chaos   the stream's fault matrix on the card (the serve phase's
+          250k-read config5 input in 50k-read chunks): fault-free once,
+          one seeded transient at each of the 11 stream sites (ingest.read
+          to finalise.write), the seeded 8-fault plan, and kills at
+          dispatch.pack:2 and fetch.unpack:2 each followed by a resume.
+          Every output byte-identical to the fault-free run, both kernels
+          launched in every run, and torch.cuda.memory_allocated() after
+          each kill-and-resume pair, and after the phase's last run, back
+          within one chunk's footprint of where it started; per run the
+          wall, n_fired, n_retries, launches and allocated bytes
   stream_small_reference  a small paired config5 input streamed on the
           card and on the CPU (plain versions) must agree record by
           record, with per-base tags and a BAI too; on the card,
@@ -183,6 +194,14 @@ line:
   kernel_rungs  segment_gemm against its plain version (tolerance 0)
           at each explicit rung's largest launch of the ladder run,
           with the kernel, plain, library and bound ms
+  entry   the port's entry points (duplexumiconsensusreads_torch/entry.py):
+          ``entry()``'s fused step on the card against
+          ``entry(device="cpu")`` at the parity bar, each kernel of the
+          step against its plain version at the step's shapes (tolerance
+          0); then ``dryrun_multichip(2)`` on two lanes of cuda:0 (every
+          card a lane on a machine with two or more): the sharded call
+          set, the packed-io identity, (1, 2) cycle shards, the stream at
+          2 lanes and 1 lane byte-identical, the MULTICHIP_BALANCE record
   race    race_ssc_methods() on the card at its defaults (22k
           molecules, L 150, capacity 2048) with blockseg T 64/128/256:
           step seconds and reads/s per method and the winner; then on
@@ -217,8 +236,8 @@ line:
           (tolerance 0), and the kernel, plain, index_add_ and bound ms
 
 Every path (whole_file, stream, per_base, workflow, operators, live,
-serve, shard, multihost, mesh, ladder, race, bench, fleet, fit_counts)
-must launch both kernels, and the mesh path on every lane: segment_gemm and the grouping fixpoint
+serve, shard, multihost, mesh, ladder, race, bench, fleet, fit_counts,
+chaos, entry, dryrun) must launch both kernels, and the mesh path on every lane: segment_gemm and the grouping fixpoint
 (cluster_fixpoint); the serve, shard and multihost paths count the
 daemon and host subprocesses' launches too (each writes its counts at
 exit). Then the nvidia-smi line, the ``kernels``
@@ -577,17 +596,27 @@ def mesh_only(smi: str) -> int:
              cards=torch.cuda.device_count(), nvidia_smi=smi)
         step_bam, _ = benchmark._e2e_input(MESH_STEP_READS, td)
         launches, lanes = mesh_phase(in_bam, step_bam, td, smi)
+    # the entry module's dry run with every card a lane
+    from duplexumiconsensusreads_torch import entry
+
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.monotonic()
+    balance = entry.dryrun_multichip(torch.cuda.device_count())
+    dry = read_launches("dryrun")
+    emit("entry_dryrun", cards=torch.cuda.device_count(), seconds=round(time.monotonic() - t0, 3),
+         balance=balance, launches=dry, nvidia_smi=smi)
     print(smi, flush=True)
     print(json.dumps({"kernels": [
         {"name": "segment_gemm", "route": "cuda",
          "source": "duplexumiconsensusreads_torch/csrc/segment_gemm.cu",
          "replaces": "duplexumiconsensusreads_tpu/kernels/pallas_ssc.py:67", "max_abs_err": 0.0,
-         "launches": {"mesh": launches["segment_gemm"]},
+         "launches": {"mesh": launches["segment_gemm"], "dryrun": dry["segment_gemm"]},
          "mesh_lane_launches": lanes["segment_gemm"]},
         {"name": "cluster_fixpoint", "route": "cuda",
          "source": "duplexumiconsensusreads_torch/csrc/cluster_fixpoint.cu",
          "replaces": "duplexumiconsensusreads_tpu/kernels/grouping.py:160", "max_abs_err": 0,
-         "launches": {"mesh": launches["cluster_fixpoint"]},
+         "launches": {"mesh": launches["cluster_fixpoint"], "dryrun": dry["cluster_fixpoint"]},
          "mesh_lane_launches": lanes["cluster_fixpoint"]},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -885,6 +914,10 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     emit("kernel_rungs", name="segment_gemm", rungs=rung_shapes, library_call="index_add_",
          nvidia_smi=smi)
+    launches["entry"], launches["dryrun"], entry_case, entry_fix = entry_phase(smi)
+    kernel_rows.append(entry_case)
+    fix_row["entry_shape"] = entry_fix
+    torch.cuda.empty_cache()
     launches["race"] = race_phase(smi)
     launches["bench"], bench_calls, launches["fleet"] = bench_phase(bench_cache.name, smi)
     bench_cache.cleanup()
@@ -910,7 +943,8 @@ def main(argv=None) -> int:
     seg_row["rung_shapes"] = rung_shapes
     seg_row["bench_shapes"] = bench_shapes
     paths = ("whole_file", "stream", "per_base", "workflow", "operators", "live", "serve",
-             "shard", "multihost", "mesh", "ladder", "race", "bench", "fleet", "fit_counts")
+             "shard", "multihost", "mesh", "ladder", "race", "bench", "fleet", "fit_counts",
+             "chaos", "entry", "dryrun")
     seg_row["launches"] = {k: launches[k]["segment_gemm"] for k in paths}
     fix_row["launches"] = {k: launches[k]["cluster_fixpoint"] for k in paths}
     # the mesh path's launches on each lane
@@ -1663,6 +1697,8 @@ def stream_phases(gp, smi: str, bench_cache: str, launches: dict):
         torch.cuda.empty_cache()
         launches["mesh"], launches["mesh_lanes"] = mesh_phase(smalls[-1], in_bam, td, smi)
         torch.cuda.empty_cache()
+        launches["chaos"] = chaos_phase(smalls[-1], td, smi)
+        torch.cuda.empty_cache()
 
         # ---- stream_small_reference: card vs CPU, then the knobs
         small = os.path.join(td, "small.bam")
@@ -2049,6 +2085,221 @@ with open(sys.argv[1], "w") as f:
                "cluster_fixpoint": cluster_fixpoint.propagate_min.launches}}, f)
 sys.exit(rc)
 """
+
+
+# the chaos phase's stream sites (the port's faults.KNOWN_SITES up to
+# finalise.write), its seeded multi-fault plan, and its kills
+CHAOS_STREAM_SITES = 11
+CHAOS_SEED, CHAOS_N_FAULTS = 20260803, 8
+CHAOS_KILLS = (("dispatch.pack", 2), ("fetch.unpack", 2))
+
+
+def chaos_phase(in_bam: str, td: str, smi: str) -> dict:
+    """The stream's fault matrix on the card: the serve phase's 250k-read
+    config5 input in 50k-read chunks, fault-free once, then one seeded
+    transient at each stream site, the seeded multi-fault plan, and two
+    kills each followed by a resume. Every output is byte-identical to
+    the fault-free run, both kernels launch in every run, and the device
+    memory allocated after each kill-and-resume pair is back within one
+    chunk's footprint of where it started (a retried H2D or D2H reusing
+    a pinned staging buffer still in flight, or tensors kept alive by a
+    killed run, would show here). Returns the path's launches, summed
+    over the runs."""
+    import gc
+    import zlib
+
+    import torch
+
+    from duplexumiconsensusreads_torch import benchmark
+    from duplexumiconsensusreads_torch.runtime import faults
+    from duplexumiconsensusreads_torch.runtime.stream import stream_call_consensus
+
+    gp, cp = benchmark._e2e_params()
+    kw = dict(capacity=CAPACITY, chunk_reads=TAKEOVER_CHUNK_READS, device="cuda")
+    runs, total = [], {}
+
+    def run(name, plan=None, **extra):
+        out = os.path.join(td, f"chaos_{name}.bam")
+        torch.cuda.synchronize()
+        reset_launches()
+        if plan is not None:
+            faults.install(plan)
+        t0 = time.monotonic()
+        try:
+            rep = stream_call_consensus(in_bam, out, gp, cp, **kw, **extra)
+        finally:
+            faults.uninstall()
+        wall = time.monotonic() - t0
+        got = read_launches(f"chaos {name}")
+        for k, v in got.items():
+            total[k] = total.get(k, 0) + v
+        gc.collect()
+        torch.cuda.synchronize()
+        row = {"run": name, "wall_seconds": round(wall, 3), "n_retries": rep.n_retries,
+               "n_fired": plan.n_fired if plan is not None else 0, "launches": got,
+               "chunks": rep.n_chunks, "chunks_skipped": rep.n_chunks_skipped,
+               "allocated_after": torch.cuda.memory_allocated()}
+        runs.append(row)
+        return out, row
+
+    gc.collect()
+    torch.cuda.synchronize()
+    base_mem = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ref_path, ref_row = run("fault_free")
+    ref = read_bytes(ref_path)
+    # one chunk's device footprint: the fault-free run's peak above its
+    # start, over the chunks it keeps in flight (max_inflight, default 4)
+    chunk_bytes = (torch.cuda.max_memory_allocated() - base_mem) / 4
+    if ref_row["chunks"] < 4:
+        raise AssertionError(f"chaos input gave {ref_row['chunks']} chunks (want >= 4)")
+
+    def same(name, path, row):
+        if read_bytes(path) != ref:
+            raise AssertionError(f"chaos {name}: output differs from the fault-free run")
+        row["identical"] = True
+
+    for site in faults.KNOWN_SITES[:CHAOS_STREAM_SITES]:
+        plan = faults.FaultPlan.seeded(zlib.crc32(site.encode()), sites=(site,), n_faults=1,
+                                       max_nth=1)
+        path, row = run(f"transient_{site}", plan)
+        if plan.n_fired < 1:
+            raise AssertionError(f"chaos: the transient at {site} never fired")
+        same(site, path, row)
+    plan = faults.FaultPlan.seeded(CHAOS_SEED, n_faults=CHAOS_N_FAULTS)
+    path, row = run(f"seed_{CHAOS_SEED}_{CHAOS_N_FAULTS}", plan)
+    if plan.n_fired < 1:
+        raise AssertionError("chaos: the seeded plan never fired")
+    same("seeded", path, row)
+    kills = []
+    for site, nth in CHAOS_KILLS:
+        name = f"kill_{site}_{nth}"
+        out = os.path.join(td, f"chaos_{name}.bam")
+        gc.collect()
+        torch.cuda.synchronize()
+        mem0 = torch.cuda.memory_allocated()
+        reset_launches()
+        plan = faults.FaultPlan.parse(f"{site}:{nth}:kill")
+        faults.install(plan)
+        t0 = time.monotonic()
+        try:
+            stream_call_consensus(in_bam, out, gp, cp, **kw)
+            raise AssertionError(f"chaos: the kill at {site}:{nth} did not fire")
+        except faults.InjectedKill:
+            pass
+        finally:
+            faults.uninstall()
+        kill_s = time.monotonic() - t0
+        killed = {k: fn.launches for k, fn in kernel_wrappers().items()}
+        if os.path.exists(out):
+            raise AssertionError(f"chaos: a killed run left {out}")
+        gc.collect()
+        torch.cuda.synchronize()
+        mem_killed = torch.cuda.memory_allocated()
+        path, row = run(f"resume_{site}_{nth}", resume=True)
+        same(name, path, row)
+        gc.collect()
+        torch.cuda.synchronize()
+        mem1 = torch.cuda.memory_allocated()
+        if mem1 - mem0 > chunk_bytes:
+            raise AssertionError(
+                f"chaos {name}: {mem1 - mem0} bytes still allocated after the kill and resume "
+                f"(one chunk is {chunk_bytes:.0f})")
+        row.update(kill_wall_seconds=round(kill_s, 3), kill_n_fired=plan.n_fired,
+                   kill_launches=killed)
+        for k, v in killed.items():
+            total[k] = total.get(k, 0) + v
+        kills.append({"kill": f"{site}:{nth}:kill", "allocated_before": mem0,
+                      "allocated_after_kill": mem_killed, "allocated_after_resume": mem1,
+                      "chunk_footprint_bytes": int(chunk_bytes),
+                      "chunks_skipped": row["chunks_skipped"]})
+    # and over the whole phase: device memory does not grow run by run
+    # (ROADMAP Faults 16: a new stream per run left a cuBLAS workspace)
+    if runs[-1]["allocated_after"] - base_mem > chunk_bytes:
+        raise AssertionError(
+            f"chaos: {runs[-1]['allocated_after'] - base_mem} bytes more allocated after "
+            f"{len(runs)} runs than at the start (one chunk is {chunk_bytes:.0f})")
+    emit("chaos", input_reads=SERVE_SMALL_READS[1], chunk_reads=TAKEOVER_CHUNK_READS,
+         allocated_at_start=base_mem,
+         config="config5 (min_duplex_reads=1)", runs=runs, kills=kills,
+         wall_seconds=round(sum(r["wall_seconds"] + r.get("kill_wall_seconds", 0)
+                                for r in runs), 3),
+         all_identical=True, launches=total, nvidia_smi=smi)
+    return total
+
+
+def entry_phase(smi: str):
+    """The port's entry points on the card: ``entry()``'s fused step
+    against ``entry(device="cpu")`` at the parity bar, each kernel of the
+    step held against its plain version at the step's shapes (tolerance
+    0), then ``dryrun_multichip(2)`` on two lanes of cuda:0 (two CUDA
+    streams of one card; every card a lane where there are two or
+    more). Returns (entry launches, dry-run launches, segment_gemm case,
+    fixpoint case)."""
+    import numpy as np
+    import torch
+
+    from duplexumiconsensusreads_torch import entry
+    from duplexumiconsensusreads_torch.kernels import cluster_fixpoint as cf
+    from duplexumiconsensusreads_torch.kernels import consensus, grouping
+    from duplexumiconsensusreads_torch.kernels import segment_gemm as sg
+
+    fn, args = entry.entry()
+    fn(*args)  # warm
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.monotonic()
+    with Capture(consensus, "segment_gemm") as cap_s, Capture(grouping, "propagate_min") as cap_f:
+        out = fn(*args)
+        torch.cuda.synchronize()
+    step_s = time.monotonic() - t0
+    launches = read_launches("entry")
+    cfn, cargs = entry.entry(device="cpu")
+    cout = cfn(*cargs)
+    host = {k: v.cpu().numpy() for k, v in out.items()}
+    chost = {k: v.numpy() for k, v in cout.items()}
+    exact = ("family_id", "molecule_id", "n_families", "n_molecules", "n_overflow", "cons_valid",
+             "cons_depth", "depth_max", "depth_min_pos", "cons_mate", "cons_pair", "cons_end")
+    for k in exact:
+        if not np.array_equal(host[k], chost[k]):
+            raise AssertionError(f"entry: {k} differs between the card and the CPU")
+    # the parity bar of compare_records: quals within 2 (one per
+    # strand), bases identical, but for counted duplex evidence ties
+    sa, sb = host["cons_base"], chost["cons_base"]
+    qa, qb = host["cons_qual"].astype(int), chost["cons_qual"].astype(int)
+    dq = np.abs(qa - qb)
+    tie = ((sa != sb) & ((sa == 4) | (sb == 4)) & (qa == 2) & (qb == 2)) | (
+        (sa == sb) & (dq > 2) & (dq <= 2 * TIE_QUAL + 2))
+    if ((sa != sb) & ~tie).any() or np.where(tie, 0, dq).max() > 2:
+        raise AssertionError("entry: bases or quals apart between the card and the CPU")
+    (big, fid, f_max), _ = cap_s.args
+    seg_case = kernel_case(sg, "entry_step", big, fid, f_max)
+    (edge, s0, u_pos), _ = cap_f.args
+    got = cf.propagate_min(edge, s0, u_pos)
+    want = cf.propagate_min_plain(edge, s0, u_pos)
+    if not torch.equal(got, want):
+        raise AssertionError("entry: the fixpoint kernel differs from its plain version")
+    fix_case = {"case": "entry_step", "shape": list(edge.shape), "max_abs_err": 0,
+                "tolerance": 0}
+    del big, fid, edge, s0, u_pos, cap_s, cap_f
+    lanes = 2
+    cards = torch.cuda.device_count()
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.monotonic()
+    with one_card_lanes(0 if cards >= 2 else lanes):
+        balance = entry.dryrun_multichip(lanes)
+    dry_s = time.monotonic() - t0
+    dry = read_launches("dryrun")
+    emit("entry", step_seconds=round(step_s, 4), shape=list(args[0].shape),
+         cons_valid=int(host["cons_valid"].sum()), card_vs_cpu={
+             "integers_identical": True, "max_qual_diff": int(np.where(tie, 0, dq).max()),
+             "tie_cycles": int(tie.sum()), "cycles": int(sa.size)},
+         launches=launches, segment_gemm_case=seg_case, fixpoint_case=fix_case,
+         dryrun={"cards": min(cards, lanes), "lanes": lanes, "seconds": round(dry_s, 3),
+                 "balance": balance, "launches": dry},
+         nvidia_smi=smi)
+    return launches, dry, seg_case, fix_case
 
 
 def start_daemon(spool: str, daemon_id: str, counts: str, device: str, *extra):

@@ -145,7 +145,12 @@ def finish_build(handle) -> dict:
 def build() -> dict:
     """Build the library unless it exists, under an inter-process file
     lock (pytest workers, the ingest producer and the drain workers may
-    all reach the first load at once)."""
+    all reach the first load at once). A library that exists is loaded
+    without the lock: it is published by an atomic rename, and a process
+    stopped while holding the lock (SIGSTOP) must not block the others'
+    loads."""
+    if os.path.exists(lib_path()):
+        return finish_build(start_build())
     bdir = build_dir(BUILD_DIR)
     os.makedirs(bdir, exist_ok=True)
     with open(os.path.join(bdir, "libdutbam.lock"), "w") as lk:

@@ -46,6 +46,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import threading
 
 import numpy as np
 import torch
@@ -135,15 +136,56 @@ def lane_specs(spec, mesh) -> list:
             for _ in range(mesh.n_data) for l0, l1 in bounds]
 
 
+# streams handed back by finished runs, keyed by (device, the cuBLAS
+# handle of the thread that took them). torch keeps a cuBLAS workspace
+# (tens of MiB) for every (handle, stream) pair it has seen and frees
+# none: a new stream per run would grow the card's allocated memory run
+# by run in a long-lived process (a serve daemon). A thread owns its
+# handle while it lives and handles are reused after, so keying the pool
+# by handle pairs each handle with the same streams every run.
+_STREAM_POOL: dict = {}
+_STREAM_POOL_LOCK = threading.Lock()
+
+
+def _pool_key(device) -> tuple:
+    device = torch.device(device)
+    with torch.cuda.device(device):
+        # a runtime call first: it makes the card's primary context
+        # current in a fresh thread, as the handle query expects
+        torch.cuda.mem_get_info(device)
+        return device, torch.cuda.current_blas_handle()
+
+
+def _acquire_stream(device) -> "torch.cuda.Stream":
+    key = _pool_key(device)
+    with _STREAM_POOL_LOCK:
+        free = _STREAM_POOL.get(key)
+        st = free.pop() if free else None
+    if st is None:
+        st = torch.cuda.Stream(device)
+    st.pool_key = key
+    return st
+
+
+def release_streams(streams) -> None:
+    """Hand streams back for later runs to reuse; a caller does this once
+    every thread that used them has finished."""
+    with _STREAM_POOL_LOCK:
+        for st in streams:
+            if st is not None:
+                _STREAM_POOL.setdefault(st.pool_key, []).append(st)
+
+
 def lane_streams(mesh, fresh: bool = False) -> list:
     """The CUDA stream of each lane: None (the card's current stream)
-    for a lane alone on its card, a new stream for each lane of a card
-    that serves several (two lanes on one card get two streams), or a
-    new stream for every lane with ``fresh`` (a caller that dispatches
-    from several threads). None per lane on the CPU."""
+    for a lane alone on its card, a stream of its own for each lane of a
+    card that serves several (two lanes on one card get two streams), or
+    for every lane with ``fresh`` (a caller that dispatches from several
+    threads). Streams come from the pool :func:`release_streams` fills,
+    else are new. None per lane on the CPU."""
     devs = mesh.devices
     return [
-        torch.cuda.Stream(d) if d.type == "cuda" and (fresh or devs.count(d) > 1) else None
+        _acquire_stream(d) if d.type == "cuda" and (fresh or devs.count(d) > 1) else None
         for d in devs
     ]
 

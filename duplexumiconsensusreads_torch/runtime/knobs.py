@@ -2,8 +2,9 @@
 
 A copy of the JAX package's runtime/knobs.py: the same table, in the
 same order, with the same accessors (``tests/test_torch_cli.py`` holds
-them equal). The thread-confinement table that only the JAX package's
-linter reads is left out.
+them equal), and the thread-confinement table ``THREAD_ROLES`` over
+the threads the port starts (the same roles, entries and markers as
+the JAX package's).
 
 The load-bearing contract is that output bytes are a pure function of
 (input, config). Which knobs join which determinism surface — the
@@ -15,8 +16,10 @@ its ``--config-file`` keys and its whole-file refusals from the table.
 package, over parallel/mesh.py's device pool (the visible cards, or
 logical CPU lanes).
 
-``KNOB_TABLE`` is a PURE LITERAL on purpose: it can be read from the
-parsed source with ``ast.literal_eval``, without importing this module.
+``KNOB_TABLE`` and ``THREAD_ROLES`` are PURE LITERALS on purpose: the
+lint rules read them from the parsed source with ``ast.literal_eval``,
+without importing this module, so fixture corpora in tests can declare
+their own miniature registries.
 
 Per-knob fields:
 
@@ -365,6 +368,136 @@ KNOB_TABLE = {
         "default": None,
     },
 }
+
+# The declared thread-confinement model: every thread a port run starts
+# has a row (the `thread-confinement` dutlint rule, analysis/rules.py,
+# walks each entry's transitive same-file call graph against it;
+# tests/test_torch_knobs.py maps the threads a real run starts onto
+# the rows). Per role:
+#
+# - ``module``: corpus-path suffix holding the entry function.
+# - ``entry``: the thread-entry function name; "" marks the main loop,
+#   which is not walked — its row only declares OWNERSHIP, feeding the
+#   per-module watched-name union that confines every other role.
+# - ``marker``: the thread-name literal (Thread name= /
+#   thread_name_prefix) pinning the role to a real thread; rename
+#   protection — registry row present, entry function gone, marker
+#   still in the module — is a finding, not a silent skip.
+# - ``may``: permitted effect classes — "device" (torch.cuda.*, the
+#   H2D/D2H, the fused pipeline and the kernel wrappers),
+#   "durable" (checkpoint marks / durable writes), "journal" (flock'd
+#   journal txns). Anything outside the tuple is a finding.
+# - ``shared``: (structure, lock) pairs the role may touch; lock ""
+#   means the structure is self-synchronizing (a Semaphore, a bounded
+#   Queue). Touching a watched structure not listed, or listed but
+#   outside `with <lock>:`, is a finding.
+# - ``handoff``: the ONE queue the role may put to (producer roles).
+THREAD_ROLES = {
+    "main": {
+        "module": "runtime/stream.py",
+        "entry": "",
+        "marker": "",
+        "may": ("device", "durable", "journal"),
+        "shared": (
+            ("inflight", ""),
+            ("done_q", ""),
+            ("prefetch_sem", ""),
+            ("ckpt", ""),
+            ("drain", ""),
+            ("xfer", ""),
+            ("ingest_q", ""),
+        ),
+    },
+    "xfer": {
+        "module": "runtime/stream.py",
+        "entry": "dispatch",
+        "marker": "dut-xfer",
+        "may": ("device",),
+        "shared": (
+            ("phase", "phase_lock"),
+            ("rep", "phase_lock"),
+            ("led", "phase_lock"),
+            ("dev_pending", "phase_lock"),
+            ("dev_compiled", "phase_lock"),
+        ),
+    },
+    "drain": {
+        # materialize re-dispatches on OOM retry (device) and
+        # _finish_chunk -> _write_shard commits shards (durable), so
+        # the drain lane legitimately holds both effect grants
+        "module": "runtime/stream.py",
+        "entry": "drain_chunk",
+        "marker": "dut-drain",
+        "may": ("device", "durable"),
+        "shared": (
+            ("phase", "phase_lock"),
+            ("rep", "phase_lock"),
+            ("led", "phase_lock"),
+            ("dev_pending", "phase_lock"),
+            ("dev_compiled", "phase_lock"),
+            ("prefetch_sem", ""),
+        ),
+    },
+    "ingest": {
+        # the producer contract: pure host prep, no device, no
+        # durable state, the bounded handoff queue is the only seam
+        "module": "runtime/stream.py",
+        "entry": "_ingest_producer",
+        "marker": "dut-ingest",
+        "may": (),
+        "handoff": "ingest_q",
+        "shared": (
+            ("phase", "phase_lock"),
+            ("ingest_q", ""),
+            # the auto-ladder tuner verdict: _prep_chunk pins
+            # rep.bucket_ladder ONCE on the first non-empty chunk — a
+            # single GIL-atomic attribute write, before any consumer
+            # reads the report, so it needs no lock
+            ("rep", ""),
+        ),
+    },
+    "heartbeat": {
+        "module": "telemetry/trace.py",
+        "entry": "_run",
+        "marker": "dut-heartbeat",
+        "may": (),
+        "shared": (),
+    },
+    "live-tail": {
+        # the follow-mode tailing producer (live/tail.py): pure host
+        # I/O against the growing input — no device, no durable state
+        # (the admission watermark is persisted by the main loop at
+        # commit time), and the bounded admission queue is its only
+        # output seam. Poll timing accrues in TailSource's own
+        # lock-guarded counters; the consumer drains them into the
+        # phase dict at chunk boundaries, so the tailer never touches
+        # stream.py's shared state
+        "module": "live/tail.py",
+        "entry": "_tail_loop",
+        "marker": "dut-live-tail",
+        "may": (),
+        "handoff": "_q",
+        "shared": (),
+    },
+    "watchdog": {
+        # reclaim/expiry sweeps move journal state through the flock'd
+        # txn seam; instance-attribute structures (self.*) are rule 6
+        # lock-discipline's jurisdiction, hence the empty shared list
+        "module": "serve/service.py",
+        "entry": "_watchdog_loop",
+        "marker": "dut-watchdog",
+        "may": ("journal", "durable"),
+        "shared": (),
+    },
+    "serve-worker": {
+        "module": "serve/service.py",
+        "entry": "_worker_loop",
+        "marker": "dut-serve",
+        "may": ("device", "durable", "journal"),
+        "shared": (),
+    },
+}
+
 
 @dataclasses.dataclass(frozen=True)
 class Knob:

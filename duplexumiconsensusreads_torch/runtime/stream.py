@@ -110,6 +110,7 @@ from duplexumiconsensusreads_torch.parallel.sharded import (
     lane_context,
     lane_streams,
     presharded_pipeline,
+    release_streams,
 )
 from duplexumiconsensusreads_torch.runtime.faults import (
     InjectedFault,
@@ -1204,6 +1205,9 @@ def _stream_call(
     # only after the stream's earlier work on it; two lanes on one card
     # get two streams
     streams = threading.local()
+    # every stream this run took, handed back to the pool when the
+    # transfer and drain workers have finished
+    run_streams: list = []
 
     def _lane_streams():
         if not on_cuda:
@@ -1211,6 +1215,8 @@ def _stream_call(
         ss = getattr(streams, "s", None)
         if ss is None:
             ss = streams.s = lane_streams(mesh, fresh=True)
+            with phase_lock:
+                run_streams.extend(ss)
         return ss
 
     # per-stage BUSY seconds accrued on whichever thread runs the stage
@@ -2140,6 +2146,7 @@ def _stream_call(
             ingest_thread.join(timeout=30.0)
         drain.shutdown(wait=True, cancel_futures=True)
         xfer.shutdown(wait=True, cancel_futures=True)
+        release_streams(run_streams)
         if prof is not None:
             # a teardown failure must never mask the run's own error
             try:

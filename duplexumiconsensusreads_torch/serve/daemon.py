@@ -8,15 +8,18 @@
         [--no-trace] [--once] ...
 
 Port note (the JAX package's ``dut-serve``, copied; what the card
-changed): a daemon owns ONE card. ``--device`` (cuda, the default, or
-cpu) is where every job runs, and without a card the daemon raises at
-start rather than fall back to the CPU. ``--devices`` keeps the JAX
-syntax: a single index (``'2,'``) pins ``cuda:2``, so several daemons
-on a host with several GPUs each own one; a count of 1 means the
-current card; anything wider is refused by name (ROADMAP queue 1 item
-5). ``--build-dir`` is the compile cache's counterpart: every job's
-kernel libraries are built there once and loaded after
-(utils/compile_cache.py). SIGTERM drains as in the JAX package: each
+changed): ``--device`` (cuda, the default, or cpu) is where every job
+runs, and without a card the daemon raises at start rather than fall
+back to the CPU. ``--devices`` keeps the JAX syntax and meaning: an
+index list (``'0,1'``; one device is the one-element list ``'2,'``)
+or a count (``'4'`` = the first four) picks this daemon's lanes, and
+every job's slices run on a mesh over them (parallel/mesh.py; a job's
+own ``mesh`` config narrows the count). With ``--device cpu`` the
+lanes are logical lanes of the CPU. Daemons on a host with several
+cards each own a disjoint set; a count past the pool or an index
+outside it is refused at start in the mesh's words. ``--build-dir``
+is the compile cache's counterpart: every job's kernel libraries are
+built there once and loaded after (utils/compile_cache.py). SIGTERM drains as in the JAX package: each
 running slice yields at its next chunk boundary, where the stream's
 drain waits on its own fetches' CUDA events (never a device-wide
 synchronize), so no CUDA stream holds the exit; a wedged slice is

@@ -142,6 +142,9 @@ WATCHDOG_MIN_S = 10.0
 WATCHDOG_P95_MULT = 20.0
 WATCHDOG_MIN_SAMPLES = 8
 _CHUNK_SAMPLES_KEPT = 256
+# how often run()'s join of the workers returns to run pending signal
+# handlers
+JOIN_POLL_S = 0.25
 
 
 class ConsensusService:
@@ -649,7 +652,12 @@ class ConsensusService:
             for t in threads:
                 t.start()
             for t in threads:
-                t.join()
+                # timed: a signal the kernel hands to another thread
+                # runs its Python handler (the daemon's SIGTERM drain)
+                # only when this thread next runs bytecode, which an
+                # untimed join puts off until the workers end
+                while t.is_alive():
+                    t.join(JOIN_POLL_S)
         except BaseException as e:  # noqa: BLE001 — incl. startup kills
             # a kill during setup/startup reclaim is the same modelled
             # death as one inside a worker: record it, clean up below,

@@ -113,10 +113,18 @@ def test_every_module_imports_without_jax():
     "duplexumiconsensusreads_torch.parallel.distributed",
     "duplexumiconsensusreads_torch.parallel.mesh",
     "duplexumiconsensusreads_torch.parallel.sharded",
+    "duplexumiconsensusreads_torch.analysis",
+    "duplexumiconsensusreads_torch.analysis.engine",
+    "duplexumiconsensusreads_torch.analysis.rules",
+    "duplexumiconsensusreads_torch.analysis.allowlist",
+    "duplexumiconsensusreads_torch.analysis.cli",
+    "duplexumiconsensusreads_torch.tools.dutlint",
+    "duplexumiconsensusreads_torch.entry",
 ])
 def test_analysers_tuning_and_tools_are_scanned_and_import_alone(module):
-    """The capture analysers, tuning/, the tools, live/ and serve/ are
-    among the modules both checks above cover, and each imports in a
+    """The capture analysers, tuning/, the tools, live/, serve/, the
+    linter (analysis/) and the entry points are among the modules both
+    checks above cover, and each imports in a
     fresh interpreter without jax (the tools and the serving client run
     on machines without jax)."""
     assert module in _modules()

@@ -335,3 +335,30 @@ def test_resume_across_deflate_codecs_recomputes(sorted_bams, tmp_path, monkeypa
     fresh = str(tmp_path / "f.bam")
     stream_call_consensus(sorted_bams["single"], fresh, gp, cp, **kw)
     assert open(out, "rb").read() == open(fresh, "rb").read()
+
+
+def test_a_built_library_loads_while_another_process_holds_the_build_lock(tmp_path):
+    """A process stopped while holding the build directory's lock (a
+    SIGSTOPped daemon at its first native load) must not block another
+    process's load of a library that already exists."""
+    import sys
+
+    native.get_lib()  # the library exists in the port's build directory
+    lock = os.path.join(native.build_dir(native.BUILD_DIR), "libdutbam.lock")
+    holder = subprocess.Popen(
+        [sys.executable, "-c",
+         "import fcntl, sys, time\n"
+         f"f = open({lock!r}, 'w'); fcntl.flock(f, fcntl.LOCK_EX)\n"
+         "print('held', flush=True); time.sleep(60)\n"],
+        stdout=subprocess.PIPE, text=True)
+    try:
+        assert holder.stdout.readline().strip() == "held"
+        r = subprocess.run(
+            [sys.executable, "-c",
+             "from duplexumiconsensusreads_torch import native; native.get_lib(); print('ok')"],
+            cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+            capture_output=True, text=True, timeout=60)
+        assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr
+    finally:
+        holder.kill()
+        holder.wait()

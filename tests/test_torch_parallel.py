@@ -337,3 +337,30 @@ def test_per_device_wire_equals_jax_shard_map_wire(packed_case):
         t = np.asarray(theirs[k])
         assert ours[k].dtype == t.dtype and ours[k].shape == t.shape, k
         assert ours[k].tobytes() == t.tobytes(), k
+
+
+def test_released_streams_are_reused_before_new_ones_are_made(monkeypatch):
+    """A run hands its CUDA streams back and a later thread holding the
+    same cuBLAS handle takes them: torch keeps a cuBLAS workspace per
+    (handle, stream) pair for good, so new streams per run, or a stream
+    paired with a new handle, would grow the card's memory run by run."""
+    import types
+
+    from duplexumiconsensusreads_torch.parallel import sharded
+
+    monkeypatch.setattr(sharded, "_STREAM_POOL", {})
+    made = []
+    handle = [11]
+    monkeypatch.setattr(sharded, "_pool_key", lambda d: (torch.device(d), handle[0]))
+    monkeypatch.setattr(torch.cuda, "Stream", lambda d: made.append(d) or
+                        types.SimpleNamespace(device=torch.device(d)))
+    first = sharded._acquire_stream(torch.device("cuda", 0))
+    assert len(made) == 1
+    sharded.release_streams([first, None])
+    assert sharded._acquire_stream(torch.device("cuda", 0)) is first
+    assert len(made) == 1  # reused, not made anew
+    sharded.release_streams([first])
+    handle[0] = 12  # a thread with another handle gets a stream of its own
+    other = sharded._acquire_stream(torch.device("cuda", 0))
+    assert other is not first and len(made) == 2
+    assert sharded._acquire_stream(torch.device("cuda", 1)) is not first and len(made) == 3

@@ -615,17 +615,26 @@ def test_service_and_daemon_default_to_cuda_and_raise_without_a_card(tmp_path, m
     ("0,1", None), ("2", None), ("1,2,3", None), ("1", None), ("0", "one-element list"),
     ("x", "comma-separated"), ("9", "requested 9 devices, have 8"), ("0,8", "out of range"),
 ])
-def test_daemon_devices_pin_one_card_and_refuse_more(tmp_path, devices, refusal):
+def test_daemon_devices_pin_one_card_and_refuse_more(sim, tmp_path, devices, refusal):
     """--devices takes the JAX daemon's count and index-list forms over
-    the device pool (here the CPU's logical lanes); a count past the
-    pool or an index outside it is refused at start, in the mesh's
+    the device pool (here the CPU's logical lanes) and runs every job on
+    a mesh over them (the daemon no longer owns one card only: a job
+    submitted to a two-lane daemon reports two devices); a count past
+    the pool or an index outside it is refused at start, in the mesh's
     words."""
     from duplexumiconsensusreads_torch.serve import daemon
 
-    argv = [str(tmp_path / "spool"), "--devices", devices, "--device", "cpu", "--once",
+    spool = str(tmp_path / "spool")
+    argv = [spool, "--devices", devices, "--device", "cpu", "--once",
             "--no-trace", "--poll", "0.02"]
     if refusal is None:
+        jid = None
+        if devices == "0,1":
+            jid = client.submit(spool, sim[0], str(tmp_path / "o.bam"), config=dict(CONFIG))
         assert daemon.main(argv) == 0
+        if jid is not None:
+            st = client.status(spool, jid)
+            assert st["state"] == "done" and st["result"]["n_devices"] == 2
         return
     with pytest.raises(SystemExit, match=refusal):
         daemon.main(argv)
@@ -694,3 +703,1034 @@ def test_spec_signature_matches_jax():
                  {"config": {**CONFIG, "mesh": 1}}):
         assert spec_signature(validate_spec(_spec(**over))) == jax_sig(jax_validate(
             _spec(**over)))
+
+
+# ---- the serve kill matrix: the JAX serving suite's registry, lease,
+# crash-recovery, deadline, watchdog, quarantine, disk-pressure and
+# sharding-kill classes, on the port (every service on the CPU)
+
+# every fault site the serving layer owns; the port's dutlint
+# lease-discipline rule reads this tuple, and test_kill_at_each_serve_site
+# drives every one of them
+SERVE_SITES = (
+    "serve.accept", "serve.journal", "serve.preempt",
+    "serve.lease", "serve.renew", "serve.expire", "serve.fence",
+    "serve.hb", "serve.store",
+    "serve.deadline", "serve.watchdog",
+    "serve.split", "serve.merge",
+)
+
+
+def test_serve_sites_registered():
+    """The serving layer's site registry pin: KNOWN_SITES (the port's and
+    the JAX package's) and this suite agree on the sites serve/ owns."""
+    from duplexumiconsensusreads_tpu.runtime import faults as jax_faults
+
+    assert set(SERVE_SITES) == {s for s in faults.KNOWN_SITES if s.startswith("serve.")}
+    assert set(SERVE_SITES) == {s for s in jax_faults.KNOWN_SITES if s.startswith("serve.")}
+
+
+def test_one_shot_reference_matches_jax_at_the_parity_bar(sim, tmp_path):
+    """The bytes every service output here must equal: the port's
+    one-shot run with the serve provenance line, held record by record
+    against the JAX package's run of the same job (file bytes are not
+    compared across engines: the deflate codecs differ)."""
+    import numpy as np
+
+    from duplexumiconsensusreads_tpu.io import read_bam as jax_read_bam
+    from duplexumiconsensusreads_tpu.runtime.stream import stream_call_consensus as jax_stream
+    from duplexumiconsensusreads_tpu.serve.job import job_params as jax_job_params
+    from duplexumiconsensusreads_torch.constants import BASE_N, NO_CALL_QUAL
+    from duplexumiconsensusreads_torch.io import read_bam
+
+    in_path, ref_bytes = sim
+    ref, jout = str(tmp_path / "ref.bam"), str(tmp_path / "j.bam")
+    with open(ref, "wb") as f:
+        f.write(ref_bytes)
+    spec = jax_validate({"job_id": "ref", "input": in_path, "output": jout, "config": CONFIG})
+    gp, cp, kw = jax_job_params(spec)
+    kw.pop("mesh", None)
+    jax_stream(in_path, jout, gp, cp, n_devices=1, provenance_cl=serve_provenance(CONFIG), **kw)
+    (th, a), (jh, b) = read_bam(ref), jax_read_bam(jout)
+    # the @PG line names each package; the rest of the header is equal
+    assert th.text.replace("duplexumiconsensusreads_torch", "duplexumiconsensusreads_tpu") == jh.text
+    assert len(a) == len(b) > 0
+    for f in ("names", "flags", "pos", "lengths", "tlen"):
+        np.testing.assert_array_equal(np.asarray(getattr(a, f)), np.asarray(getattr(b, f)))
+    assert list(a.aux_raw) == list(b.aux_raw)
+    sa, sb = np.asarray(a.seq), np.asarray(b.seq)
+    qa, qb = np.asarray(a.qual).astype(int), np.asarray(b.qual).astype(int)
+    tie = ((sa == BASE_N) | (sb == BASE_N)) & (qa == NO_CALL_QUAL) & (qb == NO_CALL_QUAL)
+    assert not ((sa != sb) & ~tie).any() and np.abs(qa - qb).max() <= 2
+
+
+class TestStateRegistry:
+    """serve/states.py is the declared state machine: its derived views,
+    a well-formed graph, the queue's re-exports — each equal to the JAX
+    package's."""
+
+    def test_derived_views_reproduce_pre_refactor_tuples(self):
+        from duplexumiconsensusreads_tpu.serve import states as jax_states
+        from duplexumiconsensusreads_torch.serve import states
+
+        assert states.JOB_STATES == (
+            "queued", "running", "done", "failed", "rejected",
+            "expired", "quarantined", "splitting", "fanned", "merging",
+        )
+        assert states.CLAIMED_STATES == ("running", "splitting", "merging")
+        assert states.OPEN_STATES == ("queued", "fanned", "running", "splitting", "merging")
+        assert states.TERMINAL_STATES == ("done", "failed", "rejected", "expired", "quarantined")
+        assert states.INITIAL_STATES == ("queued", "rejected")
+        for name in ("JOB_STATES", "CLAIMED_STATES", "OPEN_STATES", "TERMINAL_STATES",
+                     "INITIAL_STATES", "TRANSITIONS"):
+            assert getattr(states, name) == getattr(jax_states, name), name
+
+    def test_transition_graph_is_well_formed(self):
+        from duplexumiconsensusreads_torch.serve.states import (
+            INITIAL_STATES,
+            JOB_STATES,
+            TERMINAL_STATES,
+            TRANSITIONS,
+        )
+
+        assert set(TRANSITIONS) == set(JOB_STATES)
+        for src, succs in sorted(TRANSITIONS.items()):
+            for dst in succs:
+                assert dst in JOB_STATES, f"{src}->{dst}"
+            if src in TERMINAL_STATES:
+                assert succs == (), src
+        seen = set(INITIAL_STATES)
+        frontier = list(INITIAL_STATES)
+        while frontier:
+            for dst in TRANSITIONS[frontier.pop()]:
+                if dst not in seen:
+                    seen.add(dst)
+                    frontier.append(dst)
+        assert seen == set(JOB_STATES)
+
+    def test_queue_re_exports_the_registry(self):
+        from duplexumiconsensusreads_torch.serve import queue, states
+
+        assert queue.JOB_STATES is states.JOB_STATES
+        assert queue.CLAIMED_STATES is states.CLAIMED_STATES
+        assert queue.OPEN_STATES is states.OPEN_STATES
+        assert queue.TERMINAL_STATES is states.TERMINAL_STATES
+        assert queue.TRANSITIONS is states.TRANSITIONS
+        assert client.TERMINAL_STATES == states.TERMINAL_STATES + ("unknown",)
+
+
+# ---- every declared transition, driven on the bare queue of both
+# packages: each case puts a job into the edge's source state through
+# the queue's own API, then makes the move
+
+def _pkg(name):
+    import types
+
+    if name == "jax":
+        from duplexumiconsensusreads_tpu.serve import client as c
+        return types.SimpleNamespace(Q=JaxQueue, submit=c.submit, validate=jax_validate)
+    return types.SimpleNamespace(Q=SpoolQueue, submit=client.submit, validate=validate_spec)
+
+
+def _children(parent="job-p", k=2):
+    return [
+        {"job_id": f"{parent}.s{i:03d}", "input": "/i.bam", "output": f"/o.bam.shard{i:03d}.bam",
+         "config": dict(CONFIG),
+         "shard": {"parent": parent, "idx": i, "k": k, "chunk_base": i, "n_chunks": 1,
+                   "key_lo": None, "key_hi": None, "start": None, "first_read": None}}
+        for i in range(k)
+    ]
+
+
+def _queued(ns, root, **qkw):
+    q = ns.Q(root, **qkw)
+    jid = ns.submit(root, __file__, os.path.join(root, "job.bam"), config=dict(CONFIG))
+    assert q.accept_one(jid)[0] is not None
+    return q, jid
+
+
+def _running(ns, root, **qkw):
+    q, jid = _queued(ns, root, **qkw)
+    return q, jid, q.claim(jid, "d1", 60.0)
+
+
+def _parent(ns, root, **qkw):
+    q = ns.Q(root, **qkw)
+    q.submit(ns.validate(_spec(job_id="job-p", shards=2)))
+    assert q.accept_one("job-p")[1] is None
+    return q, "job-p"
+
+
+def _splitting(ns, root, **qkw):
+    q, p = _parent(ns, root, **qkw)
+    return q, p, q.claim(p, "d1")
+
+
+def _fanned(ns, root, **qkw):
+    q, p, tok = _splitting(ns, root, **qkw)
+    assert q.register_shards(p, "d1", tok, _children()) == 2
+    return q, p
+
+
+def _children_done(q, p):
+    for cid in q.jobs[p]["children"]:
+        t = q.claim(cid, "d1")
+        q.mark_done(cid, {"n_consensus": 1}, "d1", t)
+
+
+def _merging(ns, root, **qkw):
+    q, p = _merge_queued(ns, root, **qkw)
+    return q, p, q.claim(p, "d2")
+
+
+def _dead(q):
+    return q.reclaim_dead("d9", is_live=lambda d: False)
+
+
+def _overdue(q, jid):
+    with q._txn():
+        q.jobs[jid]["deadline_m"] = round(time.monotonic() - 1, 3)
+        q.save()
+    return q.expire_deadlines()
+
+
+def _failed_sibling(ns, root):
+    q, p = _fanned(ns, root)
+    t = q.claim("job-p.s000", "d1")
+    q.mark_failed("job-p.s000", "boom: not a BAM", "d1", t)
+    return q, "job-p.s001", lambda: q.advance_parents()
+
+
+def _failed_parent(ns, root):
+    q, _, move = _failed_sibling(ns, root)
+    return q, "job-p", move
+
+
+def _merge_queued(ns, root, **qkw):
+    # every child done and the parent sweep run: the parent is queued
+    # for its merge
+    q, p = _fanned(ns, root, **qkw)
+    _children_done(q, p)
+    q.advance_parents()
+    return q, p
+
+
+def _with_deadline(ns, root):
+    q = ns.Q(root)
+    jid = ns.submit(root, __file__, os.path.join(root, "job.bam"), config=dict(CONFIG),
+                    deadline_s=60.0)
+    q.accept_one(jid)
+    return q, jid, lambda: _overdue(q, jid)
+
+
+def _edge(setup, move):
+    """A case from a setup returning (q, job, token?) and a move
+    taking (q, job, token)."""
+    def drive(ns, root):
+        q, jid, *tok = setup(ns, root)
+        return q, jid, lambda: move(q, jid, *tok)
+    return drive
+
+
+def _q1(setup):
+    # a queue that quarantines on the first unclean abort
+    return lambda ns, root: setup(ns, root, max_crashes=1)
+
+
+EDGES = {
+    "queued->running": _edge(_queued, lambda q, j: q.claim(j, "d1", 60.0)),
+    "queued->splitting": _edge(_parent, lambda q, j: q.claim(j, "d1")),
+    "queued->merging": _edge(_merge_queued, lambda q, p: q.claim(p, "d2")),
+    "queued->expired": _with_deadline,
+    "queued->failed": _failed_sibling,
+    "running->done": _edge(_running, lambda q, j, t: q.mark_done(j, {"ok": 1}, "d1", t)),
+    "running->failed": _edge(_running, lambda q, j, t: q.mark_failed(j, "boom", "d1", t)),
+    "running->queued": _edge(_running, lambda q, j, t: q.requeue(j, 1, back=True,
+                                                                 daemon_id="d1", token=t)),
+    "running->expired": _edge(_running, lambda q, j, t: q.mark_expired(
+        j, "expired: deadline passed", "d1", t)),
+    "running->quarantined": _edge(_q1(_running), lambda q, j, t: _dead(q)),
+    "splitting->fanned": _edge(_splitting, lambda q, p, t: q.register_shards(
+        p, "d1", t, _children())),
+    "splitting->failed": _edge(_splitting, lambda q, p, t: q.mark_failed(
+        p, "plan failed", "d1", t)),
+    "splitting->queued": _edge(_splitting, lambda q, p, t: _dead(q)),
+    "splitting->quarantined": _edge(_q1(_splitting), lambda q, p, t: _dead(q)),
+    "fanned->queued": _edge(_fanned, lambda q, p: (_children_done(q, p), q.advance_parents())),
+    "fanned->failed": _failed_parent,
+    "merging->done": _edge(_merging, lambda q, p, t: q.mark_done(p, {"ok": 2}, "d2", t)),
+    "merging->failed": _edge(_merging, lambda q, p, t: q.mark_failed(p, "merge failed", "d2", t)),
+    "merging->queued": _edge(_merging, lambda q, p, t: _dead(q)),
+    "merging->quarantined": _edge(_q1(_merging), lambda q, p, t: _dead(q)),
+}
+
+
+def test_edge_cases_cover_the_declared_graph():
+    from duplexumiconsensusreads_torch.serve.states import TRANSITIONS
+
+    assert set(EDGES) == {f"{s}->{d}" for s, ds in TRANSITIONS.items() for d in ds}
+
+
+@pytest.mark.parametrize("edge", sorted(EDGES))
+def test_each_declared_transition_is_driven_as_in_jax(edge, tmp_path, monkeypatch):
+    """Each declared edge, made by the queue's own API on the port's
+    queue and on the JAX package's: the job sits in the edge's source
+    state before the move and in its destination after, and the two
+    journals agree (clock stamps, pids and hosts aside)."""
+    src, dst = edge.split("->")
+    monkeypatch.setattr(os, "urandom", lambda n: b"\x02" * n)
+    entries = []
+    for name in ("torch", "jax"):
+        root = str(tmp_path / name)
+        q, jid, move = EDGES[edge](_pkg(name), root)
+        assert q.jobs[jid]["state"] == src, name
+        move()
+        assert q.jobs[jid]["state"] == dst, name
+        # durable: a fresh queue over the spool reads the same state
+        fresh = (SpoolQueue if name == "torch" else JaxQueue)(root)
+        assert fresh.jobs[jid]["state"] == dst
+        entries.append(_journal_view(fresh.jobs, root))
+    assert entries[0] == entries[1]
+
+
+def _journal_view(jobs, root):
+    """A journal's entries in admission order, without what names the
+    spool, the clock or the process (paths, random job ids, stamps and
+    elapsed seconds in messages)."""
+    import re
+
+    view = []
+    for _, e in sorted(jobs.items(), key=lambda kv: (kv[1].get("seq", 0), kv[0])):
+        e = dict(json.loads(re.sub(r"\d+\.\d+s", "Xs", json.dumps(e).replace(root, "ROOT"))))
+        e.pop("spec", None)
+        view.append(_normalize(e))
+    return view
+
+
+def test_rejected_is_journaled_with_its_reason_as_in_jax(tmp_path):
+    """The other initial state: a submission the queue refuses is
+    journaled terminal ``rejected`` with the reason, on both queues."""
+    out = []
+    for name in ("torch", "jax"):
+        ns = _pkg(name)
+        root = str(tmp_path / name)
+        q = ns.Q(root, max_queue=1)
+        ids = [ns.submit(root, __file__, os.path.join(root, f"j{i}.bam"), config=dict(CONFIG))
+               for i in range(2)]
+        q.accept_one(ids[0])
+        spec, reason = q.accept_one(ids[1])
+        assert spec is None and reason
+        st = q.status(ids[1])
+        assert st["state"] == "rejected"
+        out.append((reason.split(":")[0], st["state"], st.get("shed")))
+    assert out[0] == out[1]
+
+
+class TestLeaseProtocol:
+    """The lease/claim state machine on the bare queue: claims bump the
+    fencing token, renewal is fenced, expired and dead-owner leases
+    reclaim, and every verdict is durable."""
+
+    def _queued(self, tmp_path):
+        return _queued(_pkg("torch"), str(tmp_path))
+
+    def test_claim_bumps_token_and_is_exclusive(self, tmp_path):
+        q, jid = self._queued(tmp_path)
+        assert q.claim(jid, "d1", lease_s=60.0) == 1
+        e = q.jobs[jid]
+        assert e["state"] == "running" and e["lease"]["owner"] == "d1"
+        assert e["lease"]["pid"] == os.getpid()
+        assert q.claim(jid, "d2", lease_s=60.0) is None
+        assert q.claim(jid, "d1", lease_s=60.0) is None
+        assert SpoolQueue(str(tmp_path)).jobs[jid]["lease"]["owner"] == "d1"
+
+    def test_verify_and_renew_are_fenced(self, tmp_path):
+        from duplexumiconsensusreads_torch.serve.queue import JobFenced
+
+        q, jid = self._queued(tmp_path)
+        token = q.claim(jid, "d1", lease_s=60.0)
+        q.verify_lease(jid, "d1", token)
+        before = q.jobs[jid]["lease"]["expires_m"]
+        q.renew_lease(jid, "d1", token, lease_s=120.0)
+        assert q.jobs[jid]["lease"]["expires_m"] > before
+        for daemon, tok in (("d2", token), ("d1", token + 1), ("d1", 0)):
+            with pytest.raises(JobFenced):
+                q.verify_lease(jid, daemon, tok)
+            with pytest.raises(JobFenced):
+                q.renew_lease(jid, daemon, tok)
+
+    def test_expired_lease_reclaims_and_next_claim_fences_zombie(self, tmp_path):
+        from duplexumiconsensusreads_torch.serve.queue import JobFenced
+
+        q, jid = self._queued(tmp_path)
+        token = q.claim(jid, "d1", lease_s=0.05)
+        time.sleep(0.08)
+        rec = q.reclaim_dead("d2")
+        assert [r["job_id"] for r in rec] == [jid]
+        assert rec[0]["reason"] == "expired" and rec[0]["prev_owner"] == "d1"
+        assert q.jobs[jid]["state"] == "queued" and "lease" not in q.jobs[jid]
+        assert q.claim(jid, "d2", lease_s=60.0) == token + 1
+        with pytest.raises(JobFenced):
+            q.verify_lease(jid, "d1", token)
+        with pytest.raises(JobFenced):
+            q.requeue(jid, 1, back=False, daemon_id="d1", token=token)
+        with pytest.raises(JobFenced):
+            q.mark_done(jid, {"n": 1}, daemon_id="d1", token=token)
+        assert q.jobs[jid]["state"] == "running"
+        assert q.jobs[jid]["lease"]["owner"] == "d2"
+
+    def test_live_lease_is_not_reclaimed(self, tmp_path):
+        q, jid = self._queued(tmp_path)
+        q.claim(jid, "d1", lease_s=60.0)
+        assert q.reclaim_dead("d2") == []
+        assert q.reclaim_dead("d2", is_live=lambda d: d == "d1") == []
+        rec = q.reclaim_dead("d2", is_live=lambda d: False)
+        assert rec and rec[0]["reason"] == "dead-owner"
+
+    def test_dead_pid_lease_is_reclaimed_immediately(self, tmp_path):
+        q, jid = self._queued(tmp_path)
+        q.claim(jid, "d1", lease_s=3600.0)
+        child = subprocess.Popen([sys.executable, "-c", "pass"])
+        child.wait()
+        with q._txn():
+            q.jobs[jid]["lease"]["pid"] = child.pid
+            q.save()
+        rec = q.reclaim_dead("d2")
+        assert rec and rec[0]["reason"] == "dead-owner"
+        assert q.jobs[jid]["state"] == "queued"
+
+    def test_legacy_running_entry_without_lease_is_reclaimed(self, tmp_path):
+        q, jid = self._queued(tmp_path)
+        with q._txn():
+            q.jobs[jid]["state"] = "running"
+            q.save()
+        rec = q.reclaim_dead("d1")
+        assert rec and rec[0]["reason"] == "no-lease"
+        assert q.jobs[jid]["state"] == "queued"
+
+    def test_done_requeue_and_fail_release_the_lease(self, tmp_path):
+        q, jid = self._queued(tmp_path)
+        token = q.claim(jid, "d1", lease_s=60.0)
+        q.requeue(jid, 2, back=True, daemon_id="d1", token=token)
+        e = q.jobs[jid]
+        assert e["state"] == "queued" and "lease" not in e and e["token"] == token
+        token2 = q.claim(jid, "d1", lease_s=60.0)
+        assert token2 == token + 1
+        q.mark_done(jid, {"ok": 1}, daemon_id="d1", token=token2)
+        e = q.jobs[jid]
+        assert e["state"] == "done" and "lease" not in e
+
+
+def _completed(*traces):
+    return [e["job"] for t in traces for e in _events(t)[1] if e["name"] == "job_completed"]
+
+
+class TestCrashRecovery:
+    def test_kill_between_accept_and_dispatch_runs_exactly_once(self, sim, tmp_path):
+        """A kill at the lease claim lands after the job is durably
+        accepted and before any work: the journal still says queued, and
+        a restarted service runs it exactly once."""
+        in_path, ref_bytes = sim
+        spool = str(tmp_path / "spool")
+        (jid, out), = _submit_n(spool, in_path, tmp_path, 1)
+        faults.install(faults.FaultPlan.parse("serve.lease:1:kill"))
+        t1 = str(tmp_path / "svc1.jsonl")
+        with pytest.raises(faults.InjectedKill):
+            _service(spool, trace_path=t1).run_until_idle()
+        assert SpoolQueue(spool).jobs[jid]["state"] == "queued"
+        assert not os.path.exists(out)
+        assert [e for e in _events(t1)[1] if e["name"] == "job_started"] == []
+        faults.uninstall()
+        t2 = str(tmp_path / "svc2.jsonl")
+        assert _service(spool, trace_path=t2).run_until_idle()["jobs_done"] == 1
+        assert _read(out) == ref_bytes
+        ev2 = _events(t2)[1]
+        assert len([e for e in ev2 if e["name"] == "job_started"]) == 1
+        assert _completed(t2) == [jid]
+
+    def test_kill_before_admission_loses_no_submission(self, sim, tmp_path):
+        in_path, ref_bytes = sim
+        spool = str(tmp_path / "spool")
+        (jid, out), = _submit_n(spool, in_path, tmp_path, 1)
+        faults.install(faults.FaultPlan.parse("serve.accept:1:kill"))
+        with pytest.raises(faults.InjectedKill):
+            _service(spool).run_until_idle()
+        faults.uninstall()
+        assert os.path.exists(os.path.join(spool, "inbox", jid + ".json"))
+        snap = _service(spool).run_until_idle()
+        assert snap["jobs_done"] == 1 and snap["jobs_accepted"] == 1
+        assert _read(out) == ref_bytes
+
+    def test_kill_mid_job_resumes_from_checkpoint(self, sim, tmp_path):
+        """A kill inside a running slice leaves the job running under the
+        dead daemon's lease; the next service takes it over (token 2)
+        and converges to the one-shot bytes."""
+        in_path, ref_bytes = sim
+        spool = str(tmp_path / "spool")
+        (jid, out), = _submit_n(spool, in_path, tmp_path, 1)
+        faults.install(faults.FaultPlan.parse("shard.write:3:kill"))
+        with pytest.raises(faults.InjectedKill):
+            _service(spool, daemon_id="victim").run_until_idle()
+        faults.uninstall()
+        entry = SpoolQueue(spool).jobs[jid]
+        assert entry["state"] == "running"
+        assert entry["lease"]["owner"] == "victim" and entry["token"] == 1
+        t2 = str(tmp_path / "svc2.jsonl")
+        snap = _service(spool, trace_path=t2).run_until_idle()
+        assert snap["jobs_done"] == 1 and snap["jobs_recovered"] == 1
+        assert _read(out) == ref_bytes
+        entry = SpoolQueue(spool).jobs[jid]
+        assert entry["token"] == 2 and "lease" not in entry and entry["slices"] == 2
+        ev2 = _events(t2)[1]
+        tk = [e for e in ev2 if e["name"] == "lease_takeover"]
+        assert len(tk) == 1 and tk[0]["job"] == jid and tk[0]["reason"] == "dead-owner"
+        assert any(e["name"] == "resume" and e.get("decision") == "requeued_running"
+                   for e in ev2)
+
+
+# a kill at each serve site, nth as in the JAX fleet matrix where it has
+# one: where the daemon dies, a successor finishes both jobs (one of
+# them sharded, so the split and merge sites are on the path) exactly
+# once and byte-identical
+SERVE_KILLS = [
+    ("serve.accept", 1), ("serve.journal", 2), ("serve.preempt", 1),
+    ("serve.lease", 1), ("serve.renew", 1), ("serve.expire", 1), ("serve.fence", 2),
+    ("serve.hb", 1), ("serve.store", 1), ("serve.deadline", 1), ("serve.watchdog", 1),
+    ("serve.split", 1), ("serve.merge", 1),
+]
+
+
+def test_kill_matrix_covers_every_serve_site():
+    assert sorted(s for s, _ in SERVE_KILLS) == sorted(SERVE_SITES)
+
+
+@pytest.mark.parametrize("site,nth", SERVE_KILLS)
+def test_kill_at_each_serve_site_then_restart_exactly_once(site, nth, sim, tmp_path):
+    in_path, ref_bytes = sim
+    spool = str(tmp_path / "spool")
+    plain = client.submit(spool, in_path, str(tmp_path / "a.bam"), config=dict(CONFIG))
+    sharded = client.submit(spool, in_path, str(tmp_path / "b.bam"), config=dict(CONFIG),
+                            shards=2)
+    svc = _service(spool, chunk_budget=1, heartbeat_s=0.05, watchdog_s=30.0,
+                   default_deadline_s=3600.0, daemon_id="kill-A")
+    if site == "serve.watchdog":
+        # outlive the watchdog's first tick inside the first slice
+        orig = svc.worker.run_slice
+
+        def slow_run_slice(spec, budget, should_yield, drain_event, lease=None):
+            time.sleep(0.6)
+            return orig(spec, budget, should_yield, drain_event, lease=lease)
+
+        svc.worker.run_slice = slow_run_slice
+    plan = faults.FaultPlan.parse(f"{site}:{nth}:kill")
+    faults.install(plan)
+    t1 = str(tmp_path / "svc1.jsonl")
+    svc.trace_path = t1
+    with pytest.raises(faults.InjectedKill):
+        svc.run_until_idle()
+    faults.uninstall()
+    assert plan.n_fired == 1
+    if site == "serve.split":
+        assert SpoolQueue(spool).jobs[sharded]["state"] == "splitting"
+    t2 = str(tmp_path / "svc2.jsonl")
+    snap = _service(spool, trace_path=t2, daemon_id="kill-B").run_until_idle()
+    assert snap["jobs_failed"] == 0
+    for jid, out in ((plain, "a.bam"), (sharded, "b.bam")):
+        assert client.status(spool, jid)["state"] == "done"
+        assert _read(str(tmp_path / out)) == ref_bytes
+    done = [j for j in _completed(t2) if j in (plain, sharded)]
+    assert sorted(done) == sorted(
+        j for j in (plain, sharded)
+        if j not in [e["job"] for e in _events(t1)[1] if e["name"] == "job_completed"])
+
+
+class TestDeadlines:
+    def test_deadline_stamped_monotonic_and_swept(self, tmp_path):
+        q = SpoolQueue(str(tmp_path))
+        jid = client.submit(str(tmp_path), __file__, str(tmp_path / "o.bam"),
+                            config=dict(CONFIG), deadline_s=60.0)
+        assert q.accept_one(jid)[0] is not None
+        e = q.jobs[jid]
+        assert e["deadline_m"] == pytest.approx(time.monotonic() + 60.0, abs=2.0)
+        assert q.expire_deadlines() == []
+        assert FairScheduler.pick(q.jobs, now=e["deadline_m"] + 1) is None
+        assert FairScheduler.pick(q.jobs, now=e["deadline_m"] - 1) == jid
+        assert FairScheduler.pick(q.jobs) == jid
+        exp = _overdue(q, jid)
+        assert [r["job_id"] for r in exp] == [jid]
+        st = SpoolQueue(str(tmp_path)).status(jid)
+        assert st["state"] == "expired" and st["result"]["expired"] is True
+        assert "deadline passed" in st["error"]
+
+    def test_daemon_default_deadline_applies_at_admission(self, tmp_path):
+        q = SpoolQueue(str(tmp_path), default_deadline_s=30.0)
+        jid = client.submit(str(tmp_path), __file__, str(tmp_path / "a.bam"),
+                            config=dict(CONFIG))
+        q.accept_one(jid)
+        assert q.jobs[jid]["deadline_m"] == pytest.approx(time.monotonic() + 30.0, abs=2.0)
+        jid2 = client.submit(str(tmp_path), __file__, str(tmp_path / "b.bam"),
+                             config=dict(CONFIG), deadline_s=300.0)
+        q.accept_one(jid2)
+        assert q.jobs[jid2]["deadline_m"] == pytest.approx(time.monotonic() + 300.0, abs=2.0)
+
+    @pytest.mark.parametrize("bad", [0, -1, True, "soon"])
+    def test_rejects_bad_deadline(self, bad):
+        with pytest.raises(ValueError, match="deadline_s") as terr:
+            validate_spec(_spec(deadline_s=bad))
+        with pytest.raises(ValueError) as jerr:
+            jax_validate(_spec(deadline_s=bad))
+        assert str(terr.value) == str(jerr.value)
+
+    def test_overdue_queued_job_expires_before_running(self, sim, tmp_path):
+        """Job B's 1 ms deadline lapses while job A holds the worker: the
+        sweep journals B expired; it is never claimed or started."""
+        in_path, ref_bytes = sim
+        spool = str(tmp_path / "spool")
+        trace = str(tmp_path / "svc.jsonl")
+        (jid_a, out_a), = _submit_n(spool, in_path, tmp_path, 1, prefix="a")
+        jid_b = client.submit(spool, in_path, str(tmp_path / "b.bam"), config=dict(CONFIG),
+                              deadline_s=0.001)
+        snap = _service(spool, chunk_budget=0, trace_path=trace).run_until_idle()
+        assert snap["jobs_done"] == 1 and snap["jobs_expired"] == 1
+        st = client.status(spool, jid_b)
+        assert st["state"] == "expired" and "before the job could run" in st["error"]
+        assert st["result"]["expired"] is True
+        assert not os.path.exists(str(tmp_path / "b.bam"))
+        assert _read(out_a) == ref_bytes
+        ev = _events(trace)[1]
+        assert [e["job"] for e in ev if e["name"] == "job_expired"] == [jid_b]
+        assert all(e["job"] != jid_b for e in ev if e["name"] == "job_started")
+        assert client.wait(spool, jid_b, timeout_s=5)["state"] == "expired"
+
+    def test_running_job_aborts_at_chunk_boundary_and_resume_skips(self, sim, tmp_path):
+        """A slice whose deadline has passed aborts at its next
+        checkpoint boundary; the job is expired with its committed prefix
+        preserved, and a re-submission resumes it to the one-shot
+        bytes."""
+        in_path, ref_bytes = sim
+        spool = str(tmp_path / "spool")
+        (jid, out), = _submit_n(spool, in_path, tmp_path, 1)
+        t1 = str(tmp_path / "svc1.jsonl")
+        svc = _service(spool, chunk_budget=0, trace_path=t1)
+        orig = svc.worker.run_slice
+
+        def expiring_run_slice(spec, budget, should_yield, drain_event, lease=None):
+            lease.deadline_m = time.monotonic()
+            return orig(spec, budget, should_yield, drain_event, lease=lease)
+
+        svc.worker.run_slice = expiring_run_slice
+        snap = svc.run_until_idle()
+        assert snap["jobs_expired"] == 1 and snap["jobs_done"] == 0 and snap["jobs_failed"] == 0
+        st = client.status(spool, jid)
+        assert st["state"] == "expired" and "checkpoint preserved" in st["error"]
+        assert not os.path.exists(out)
+        with open(out + ".ckpt") as f:
+            n_committed = len(json.load(f)["done"])
+        assert n_committed >= 1
+        exp = [e for e in _events(t1)[1] if e["name"] == "job_expired"]
+        assert len(exp) == 1 and exp[0]["chunks_done"] == n_committed
+        jid2 = client.submit(spool, in_path, out, config=dict(CONFIG))
+        assert _service(spool, chunk_budget=0).run_until_idle()["jobs_done"] == 1
+        assert client.status(spool, jid2)["result"]["n_chunks_skipped"] >= n_committed
+        assert _read(out) == ref_bytes
+
+
+class TestWatchdog:
+    def test_reclaim_stalled_requeues_and_counts_crash(self, tmp_path):
+        from duplexumiconsensusreads_torch.serve.queue import JobFenced
+
+        q, jid = _queued(_pkg("torch"), str(tmp_path))
+        token = q.claim(jid, "d1", lease_s=3600.0)
+        assert q.reclaim_stalled(None) == []
+        assert q.reclaim_stalled(60.0) == []
+        with q._txn():
+            q.jobs[jid]["progress_m"] = round(time.monotonic() - 10, 3)
+            q.save()
+        rec = q.reclaim_stalled(5.0)
+        assert len(rec) == 1 and rec[0]["reason"] == "stalled" and rec[0]["stalled_s"] > 5.0
+        assert rec[0]["crash_count"] == 1 and "quarantined" not in rec[0]
+        e = q.jobs[jid]
+        assert e["state"] == "queued" and "lease" not in e
+        assert e["crash_count"] == 1 and e["token"] == token
+        assert q.claim(jid, "d2", lease_s=3600.0) == token + 1
+        with pytest.raises(JobFenced):
+            q.verify_lease(jid, "d1", token)
+
+    def test_wedged_slice_is_watchdog_requeued_and_finished_elsewhere(self, sim, tmp_path):
+        """Daemon A's slice wedges after its first commit with the lease
+        held; A's watchdog requeues the job, daemon B finishes it
+        byte-identical, and A's slice, woken, is fenced."""
+        import threading
+
+        in_path, ref_bytes = sim
+        spool = str(tmp_path / "spool")
+        (jid, out), = _submit_n(spool, in_path, tmp_path, 1)
+        t_a = str(tmp_path / "svcA.jsonl")
+        svc_a = _service(spool, chunk_budget=1, trace_path=t_a, lease_s=3600.0,
+                         watchdog_s=1.5, daemon_id="wd-A")
+        wedged, resume = threading.Event(), threading.Event()
+        orig = svc_a.worker.run_slice
+
+        def wedging_run_slice(spec, budget, should_yield, drain_event, lease=None):
+            def wedge_then_no_yield():
+                wedged.set()
+                resume.wait(timeout=120)
+                return False
+
+            return orig(spec, 1, wedge_then_no_yield, drain_event, lease=lease)
+
+        svc_a.worker.run_slice = wedging_run_slice
+        box = {}
+        th = threading.Thread(target=lambda: box.setdefault("snap", svc_a.run_until_idle()),
+                              daemon=True)
+        th.start()
+        assert wedged.wait(timeout=120), "daemon A never wedged"
+        _wait_for(lambda: SpoolQueue(spool).jobs.get(jid, {}).get("state") == "queued", 60,
+                  "the watchdog")
+        assert SpoolQueue(spool).jobs[jid].get("crash_count") == 1
+        t_b = str(tmp_path / "svcB.jsonl")
+        snap_b = _service(spool, trace_path=t_b, watchdog_s=0, daemon_id="wd-B").run_until_idle()
+        assert snap_b["jobs_done"] == 1
+        resume.set()
+        th.join(timeout=120)
+        assert not th.is_alive() and "snap" in box
+        snap_a = box["snap"]
+        assert snap_a["watchdog_fired"] == 1
+        assert snap_a["jobs_fenced"] == 1 and snap_a["jobs_done"] == 0
+        assert _read(out) == ref_bytes
+        entry = SpoolQueue(spool).jobs[jid]
+        assert entry["state"] == "done" and entry["token"] == 2
+        ev_a = _events(t_a)[1]
+        wd = [e for e in ev_a if e["name"] == "watchdog_fired"]
+        assert len(wd) == 1 and wd[0]["job"] == jid and wd[0]["stalled_s"] > 1.5
+        assert any(e["name"] == "job_fenced" for e in ev_a)
+        assert _completed(t_a, t_b) == [jid]
+
+    def test_sigstopped_worker_subprocess_is_watchdog_requeued(self, sim, tmp_path):
+        """Daemon A (a subprocess) claims the job and is SIGSTOPped
+        mid-slice: its pid lives and its 3600 s lease never expires, so
+        only daemon B's --watchdog frees the job; B finishes it
+        byte-identical and A is fenced by the token bump."""
+        import fcntl
+
+        in_path, ref_bytes = sim
+        spool = str(tmp_path / "spool")
+        (jid, out), = _submit_n(spool, in_path, tmp_path, 1)
+        proc = subprocess.Popen(
+            DAEMON + [spool, "--device", "cpu", "--poll", "0.05", "--heartbeat", "0.2",
+                      "--lease", "3600", "--watchdog", "0", "--daemon-id", "stop-A"],
+            env=ENV, cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+        def flock_free(timeout_s=2.0):
+            # a stopped process keeps any flock it holds
+            fd = os.open(os.path.join(spool, "journal.lock"), os.O_CREAT | os.O_RDWR, 0o644)
+            try:
+                t_end = time.monotonic() + timeout_s
+                while time.monotonic() < t_end:
+                    try:
+                        fcntl.flock(fd, fcntl.LOCK_EX | fcntl.LOCK_NB)
+                        fcntl.flock(fd, fcntl.LOCK_UN)
+                        return True
+                    except OSError:
+                        time.sleep(0.02)
+                return False
+            finally:
+                os.close(fd)
+
+        try:
+            _wait_for(lambda: client.status(spool, jid).get("state") == "running"
+                      and client.status(spool, jid).get("lease"), 120, "the claim", proc)
+            for _ in range(20):
+                proc.send_signal(signal.SIGSTOP)
+                if flock_free():
+                    break
+                proc.send_signal(signal.SIGCONT)
+                time.sleep(0.05)
+            else:
+                pytest.fail("could not stop daemon A outside a journal txn")
+            p2 = subprocess.run(
+                DAEMON + [spool, "--device", "cpu", "--once", "--poll", "0.05",
+                          "--heartbeat", "0", "--watchdog", "4.0", "--max-crashes", "50",
+                          "--daemon-id", "stop-B"],
+                env=ENV, cwd=REPO, capture_output=True, text=True, timeout=120)
+            assert p2.returncode == 0, p2.stderr
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+        st = client.status(spool, jid)
+        assert st["state"] == "done" and st["token"] >= 2 and st["crash_count"] >= 1
+        assert _read(out) == ref_bytes
+        recs, ev = _events(os.path.join(spool, "service.stop-B.trace.jsonl"))
+        assert trace_report.validate_service_trace(recs) == []
+        wd = [e for e in ev if e["name"] == "watchdog_fired"]
+        assert len(wd) >= 1 and wd[0]["job"] == jid
+        assert len([e for e in ev if e["name"] == "job_completed"]) == 1
+
+
+class TestPoisonQuarantine:
+    def test_poison_job_quarantined_after_exactly_max_crashes(self, sim, tmp_path):
+        """A job that kills its daemon at its first shard write every
+        time is quarantined after exactly max_crashes (3) deaths, with a
+        durable diagnosis; the healthy job beside it finishes
+        byte-identical, and a fresh daemon starts nothing."""
+        in_path, ref_bytes = sim
+        spool = str(tmp_path / "spool")
+        poison_out = str(tmp_path / "poison.bam")
+        poison = client.submit(spool, in_path, poison_out, config=dict(CONFIG),
+                               chaos="shard.write:1:kill",
+                               trace=str(tmp_path / "poison.trace.jsonl"))
+        (healthy, healthy_out), = _submit_n(spool, in_path, tmp_path, 1, prefix="healthy")
+        deaths, final_snap, final_trace = 0, None, None
+        for i in range(8):
+            # daemons that will run the poison slice get no service
+            # capture, so the job's own recorder sees the fault
+            t = str(tmp_path / f"svc{i}.jsonl") if deaths >= 3 else None
+            try:
+                final_snap = _service(spool, chunk_budget=0, trace_path=t,
+                                      daemon_id=f"pd-{i}").run_until_idle()
+                final_trace = t
+                break
+            except faults.InjectedKill:
+                deaths += 1
+        else:
+            pytest.fail("fleet never converged past the poison job")
+        assert deaths == 3
+        st = client.status(spool, poison)
+        assert st["state"] == "quarantined"
+        assert "quarantined after 3 crashed runs" in st["error"]
+        diag = st["result"]["diagnosis"]
+        assert diag["crash_count"] == 3 and diag["max_crashes"] == 3
+        assert diag["last_abort"] == "dead-owner"
+        assert [h["owner"] for h in diag["lease_history"]] == ["pd-0", "pd-1", "pd-2"]
+        assert diag["last_fault_site"] == "shard.write" and diag["trace_tail"]
+        assert client.wait(spool, poison, timeout_s=5)["state"] == "quarantined"
+        assert not os.path.exists(poison_out)
+        assert final_snap["jobs_done"] == 1 and final_snap["jobs_quarantined"] == 1
+        assert client.status(spool, healthy)["state"] == "done"
+        assert _read(healthy_out) == ref_bytes
+        assert SpoolQueue(spool).jobs[poison]["slices"] == 3
+        q_ev = [e for e in _events(final_trace)[1] if e["name"] == "job_quarantined"]
+        assert len(q_ev) == 1 and q_ev[0]["job"] == poison and q_ev[0]["crash_count"] == 3
+        t_after = str(tmp_path / "after.jsonl")
+        snap = _service(spool, trace_path=t_after, daemon_id="pd-after").run_until_idle()
+        assert snap["jobs_quarantined"] == 1
+        assert [e for e in _events(t_after)[1] if e["name"] == "job_started"] == []
+
+    def test_clean_preemptions_never_count_toward_quarantine(self, sim, tmp_path):
+        in_path, ref_bytes = sim
+        spool = str(tmp_path / "spool")
+        jobs = _submit_n(spool, in_path, tmp_path, 2)
+        snap = _service(spool, chunk_budget=1).run_until_idle()
+        assert snap["preemptions"] >= 2 and snap["jobs_quarantined"] == 0
+        for jid, out in jobs:
+            assert SpoolQueue(spool).jobs[jid].get("crash_count", 0) == 0
+            assert _read(out) == ref_bytes
+
+
+class TestDiskPressure:
+    def _queued_terminal_with_litter(self, tmp_path):
+        q = SpoolQueue(str(tmp_path))
+        jid = client.submit(str(tmp_path), __file__, str(tmp_path / "t0.bam"),
+                            config=dict(CONFIG))
+        q.accept_one(jid)
+        q.mark_failed(jid, "boom")
+        out = q.jobs[jid]["spec"]["output"]
+        with open(out + ".ckpt", "w") as f:
+            f.write('{"done": {}}')
+        os.makedirs(out + ".shards", exist_ok=True)
+        with open(os.path.join(out + ".shards", "chunk000000.recs"), "wb") as f:
+            f.write(b"x" * 4096)
+        with open(out + ".tmp", "wb") as f:
+            f.write(b"y" * 2048)
+        return q, out
+
+    def test_low_water_sheds_with_disk_reason(self, tmp_path, monkeypatch):
+        from duplexumiconsensusreads_torch.serve import queue as queue_mod
+
+        q = SpoolQueue(str(tmp_path), min_free_bytes=64 << 20)
+        jid = client.submit(str(tmp_path), __file__, str(tmp_path / "o.bam"),
+                            config=dict(CONFIG))
+        monkeypatch.setattr(queue_mod, "free_bytes", lambda p: 1 << 20)
+        spec, reason = q.accept_one(jid)
+        assert spec is None and reason.startswith("shed: disk")
+        st = q.status(jid)
+        assert st["state"] == "rejected" and st["shed"] is True and "low-water" in st["error"]
+
+    def test_grace_gc_frees_terminal_litter_then_admits(self, tmp_path, monkeypatch):
+        from duplexumiconsensusreads_torch.serve import queue as queue_mod
+
+        q, out = self._queued_terminal_with_litter(tmp_path)
+        q.min_free_bytes = 64 << 20
+        probes = iter([1 << 20, 1 << 30])
+        monkeypatch.setattr(queue_mod, "free_bytes", lambda p: next(probes, 1 << 30))
+        jid = client.submit(str(tmp_path), __file__, str(tmp_path / "new.bam"),
+                            config=dict(CONFIG))
+        spec, reason = q.accept_one(jid)
+        assert spec is not None and reason is None
+        for suffix in (".ckpt", ".shards", ".tmp"):
+            assert not os.path.exists(out + suffix)
+
+    def test_gc_only_touches_terminal_jobs_litter(self, tmp_path):
+        q, out = self._queued_terminal_with_litter(tmp_path)
+        live = client.submit(str(tmp_path), __file__, str(tmp_path / "live.bam"),
+                             config=dict(CONFIG))
+        q.accept_one(live)
+        live_out = q.jobs[live]["spec"]["output"]
+        with open(live_out + ".ckpt", "w") as f:
+            f.write('{"done": {}}')
+        with open(out, "wb") as f:
+            f.write(b"published bytes")
+        assert q.gc_terminal_litter() >= 4096 + 2048
+        assert not os.path.exists(out + ".ckpt")
+        assert os.path.exists(out) and os.path.exists(live_out + ".ckpt")
+
+    def test_probe_disabled_never_sheds(self, tmp_path, monkeypatch):
+        from duplexumiconsensusreads_torch.serve import queue as queue_mod
+
+        q = SpoolQueue(str(tmp_path), min_free_bytes=0)
+        monkeypatch.setattr(queue_mod, "free_bytes", lambda p: 0)
+        jid = client.submit(str(tmp_path), __file__, str(tmp_path / "o.bam"),
+                            config=dict(CONFIG))
+        assert q.accept_one(jid)[0] is not None
+
+    def test_free_bytes_probe_answers_on_real_fs(self, tmp_path):
+        from duplexumiconsensusreads_tpu.io.durable import free_bytes as jax_free_bytes
+        from duplexumiconsensusreads_torch.io.durable import free_bytes
+
+        free = free_bytes(str(tmp_path))
+        assert isinstance(free, int) and free > 0
+        assert free_bytes(str(tmp_path / "nope" / "deeper")) is None
+        assert jax_free_bytes(str(tmp_path / "nope" / "deeper")) is None
+
+
+class TestShardingKills:
+    """The kill cases of the JAX suite's sharding class: wherever a
+    daemon dies on a sharded job (committing the plan, in the parent
+    sweep, between merge splices, mid child slice), a successor
+    converges to the unsharded bytes with exactly one completion."""
+
+    def _submit(self, spool, in_path, out):
+        return client.submit(spool, in_path, out, config=dict(CONFIG), shards=3)
+
+    @pytest.mark.parametrize("site,nth", [("serve.split", 1), ("serve.merge", 1)])
+    def test_kill_at_shard_site_then_restart_byte_identical(self, site, nth, sim, tmp_path):
+        in_path, ref_bytes = sim
+        spool = str(tmp_path / "spool")
+        out = str(tmp_path / "out.bam")
+        jid = self._submit(spool, in_path, out)
+        faults.install(faults.FaultPlan.parse(f"{site}:{nth}:kill"))
+        with pytest.raises(faults.InjectedKill):
+            _service(spool).run_until_idle()
+        faults.uninstall()
+        if site == "serve.split":
+            assert SpoolQueue(spool).jobs[jid]["state"] == "splitting"
+        t2 = str(tmp_path / "svc2.jsonl")
+        _service(spool, trace_path=t2).run_until_idle()
+        st = client.status(spool, jid)
+        assert st["state"] == "done"
+        assert st["shards"]["done"] == st["shards"]["n_shards"] == 3
+        assert _read(out) == ref_bytes
+        assert [j for j in _completed(t2) if j == jid] == [jid]
+
+    def test_kill_mid_splice_then_takeover_remerges_exactly_once(self, sim, tmp_path):
+        in_path, ref_bytes = sim
+        spool = str(tmp_path / "spool")
+        out = str(tmp_path / "out.bam")
+        jid = self._submit(spool, in_path, out)
+        t_a = str(tmp_path / "svcA.jsonl")
+        svc_a = _service(spool, trace_path=t_a, daemon_id="merge-victim")
+        orig = svc_a._fenced_renew
+        fences = [0]
+
+        def dying_fence(job_id, token):
+            # fence 1 = the split's pre-registration renewal; 2.. = the
+            # merge splice guards: die on the second merge fence
+            if job_id == jid:
+                fences[0] += 1
+                if fences[0] == 3:
+                    raise faults.InjectedKill("die mid-splice")
+            orig(job_id, token)
+
+        svc_a._fenced_renew = dying_fence
+        with pytest.raises(faults.InjectedKill):
+            svc_a.run_until_idle()
+        assert SpoolQueue(spool).jobs[jid]["state"] == "merging"
+        t_b = str(tmp_path / "svcB.jsonl")
+        snap_b = _service(spool, trace_path=t_b, daemon_id="merge-b").run_until_idle()
+        assert snap_b["jobs_merged"] == 1
+        assert client.status(spool, jid)["state"] == "done"
+        assert _read(out) == ref_bytes
+        assert [j for j in _completed(t_a, t_b) if j == jid] == [jid]
+
+    def test_mid_shard_sigkill_takeover_byte_identical(self, sim, tmp_path):
+        in_path, ref_bytes = sim
+        spool = str(tmp_path / "spool")
+        out = str(tmp_path / "out.bam")
+        jid = self._submit(spool, in_path, out)
+        t_a = str(tmp_path / "svcA.jsonl")
+        svc_a = _service(spool, chunk_budget=0, trace_path=t_a, daemon_id="shard-victim")
+        orig = svc_a.worker.run_slice
+
+        def dying_run_slice(spec, budget, should_yield, drain_event, lease=None):
+            if spec.shard is None:
+                return orig(spec, budget, should_yield, drain_event, lease=lease)
+
+            def die():
+                raise faults.InjectedKill("mid-shard daemon death")
+
+            return orig(spec, 1, die, drain_event, lease=lease)
+
+        svc_a.worker.run_slice = dying_run_slice
+        with pytest.raises(faults.InjectedKill):
+            svc_a.run_until_idle()
+        t_b = str(tmp_path / "svcB.jsonl")
+        snap_b = _service(spool, trace_path=t_b, daemon_id="shard-b").run_until_idle()
+        assert snap_b["jobs_recovered"] >= 1 and snap_b["jobs_merged"] == 1
+        assert client.status(spool, jid)["state"] == "done"
+        assert _read(out) == ref_bytes
+        assert sorted(_completed(t_a, t_b)) == sorted([jid] + [f"{jid}.s{i:03d}"
+                                                               for i in range(3)])
+
+
+_SIGNAL_SCRIPT = r"""
+import json, signal, sys, threading
+from duplexumiconsensusreads_torch.serve import ConsensusService
+svc = ConsensusService(sys.argv[1], device="cpu", poll_s=0.02, chunk_budget=0)
+ran = threading.Event()
+signal.signal(signal.SIGUSR1, lambda s, f: (ran.set(), svc.request_drain()))
+orig = svc.worker.run_slice
+
+def held_slice(spec, budget, should_yield, drain_event, lease=None):
+    # the kernel hands the signal to this worker thread; the slice
+    # starts only once the drain was requested (or 20 s pass)
+    signal.pthread_kill(threading.get_ident(), signal.SIGUSR1)
+    drain_event.wait(timeout=20)
+    return orig(spec, budget, should_yield, drain_event, lease=lease)
+
+svc.worker.run_slice = held_slice
+snap = svc.run()
+print(json.dumps({"handler_ran": ran.is_set(), "done": snap["jobs_done"],
+                  "preemptions": snap["preemptions"]}))
+"""
+
+
+def test_a_drain_signal_taken_by_a_worker_thread_still_drains(sim, tmp_path):
+    """A process signal may land on any thread. The daemon's SIGTERM
+    drain is a Python handler, which runs on the main thread only when
+    it executes bytecode: with the workers joined without a timeout it
+    waited for the whole job. Here the signal is sent to the worker
+    thread itself while its slice waits for the drain: the handler runs
+    and the job yields at its first chunk boundary (a JAX daemon under
+    load lost SIGTERM this way: ROADMAP Faults 17)."""
+    in_path, ref_bytes = sim
+    spool = str(tmp_path / "spool")
+    (jid, out), = _submit_n(spool, in_path, tmp_path, 1)
+    r = subprocess.run([sys.executable, "-c", _SIGNAL_SCRIPT, spool], env=ENV, cwd=REPO,
+                       capture_output=True, text=True, timeout=60)
+    assert r.returncode == 0, r.stderr[-2000:]
+    got = json.loads(r.stdout.strip().splitlines()[-1])
+    assert got == {"handler_ran": True, "done": 0, "preemptions": 1}
+    assert SpoolQueue(spool).jobs[jid]["state"] == "queued"
+    assert _service(spool).run_until_idle()["jobs_done"] == 1
+    assert _read(out) == ref_bytes
