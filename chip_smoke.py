@@ -43,16 +43,27 @@ line:
           against CPU on a small input (cd equal, ce equal except at
           counted ties)
   stages  the largest class's fused pipeline once more, warm, with the
-          device span of each stage function it calls
+          device span of each stage function it calls (group_kernel's
+          directional_cluster among them)
   sync_debug  that class's group_kernel (adjacency, the whole-file
           shape) under torch.cuda.set_sync_debug_mode("error"): it runs
-          through, and with the plain fixpoint patched in it raises; then
-          fused_pipeline under "warn", with every implicit sync that
-          remains counted by file:line
-  fixpoint  the grouping fixpoint kernel vs its plain version at
-          tolerance 0: at the stages rerun's inputs and on synthetic
-          worst cases at u 2048 (chains through all slots both ways,
-          empty, all-invalid, dense past the kernel's list, unsorted
+          through, and with the plain directional cluster patched in it
+          raises; then fused_pipeline under "warn", with every implicit
+          sync that remains counted by file:line
+  cluster the directional cluster kernel vs its plain version at
+          tolerance 0 (seed, mid_of_slot, n_mol): at the stages rerun's
+          slot table and on synthetic tables (position groups, groups
+          within Hamming 1, chains up and down, one group past the
+          kernel's list, unsorted positions, two-word UMIs, count
+          ratio 0, u 16384 with the table in global memory);
+          group_kernel's peak device memory above its inputs, kernel
+          and plain, against one (N, U, U) bool grid; the kernel, plain
+          and bound ms
+  fixpoint  the fixpoint kernel alone (off the main path) vs its plain
+          version at tolerance 0: at the edges the plain edge build
+          gives the stages rerun's table and on synthetic worst cases
+          at u 2048 (chains through all slots both ways, empty,
+          all-invalid, dense past the kernel's list, unsorted
           positions); the kernel, plain and bound ms
   kernel  each kernel vs its plain version on random inputs and on the
           main path's real inputs (those of the stages rerun, whose ids
@@ -79,8 +90,8 @@ line:
           wall, the native reader and every shard's deflate codec;
           then a sum-check of the trace's spans against the report's
           seconds
-  stream_turns  the stream cell again in two turns, plain fixpoint then
-          kernel: each turn's reads/s, dispatch and device_wait_fetch busy
+  stream_turns  the stream cell again in two turns, plain directional
+          cluster then kernel: each turn's reads/s, dispatch and device_wait_fetch busy
           seconds and ledger.wire_floor, with bytes identical to the
           stream phase's
   live    follow mode: a paced writer appends the stream cell's input
@@ -237,12 +248,14 @@ line:
 
 Every path (whole_file, stream, per_base, workflow, operators, live,
 serve, shard, multihost, mesh, ladder, race, bench, fleet, fit_counts,
-chaos, entry, dryrun) must launch both kernels, and the mesh path on every lane: segment_gemm and the grouping fixpoint
-(cluster_fixpoint); the serve, shard and multihost paths count the
-daemon and host subprocesses' launches too (each writes its counts at
-exit). Then the nvidia-smi line, the ``kernels``
+chaos, entry, dryrun) must launch both kernels of the main path, and
+the mesh path on every lane: segment_gemm and grouping's directional
+cluster (directional_cluster); the serve, shard and multihost paths
+count the daemon and host subprocesses' launches too (each writes its
+counts at exit). Then the nvidia-smi line, the ``kernels``
 JSON line (one row per kernel with its launches per path and its
-mesh path's launches per lane; under
+mesh path's launches per lane, the fixpoint kernel's row too, with its
+count of 0 on every path; under
 segment_gemm a ``rung_shapes`` sub-row with the kernel, plain,
 library and bound ms at each explicit ladder rung's largest launch,
 a ``bench_shapes`` sub-row with the same at the bench phase's
@@ -327,13 +340,25 @@ def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}, sort_keys=True), flush=True)
 
 
+# the kernels every main path must launch: the ssc reduction and
+# grouping's directional cluster. Grouping no longer calls the fixpoint
+# kernel alone; it stays in kernel_wrappers, held in its own phase
+PATH_KERNELS = ("segment_gemm", "directional_cluster")
+
+
 def kernel_wrappers() -> dict:
     """{kernel name: its wrapper}, each wrapper carrying a ``launches``
     count."""
     from duplexumiconsensusreads_torch.kernels import cluster_fixpoint, segment_gemm
 
     return {"segment_gemm": segment_gemm.segment_gemm,
+            "directional_cluster": cluster_fixpoint.directional_cluster,
             "cluster_fixpoint": cluster_fixpoint.propagate_min}
+
+
+def path_launched(counts: dict) -> bool:
+    """Whether every kernel of the main path launched at least once."""
+    return min(counts.get(k, 0) for k in PATH_KERNELS) > 0
 
 
 def reset_launches() -> None:
@@ -344,9 +369,9 @@ def reset_launches() -> None:
 
 def read_launches(path: str) -> dict:
     """Each kernel's launches since reset_launches(); raises if the path
-    launched one of them no time."""
+    launched one of PATH_KERNELS no time."""
     got = {name: fn.launches for name, fn in kernel_wrappers().items()}
-    missing = [name for name, n in got.items() if n == 0]
+    missing = [name for name in PATH_KERNELS if got[name] == 0]
     if missing:
         raise AssertionError(f"the {path} path launched {missing} no time")
     return got
@@ -613,11 +638,12 @@ def mesh_only(smi: str) -> int:
          "replaces": "duplexumiconsensusreads_tpu/kernels/pallas_ssc.py:67", "max_abs_err": 0.0,
          "launches": {"mesh": launches["segment_gemm"], "dryrun": dry["segment_gemm"]},
          "mesh_lane_launches": lanes["segment_gemm"]},
-        {"name": "cluster_fixpoint", "route": "cuda",
-         "source": "duplexumiconsensusreads_torch/csrc/cluster_fixpoint.cu",
-         "replaces": "duplexumiconsensusreads_tpu/kernels/grouping.py:160", "max_abs_err": 0,
-         "launches": {"mesh": launches["cluster_fixpoint"], "dryrun": dry["cluster_fixpoint"]},
-         "mesh_lane_launches": lanes["cluster_fixpoint"]},
+        *({"name": name, "route": "cuda",
+           "source": "duplexumiconsensusreads_torch/csrc/cluster_fixpoint.cu",
+           "replaces": "duplexumiconsensusreads_tpu/kernels/grouping.py:160", "max_abs_err": 0,
+           "launches": {"mesh": launches[name], "dryrun": dry[name]},
+           "mesh_lane_launches": lanes[name]}
+          for name in ("directional_cluster", "cluster_fixpoint")),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
@@ -647,6 +673,7 @@ def main(argv=None) -> int:
     from duplexumiconsensusreads_torch.cli.main import params_for
     from duplexumiconsensusreads_torch.io import bgzf, native_reader, read_bam, simulated_bam
     from duplexumiconsensusreads_torch.kernels import build, consensus, grouping
+    from duplexumiconsensusreads_torch.kernels import cluster_fixpoint as cf
     from duplexumiconsensusreads_torch.kernels import segment_gemm as sg
     from duplexumiconsensusreads_torch.ops import pipeline
     from duplexumiconsensusreads_torch.runtime.executor import call_consensus_file
@@ -782,7 +809,7 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     names = {pipeline: ("_decode_packed", "group_kernel", "ssc_kernel", "fit_cycle_cap_kernel",
                         "apply_cycle_cap", "duplex_merge_strided", "_segment_min"),
-             consensus: ("_evidence_columns", "_reduce"), grouping: ("propagate_min",)}
+             consensus: ("_evidence_columns", "_reduce"), grouping: ("directional_cluster",)}
     with contextlib.ExitStack() as stack:
         caps = {n: stack.enter_context(Capture(m, n)) for m, ns in names.items() for n in ns}
         whole = stack.enter_context(Capture(pipeline, "fused_pipeline"))
@@ -795,17 +822,21 @@ def main(argv=None) -> int:
     (big, fid, f_max, _method), _ = caps["_reduce"].args
     if not torch.equal(fid, cap_k.args[0][1]):
         raise AssertionError("the rerun's reduction ids differ from the main path's")
-    # the fixpoint's and grouping's inputs in the largest class
-    fix_args = caps["propagate_min"].args[0]
+    # grouping's inputs and slot table in the largest class
+    cluster_args = caps["directional_cluster"].args[0]
     group_args = caps["group_kernel"].args
     del caps, whole, cap_k
 
     # ---- sync_debug: grouping with no host sync, and what remains
     sync_debug_phase(group_args, full, spec, smi)
+    # ---- cluster: the directional cluster kernel vs its plain version
+    cluster_row = cluster_phase(cluster_args, group_args, smi)
     del group_args
-    # ---- fixpoint: the kernel vs its plain version
-    fix_row = fixpoint_phase(*fix_args, smi)
-    del fix_args
+    # ---- fixpoint: the fixpoint kernel vs its plain version, on the
+    # edge grid and start keys the plain edge build gives that table
+    edge, s0 = cf.cluster_edges_plain(*cluster_args)
+    fix_row = fixpoint_phase(edge, s0, cluster_args[1], smi)
+    del cluster_args, edge, s0
 
     # ---- kernel: segment_gemm vs its plain version
     kernel_rows = []
@@ -916,7 +947,7 @@ def main(argv=None) -> int:
          nvidia_smi=smi)
     launches["entry"], launches["dryrun"], entry_case, entry_fix = entry_phase(smi)
     kernel_rows.append(entry_case)
-    fix_row["entry_shape"] = entry_fix
+    cluster_row["entry_shape"] = entry_fix
     torch.cuda.empty_cache()
     launches["race"] = race_phase(smi)
     launches["bench"], bench_calls, launches["fleet"] = bench_phase(bench_cache.name, smi)
@@ -945,14 +976,14 @@ def main(argv=None) -> int:
     paths = ("whole_file", "stream", "per_base", "workflow", "operators", "live", "serve",
              "shard", "multihost", "mesh", "ladder", "race", "bench", "fleet", "fit_counts",
              "chaos", "entry", "dryrun")
-    seg_row["launches"] = {k: launches[k]["segment_gemm"] for k in paths}
-    fix_row["launches"] = {k: launches[k]["cluster_fixpoint"] for k in paths}
-    # the mesh path's launches on each lane
-    seg_row["mesh_lane_launches"] = launches["mesh_lanes"]["segment_gemm"]
-    fix_row["mesh_lane_launches"] = launches["mesh_lanes"]["cluster_fixpoint"]
+    for row, name in ((seg_row, "segment_gemm"), (cluster_row, "directional_cluster"),
+                      (fix_row, "cluster_fixpoint")):
+        row["launches"] = {k: launches[k][name] for k in paths}
+        # the mesh path's launches on each lane
+        row["mesh_lane_launches"] = launches["mesh_lanes"][name]
 
     print(smi, flush=True)
-    print(json.dumps({"kernels": [seg_row, fix_row]}), flush=True)
+    print(json.dumps({"kernels": [seg_row, cluster_row, fix_row]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)
@@ -1114,13 +1145,15 @@ def fixpoint_case(kind: str, n: int, u: int, rng):
 
 
 def fixpoint_phase(edge, s0, u_pos, smi: str) -> dict:
-    """The fixpoint kernel against its plain version (tolerance 0) at the
-    main path's captured inputs (the largest class of the stages rerun)
-    and on the synthetic worst cases at u = FIXPOINT_U ("dense" has more
-    edges than the kernel's list holds, so it takes the edge-grid
-    sweeps); then the kernel's, the plain version's and the bound's
-    times at the main path's inputs. Returns the kernels line's row
-    (launches filled in later)."""
+    """The fixpoint kernel (propagate_min, off the main path since grouping
+    calls directional_cluster) against its plain version (tolerance 0)
+    at the edge grid and start keys that the plain edge build gives the
+    main path's table (the largest class of the stages rerun) and on the
+    synthetic worst cases at u = FIXPOINT_U ("dense" has more edges than
+    the kernel's list holds, so it takes the edge-grid sweeps); then the
+    kernel's, the plain version's and the bound's times at the main
+    path's edges. Returns the kernels line's row (launches filled in
+    later: its count on every path, 0)."""
     import numpy as np
     import torch
 
@@ -1140,7 +1173,7 @@ def fixpoint_phase(edge, s0, u_pos, smi: str) -> dict:
         cases.append({"case": name, "shape": list(e.shape), "edges": int(e.sum()),
                       "max_abs_err": err, "tolerance": 0, "kernel_wall_s": round(k_s, 6)})
 
-    hold("real_main_path", edge, s0, u_pos)
+    hold("main_path_table", edge, s0, u_pos)
     rng = np.random.default_rng(0)
     for kind in FIXPOINT_KINDS:
         e, s, p = (torch.from_numpy(a).cuda() for a in
@@ -1166,18 +1199,286 @@ def fixpoint_phase(edge, s0, u_pos, smi: str) -> dict:
     return {"name": "cluster_fixpoint", "route": "cuda",
             "source": "duplexumiconsensusreads_torch/csrc/cluster_fixpoint.cu",
             "replaces": "duplexumiconsensusreads_tpu/kernels/grouping.py:160",
-            "note": "no Pallas kernel: the port's counterpart of the lax.while_loop there",
+            "note": "no Pallas kernel: the port's counterpart of the lax.while_loop there; "
+                    "off the main path since grouping calls directional_cluster",
+            "on_main_path": False,
             "max_abs_err": max(c["max_abs_err"] for c in cases), "ms": k_ms,
             "plain_ms": plain_ms, "bound_ms": times["bound_ms"], "bound_by": times["bound_by"],
             "library_ms": None, "shape": list(edge.shape)}
 
 
+# synthetic slot tables (cluster_case) held by the cluster phase:
+# (kind, buckets, u, UMI length, max_hamming, count_ratio)
+CLUSTER_CASES = (
+    ("groups", 4, 2048, 12, 1, 2),
+    ("hamming1_groups", 4, 2048, 12, 1, 2),
+    ("chain_up", 4, 2048, 12, 1, 1),
+    ("chain_down", 4, 2048, 18, 1, 1),
+    ("dense", 2, 2048, 12, 12, 0),
+    ("unsorted", 4, 2048, 12, 1, 2),
+    ("groups_w2", 4, 2048, 18, 2, 2),
+    ("groups_ratio0", 4, 2048, 12, 1, 0),
+    ("groups_global_table", 2, 16384, 12, 1, 2),
+)
+# an int32 operation's rate on the H100 SXM outside the tensor cores:
+# 64 INT32 lanes a SM x 132 SMs x 1.98 GHz boost (the Hopper white
+# paper's SM; the data sheet gives no integer row)
+I32_OPS = 64 * 132 * 1.98e9
+
+
+def chain_umis(n: int, umi_len: int):
+    """n UMIs of umi_len codes in which consecutive ones differ at one
+    base and all others at two or more: k ones then zeros, then k twos
+    then ones, then k threes then twos."""
+    import numpy as np
+
+    out = []
+    for phase, (hi_c, lo_c) in enumerate(((1, 0), (2, 1), (3, 2))):
+        for k in range(1 if phase else 0, umi_len + 1):
+            out.append([hi_c] * k + [lo_c] * (umi_len - k))
+    if n > len(out):
+        raise ValueError(f"a chain of {umi_len}-base UMIs holds at most {len(out)} nodes")
+    return np.asarray(out[:n], np.int32)
+
+
+def cluster_case(kind: str, n: int, u: int, umi_len: int, rng):
+    """(codes, words, pos, cnt) numpy for n buckets of u slots, as
+    group_kernel builds the table (codes (n, u, umi_len) u8, 0 on empty
+    slots): unique UMIs within a position, slots sorted by
+    (pos, packed words) (a chain keeps its own order within its
+    position), about 85 % valid, empty slots at the tail
+    (I32_MAX words and positions, count 0). "groups": position groups of
+    1-40 UMIs, a few true ones with many reads and their 1-2 substitution
+    neighbours with few; "hamming1_groups": groups of four UMIs that
+    differ at one common base (every pair within Hamming 1); "chain_up" /
+    "chain_down": groups that are chains (consecutive UMIs one base
+    apart) with counts falling two a link, so with count_ratio 1 each
+    link points one way, the seed at a group's first slot or, down, its
+    last; "dense": one group of every slot; "unsorted": "groups" with
+    all u slots shuffled."""
+    import numpy as np
+    import torch
+
+    from duplexumiconsensusreads_torch.kernels.encoding import pack_umi_words
+
+    out = []
+    for _ in range(n):
+        n_valid = max(1, int(u * 0.85)) if kind != "dense" else u
+        codes, cnts, poss = [], [], []
+        g = 0
+        while len(codes) < n_valid:
+            room = n_valid - len(codes)
+            if kind == "dense":
+                grp = rng.integers(0, 4, (room * 2, umi_len))
+                grp = np.unique(grp, axis=0)[:room]
+                c = rng.integers(1, 50, len(grp))
+            elif kind == "hamming1_groups":
+                at = int(rng.integers(0, umi_len))
+                grp = np.repeat(rng.integers(0, 4, (1, umi_len)), 4, axis=0)
+                grp[:, at] = np.arange(4)
+                grp, c = grp[:room], rng.integers(1, 30, min(4, room))
+            elif kind in ("chain_up", "chain_down"):
+                size = int(min(rng.integers(8, 3 * umi_len + 2), room))
+                grp = chain_umis(size, umi_len)
+                c = 2 * (size - np.arange(size)) + 1
+                if kind == "chain_down":
+                    c = c[::-1]
+            else:
+                size = int(min(rng.integers(1, 41), room))
+                true = rng.integers(0, 4, (int(rng.integers(1, 4)), umi_len))
+                seen = {tuple(t): int(rng.integers(5, 40)) for t in true}
+                while len(seen) < size:
+                    t = true[int(rng.integers(0, len(true)))].copy()
+                    t[rng.integers(0, umi_len, int(rng.integers(1, 3)))] = rng.integers(0, 4)
+                    seen.setdefault(tuple(t), int(rng.integers(1, 5)))
+                grp = np.asarray(list(seen)[:size])
+                c = np.asarray(list(seen.values())[:size])
+            codes += list(grp)
+            cnts += list(c)
+            poss += [g * 3] * len(grp)
+            g += 1
+        codes = np.asarray(codes, np.uint8)
+        words = pack_umi_words(torch.from_numpy(codes)).numpy()
+        pos = np.asarray(poss, np.int32)
+        cnt = np.asarray(cnts, np.int32)
+        if kind in ("chain_up", "chain_down"):  # each chain in its own order
+            order = np.argsort(pos, kind="stable")
+        else:
+            order = np.lexsort(tuple(words[:, i] for i in range(words.shape[1] - 1, -1, -1))
+                               + (pos,))
+        codes, words, pos, cnt = codes[order], words[order], pos[order], cnt[order]
+        n_inv = u - len(pos)
+        codes = np.concatenate([codes, np.zeros((n_inv, umi_len), np.uint8)])
+        words = np.concatenate([words, np.full((n_inv, words.shape[1]), I32_MAX, np.int32)])
+        pos = np.concatenate([pos, np.full(n_inv, I32_MAX, np.int32)])
+        cnt = np.concatenate([cnt, np.zeros(n_inv, np.int32)])
+        if kind == "unsorted":
+            perm = rng.permutation(u)
+            codes, words, pos, cnt = codes[perm], words[perm], pos[perm], cnt[perm]
+        out.append((codes, words, pos, cnt))
+    return tuple(np.stack(a) for a in zip(*out))
+
+
+def cluster_bound(u_words, u_pos, seed, n_edges: int) -> dict:
+    """The least time the card could take for directional_cluster on this
+    table: the table read once (words, positions, counts) and seed, mid
+    and n_mol written once, at the memory rate; against the int32
+    operations this data needs, at the int32 rate. A position group of n
+    valid slots has n (n - 1) / 2 unordered pairs, each needing the
+    Hamming distance and its limit once (XOR, shift, one LOP3 for
+    (x | x >> 1) & mask and a popcount a word, W - 1 adds, the compare:
+    5 W), the edge test each way (cnt_i against slot j's
+    count_ratio * cnt_j - 1, made once a slot: 2) and the rank (the keys
+    (-cnt, words) are distinct within a position, so 1 + W compares and
+    one add order both slots); the group's m molecules (distinct seeds)
+    need an id compare a pair (W compares, one add). Then one min an
+    edge for the fixpoint, and 3 a valid slot (the threshold, the
+    first-slot test, the id's copy from its seed). No position compare:
+    a group's slots share their position."""
+    import torch
+
+    n, u, w = u_words.shape
+    pairs = mol_pairs = n_valid = 0
+    for b in range(n):
+        valid = u_pos[b] != I32_MAX
+        p, s = u_pos[b][valid], seed[b][valid]
+        n_valid += int(valid.sum())
+        _, size = torch.unique(p, return_counts=True)
+        pairs += int((size.long() * (size.long() - 1) // 2).sum())
+        _, m = torch.unique(torch.unique(torch.stack([p, s]), dim=1)[0], return_counts=True)
+        mol_pairs += int((m.long() * (m.long() - 1) // 2).sum())
+    need_bytes = n * u * (w + 2) * 4 + 2 * n * u * 4 + n * 4
+    ops = pairs * (6 * w + 4) + mol_pairs * (w + 1) + n_edges + 3 * n_valid
+    bytes_ms = need_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / I32_OPS * 1e3
+    return {"in_group_pairs": pairs, "molecule_pairs": mol_pairs, "edges": n_edges,
+            "valid_slots": n_valid, "bytes_needed": need_bytes, "operations": ops,
+            "bytes_bound_ms": bytes_ms, "ops_bound_ms": ops_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def largest_tensor(fn) -> tuple[int, list]:
+    """(elements, shape) of the largest tensor any torch operation
+    creates while ``fn`` runs (a dispatch mode sees every operation's
+    outputs; a hand-written kernel's launch is no torch operation, its
+    outputs are the wrapper's torch.empty)."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+
+    class Largest(TorchDispatchMode):
+        size, shape = 0, []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            for t in tree_leaves(out):
+                if isinstance(t, torch.Tensor) and t.numel() > self.size:
+                    self.size, self.shape = t.numel(), list(t.shape)
+            return out
+
+    with Largest() as mode:
+        fn()
+    return mode.size, mode.shape
+
+
+def cluster_phase(table, group_args, smi: str) -> dict:
+    """directional_cluster against its plain version, tolerance 0 on seed,
+    mid_of_slot and n_mol: at the main path's table (the largest class of
+    the stages rerun) and on CLUSTER_CASES (one group of every slot past
+    the kernel's list; u 16384 reads its table from global memory). Then
+    group_kernel at that class, with the kernel and with the plain
+    version patched in: the largest tensor any torch operation of the
+    call creates (the kernel path must create none of N * U * U
+    elements) and the peak device memory above its inputs; and the
+    kernel's, the plain version's and the bound's times at the main
+    path's table. Returns the kernels line's row (launches filled in
+    later)."""
+    import numpy as np
+    import torch
+
+    from duplexumiconsensusreads_torch.kernels import cluster_fixpoint as cf
+    from duplexumiconsensusreads_torch.kernels import grouping
+    from duplexumiconsensusreads_torch.ops import pipeline
+
+    cases = []
+
+    def hold(name, tab):
+        t0 = time.monotonic()
+        got = cf.directional_cluster(*tab)
+        torch.cuda.synchronize()
+        k_s = time.monotonic() - t0
+        want = cf.directional_cluster_plain(*tab)
+        err = max((a.long() - b.long()).abs().max().item() for a, b in zip(got, want))
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"directional_cluster {name}: max abs err {err} (tolerance 0)")
+        n, u, w = tab[0].shape
+        in_smem, cap = cf.cluster_plan(u, w)
+        cases.append({"case": name, "shape": [n, u, w], "max_hamming": tab[4],
+                      "count_ratio": tab[5], "table_in_smem": in_smem, "list_cap": cap,
+                      "n_mol": want[2].tolist()[:4], "max_abs_err": err, "tolerance": 0,
+                      "kernel_wall_s": round(k_s, 6)})
+        del got, want
+        torch.cuda.empty_cache()
+
+    hold("real_main_path", table)
+    rng = np.random.default_rng(0)
+    for kind, n, u, umi_len, h, r in CLUSTER_CASES:
+        base = kind.split("_w2")[0].split("_ratio0")[0].split("_global")[0]
+        arrays = (torch.from_numpy(a).cuda() for a in cluster_case(base, n, u, umi_len, rng)[1:])
+        hold(f"synthetic_{kind}_u{u}", (*arrays, umi_len, h, r))
+    # group_kernel's largest tensor and device memory above its inputs,
+    # kernel and plain
+    args, kw = group_args
+    n, u = table[1].shape
+    peak, largest = {}, {}
+    for turn in ("kernel", "plain"):
+        if turn == "plain":
+            grouping.directional_cluster = cf.directional_cluster_plain
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base_mem = torch.cuda.memory_allocated()
+            pipeline.group_kernel(*args, **kw)
+            torch.cuda.synchronize()
+            peak[turn] = torch.cuda.max_memory_allocated() - base_mem
+            largest[turn] = largest_tensor(lambda: pipeline.group_kernel(*args, **kw))
+        finally:
+            grouping.directional_cluster = cf.directional_cluster
+    if largest["kernel"][0] >= n * u * u:
+        raise AssertionError(f"group_kernel created a tensor of shape {largest['kernel'][1]} on "
+                             f"the kernel path (N * U * U = {n * u * u})")
+    edge, _ = cf.cluster_edges_plain(*table)
+    n_edges = int(edge.sum())
+    del edge
+    bound = cluster_bound(table[0], table[1], cf.directional_cluster_plain(*table)[0], n_edges)
+    k_ms = cuda_ms(lambda: cf.directional_cluster(*table), reps=20)
+    plain_ms = cuda_ms(lambda: cf.directional_cluster_plain(*table), reps=3)
+    times = {"kernel_ms": k_ms, "plain_ms": plain_ms, **bound,
+             "bound_fraction": bound["bound_ms"] / k_ms}
+    emit("cluster", name="directional_cluster", shape=list(table[0].shape),
+         umi_len=table[3], max_hamming=table[4], count_ratio=table[5], cases=cases, **times,
+         group_kernel_peak_bytes_above_inputs=peak, nuu_elements=n * u * u,
+         group_kernel_largest_tensor={k: {"elements": v[0], "shape": v[1]}
+                                      for k, v in largest.items()},
+         library_call=None, nvidia_smi=smi)
+    return {"name": "directional_cluster", "route": "cuda",
+            "source": "duplexumiconsensusreads_torch/csrc/cluster_fixpoint.cu",
+            "replaces": "duplexumiconsensusreads_tpu/kernels/grouping.py:160",
+            "note": "no Pallas kernel: _directional_cluster there (its lax.while_loop at :160) "
+                    "and group_kernel's molecule-rank block (:173), in one launch",
+            "max_abs_err": max(c["max_abs_err"] for c in cases), "ms": k_ms,
+            "plain_ms": plain_ms, "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
+            "library_ms": None, "shape": list(table[0].shape)}
+
+
 def sync_debug_phase(group_args, full, spec, smi: str) -> None:
     """group_kernel at the whole-file shape (the largest class's captured
     arguments) under torch.cuda.set_sync_debug_mode("error"): it must run
-    through, while the plain fixpoint (patched in as the stream turns
-    patch it) raises there. Then fused_pipeline under "warn": every
-    implicit sync that remains, counted by file:line."""
+    through, while the plain directional cluster (patched in as the
+    stream turns patch it; its fixpoint loop checks for a change on the
+    host) raises there. Then fused_pipeline under "warn": every implicit
+    sync that remains, counted by file:line."""
     import collections
     import warnings
 
@@ -1200,7 +1501,7 @@ def sync_debug_phase(group_args, full, spec, smi: str) -> None:
         return out
 
     under_error()
-    grouping.propagate_min = cf.propagate_min_plain
+    grouping.directional_cluster = cf.directional_cluster_plain
     try:
         under_error()
         plain_raises = False
@@ -1209,9 +1510,9 @@ def sync_debug_phase(group_args, full, spec, smi: str) -> None:
             raise
         plain_raises = True
     finally:
-        grouping.propagate_min = cf.propagate_min
+        grouping.directional_cluster = cf.directional_cluster
     if not plain_raises:
-        raise AssertionError("the plain fixpoint ran under sync debug mode 'error'")
+        raise AssertionError("the plain directional cluster ran under sync debug mode 'error'")
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
@@ -1224,17 +1525,18 @@ def sync_debug_phase(group_args, full, spec, smi: str) -> None:
     sites = collections.Counter(
         f"{os.path.relpath(w.filename, HERE)}:{w.lineno}" for w in syncs)
     emit("sync_debug", group_kernel_shape=list(args[0].shape),
-         group_kernel_under_error_mode="ran through", plain_fixpoint_raises=True,
+         group_kernel_under_error_mode="ran through",
+         plain_directional_cluster_raises=True,
          fused_pipeline_implicit_syncs=len(syncs), fused_pipeline_sync_sites=dict(sites),
          nvidia_smi=smi)
 
 
 def stream_turns(in_bam: str, out_bam: str, gp, cp, settings: dict, td: str, smi: str) -> None:
-    """The stream cell again in two turns, plain fixpoint then kernel
-    (the plain version patched into grouping as the phases' wrappers
-    patch modules): each turn's reads/s, dispatch and device_wait_fetch
-    busy seconds and wire floor (from its capture), and bytes identical
-    to the stream phase's output."""
+    """The stream cell again in two turns, plain directional cluster then
+    kernel (the plain version patched into grouping as the phases'
+    wrappers patch modules): each turn's reads/s, dispatch and
+    device_wait_fetch busy seconds and wire floor (from its capture), and
+    bytes identical to the stream phase's output."""
     import torch
 
     from duplexumiconsensusreads_torch.kernels import cluster_fixpoint as cf
@@ -1248,7 +1550,7 @@ def stream_turns(in_bam: str, out_bam: str, gp, cp, settings: dict, td: str, smi
         out = os.path.join(td, f"turn{i}.bam")
         trace = os.path.join(td, f"turn{i}.trace.jsonl")
         if turn == "plain":
-            grouping.propagate_min = cf.propagate_min_plain
+            grouping.directional_cluster = cf.directional_cluster_plain
         torch.cuda.synchronize()
         reset_launches()
         try:
@@ -1257,10 +1559,10 @@ def stream_turns(in_bam: str, out_bam: str, gp, cp, settings: dict, td: str, smi
                                         **settings)
             wall = time.monotonic() - t0
         finally:
-            grouping.propagate_min = cf.propagate_min
-        n_fix = cf.propagate_min.launches
+            grouping.directional_cluster = cf.directional_cluster
+        n_fix = cf.directional_cluster.launches
         if (n_fix > 0) != (turn == "kernel"):
-            raise AssertionError(f"turn {i} ({turn}): {n_fix} fixpoint launches")
+            raise AssertionError(f"turn {i} ({turn}): {n_fix} directional_cluster launches")
         if read_bytes(out) != want:
             raise AssertionError(f"turn {i} ({turn}): output differs from the stream phase's")
         recs = report.load_trace(trace)
@@ -1270,7 +1572,7 @@ def stream_turns(in_bam: str, out_bam: str, gp, cp, settings: dict, td: str, smi
             "dispatch_busy_s": rep.seconds["dispatch"],
             "device_wait_fetch_busy_s": rep.seconds["device_wait_fetch"],
             "main_loop_stall_share": rep.seconds["main_loop_stall"] / wall,
-            "wire_floor": ledger.wire_floor(recs), "fixpoint_launches": n_fix,
+            "wire_floor": ledger.wire_floor(recs), "directional_cluster_launches": n_fix,
             "segment_gemm_launches": kernel_wrappers()["segment_gemm"].launches,
             "bytes_identical_to_stream": True})
         os.remove(out)
@@ -1856,7 +2158,7 @@ class LaneKeeper:
         for mod in (sharded, stream):
             self._patch(mod, "lane_streams", streams)
         self._patch(consensus, "segment_gemm", kept("segment_gemm"))
-        self._patch(grouping, "propagate_min", kept("cluster_fixpoint"))
+        self._patch(grouping, "directional_cluster", kept("directional_cluster"))
         self._patch(pipeline, "group_kernel", kept("group_kernel"))
         return self
 
@@ -1967,7 +2269,8 @@ def mesh_phase(in_bam: str, step_bam: str, td: str, smi: str):
         if any(b != ref for b in out.values()):
             raise AssertionError("mesh: stream bytes moved with the lane count or d2h rung")
         for k, per in lane_launches.items():
-            if sorted(per) != list(range(lanes)) or min(per.values()) == 0:
+            if k in PATH_KERNELS and (sorted(per) != list(range(lanes))
+                                      or min(per.values()) == 0):
                 raise AssertionError(f"mesh: {k} launched per lane {per} (want all {lanes})")
             if sum(per.values()) != launches[k]:
                 raise AssertionError(f"mesh: {k}'s lanes {per} do not sum to {launches[k]}")
@@ -1979,12 +2282,12 @@ def mesh_phase(in_bam: str, step_bam: str, td: str, smi: str):
         held = {}
         for lane in range(lanes):
             (big, fid, f_max), _ = last[("segment_gemm", lane)]
-            (edge, s0, u_pos), _ = last[("cluster_fixpoint", lane)]
+            table, _ = last[("directional_cluster", lane)]
             with torch.cuda.device(big.device):
                 e1 = (sg.segment_gemm(big, fid, f_max)
                       - sg.segment_gemm_plain(big, fid, f_max)).abs().max().item()
-                e2 = (cf.propagate_min(edge, s0, u_pos)
-                      - cf.propagate_min_plain(edge, s0, u_pos)).abs().max().item()
+                e2 = max((a.long() - b.long()).abs().max().item() for a, b in
+                         zip(cf.directional_cluster(*table), cf.directional_cluster_plain(*table)))
                 g_args, g_kw = last[("group_kernel", lane)]
                 torch.cuda.synchronize(big.device)
                 torch.cuda.set_sync_debug_mode("error")
@@ -1996,8 +2299,10 @@ def mesh_phase(in_bam: str, step_bam: str, td: str, smi: str):
             if e1 != 0 or e2 != 0:
                 raise AssertionError(f"mesh: lane {lane}'s kernels differ from plain: {e1}, {e2}")
             held[lane] = {"device": str(big.device), "segment_gemm_shape": list(big.shape),
-                          "segment_gemm_max_abs_err": e1, "fixpoint_shape": list(edge.shape),
-                          "fixpoint_max_abs_err": e2, "group_kernel_sync_debug": "ran through"}
+                          "segment_gemm_max_abs_err": e1,
+                          "directional_cluster_shape": list(table[0].shape),
+                          "directional_cluster_max_abs_err": e2,
+                          "group_kernel_sync_debug": "ran through"}
         del last
         # the whole-file path on a config3 slice
         gp3, cp3, _ = params_for("config3")
@@ -2082,6 +2387,7 @@ from duplexumiconsensusreads_torch.serve import daemon
 rc = daemon.main(sys.argv[2:])
 with open(sys.argv[1], "w") as f:
     json.dump({{"segment_gemm": segment_gemm.segment_gemm.launches,
+               "directional_cluster": cluster_fixpoint.directional_cluster.launches,
                "cluster_fixpoint": cluster_fixpoint.propagate_min.launches}}, f)
 sys.exit(rc)
 """
@@ -2235,7 +2541,7 @@ def entry_phase(smi: str):
     0), then ``dryrun_multichip(2)`` on two lanes of cuda:0 (two CUDA
     streams of one card; every card a lane where there are two or
     more). Returns (entry launches, dry-run launches, segment_gemm case,
-    fixpoint case)."""
+    directional_cluster case)."""
     import numpy as np
     import torch
 
@@ -2249,7 +2555,8 @@ def entry_phase(smi: str):
     torch.cuda.synchronize()
     reset_launches()
     t0 = time.monotonic()
-    with Capture(consensus, "segment_gemm") as cap_s, Capture(grouping, "propagate_min") as cap_f:
+    with Capture(consensus, "segment_gemm") as cap_s, \
+            Capture(grouping, "directional_cluster") as cap_f:
         out = fn(*args)
         torch.cuda.synchronize()
     step_s = time.monotonic() - t0
@@ -2274,14 +2581,14 @@ def entry_phase(smi: str):
         raise AssertionError("entry: bases or quals apart between the card and the CPU")
     (big, fid, f_max), _ = cap_s.args
     seg_case = kernel_case(sg, "entry_step", big, fid, f_max)
-    (edge, s0, u_pos), _ = cap_f.args
-    got = cf.propagate_min(edge, s0, u_pos)
-    want = cf.propagate_min_plain(edge, s0, u_pos)
-    if not torch.equal(got, want):
-        raise AssertionError("entry: the fixpoint kernel differs from its plain version")
-    fix_case = {"case": "entry_step", "shape": list(edge.shape), "max_abs_err": 0,
+    table, _ = cap_f.args
+    got = cf.directional_cluster(*table)
+    want = cf.directional_cluster_plain(*table)
+    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError("entry: the directional_cluster kernel differs from its plain version")
+    fix_case = {"case": "entry_step", "shape": list(table[0].shape), "max_abs_err": 0,
                 "tolerance": 0}
-    del big, fid, edge, s0, u_pos, cap_s, cap_f
+    del big, fid, table, got, want, cap_s, cap_f
     lanes = 2
     cards = torch.cuda.device_count()
     torch.cuda.synchronize()
@@ -2295,7 +2602,7 @@ def entry_phase(smi: str):
          cons_valid=int(host["cons_valid"].sum()), card_vs_cpu={
              "integers_identical": True, "max_qual_diff": int(np.where(tie, 0, dq).max()),
              "tie_cycles": int(tie.sum()), "cycles": int(sa.size)},
-         launches=launches, segment_gemm_case=seg_case, fixpoint_case=fix_case,
+         launches=launches, segment_gemm_case=seg_case, directional_cluster_case=fix_case,
          dryrun={"cards": min(cards, lanes), "lanes": lanes, "seconds": round(dry_s, 3),
                  "balance": balance, "launches": dry},
          nvidia_smi=smi)
@@ -2650,7 +2957,7 @@ def shard_phase(in_bam: str, ref: str, unsharded_s: float, td: str, smi: str,
     launches = {}
     for c in counts:
         launches = add_launches(launches, c)
-    if min(launches.values()) == 0:
+    if not path_launched(launches):
         raise AssertionError(f"the shard path launched {launches}")
     with contextlib.redirect_stdout(io.StringIO()) as buf:
         rc = cli_main(["call", "--wait", jid, "--spool", spool, "--wait-timeout", "60", "--json"])
@@ -2760,6 +3067,7 @@ t0 = time.monotonic()
 rc = main(sys.argv[2:])
 with open(sys.argv[1], "w") as f:
     json.dump({{"segment_gemm": segment_gemm.segment_gemm.launches,
+               "directional_cluster": cluster_fixpoint.directional_cluster.launches,
                "cluster_fixpoint": cluster_fixpoint.propagate_min.launches,
                "wall_s": time.monotonic() - t0, "barriers": barriers}}, f)
 sys.exit(rc)
@@ -2869,14 +3177,14 @@ def multihost_phase(in_bam: str, td: str, smi: str) -> dict:
             raise AssertionError(f"host {pid} ran without the 2-process runtime: {err[-1000:]}")
         with open(c) as f:
             got = json.load(f)
-        if min(got["segment_gemm"], got["cluster_fixpoint"]) == 0:
+        if not path_launched(got):
             raise AssertionError(f"host {pid} launched {got}")
         b = {name: (t0_, t1_) for name, t0_, t1_ in got["barriers"]}
         hosts.append({"wall_s": round(got["wall_s"], 3),
-                      "launches": {k: got[k] for k in ("segment_gemm", "cluster_fixpoint")},
+                      "launches": {k: got[k] for k in kernel_wrappers()},
                       "index_election_s": round(b["duplexumi:index:done"][1]
                                                 - b["duplexumi:index:elect"][0], 3)})
-        launches = {k: launches.get(k, 0) + got[k] for k in ("segment_gemm", "cluster_fixpoint")}
+        launches = {k: launches.get(k, 0) + got[k] for k in kernel_wrappers()}
     if sorted(n for n in os.listdir(mh) if ".dlix" in n) != ["in.bam.dlix"]:
         raise AssertionError(f"multihost: index files {os.listdir(mh)}")
     parts = [(pid, os.path.join(mh, f"mh.host{pid}.bam")) for pid in range(2)]
@@ -3396,7 +3704,7 @@ def bench_phase(bench_cache: str, smi: str):
     problems += [f"no {k}" for k in want if k not in full]
     if full.get("serve_fleet_stitch_ok") is not True:
         problems.append(f"serve_fleet_stitch_ok {full.get('serve_fleet_stitch_ok')}")
-    if min(fleet_launches.values()) == 0:
+    if not path_launched(fleet_launches):
         problems.append(f"the fleet legs launched {fleet_launches}")
     for probe in ("wire_before_e2e", "wire_after_e2e"):
         p = full.get(probe, {})

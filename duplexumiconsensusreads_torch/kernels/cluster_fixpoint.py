@@ -1,52 +1,74 @@
-"""Directional-cluster fixpoint — grouping's min-ancestor propagation.
+"""Directional clustering — grouping's min-ancestor fixpoint, and the
+whole directional-cluster step around it.
 
-    s[n, j] = min(s0[n, j], min over every slot i that reaches j along
-              the directed edges edge[n, i, j])
+Two wrappers, each over every bucket n of a dispatch class at once:
 
-for every bucket n of a dispatch class at once: each unique-UMI slot
-ends at the least combined key ``rank * U + slot`` among the slots
-that reach it, which is its cluster seed (``kernels/grouping.py``).
+- :func:`directional_cluster`: the unique-UMI slot table of a class
+  (packed words, positions, read counts) -> each slot's cluster seed,
+  its molecule id and each bucket's molecule count. This is
+  ``group_kernel``'s adjacency/cluster branch (``kernels/grouping.py``).
+  On CUDA it launches the kernel ``directional_cluster_i32`` of
+  csrc/cluster_fixpoint.cu, which builds the directed UMI-tools edges,
+  the count ranks and the molecule ids of each bucket in shared memory,
+  so no (N, U, U) tensor is written; on a CPU tensor it runs
+  :func:`directional_cluster_plain`, the plain PyTorch version over the
+  (N, U, U) grids.
+- :func:`propagate_min`: the fixpoint alone over a given edge grid,
 
-The JAX package propagates in a ``lax.while_loop`` on the device
+      s[n, j] = min(s0[n, j], min over every slot i that reaches j along
+                the directed edges edge[n, i, j])
+
+  (kernel ``cluster_fixpoint_i32``, plain version
+  :func:`propagate_min_plain`). Grouping no longer calls it; it is kept
+  as the smallest form of the shared sweep.
+
+Each unique-UMI slot ends at the least combined key ``rank * U + slot``
+among the slots that reach it, which is its cluster seed. The JAX
+package propagates in a ``lax.while_loop`` on the device
 (duplexumiconsensusreads_tpu/kernels/grouping.py:160), one Jacobi sweep
 per iteration until no slot changes, at most U sweeps. PyTorch has no
-loop on the device, so on CUDA the wrapper launches the hand-written
-kernel csrc/cluster_fixpoint.cu: one block per bucket sweeps to its own
-fixpoint in shared memory, and the host neither waits nor reads
-anything back. On a CPU tensor it runs :func:`propagate_min_plain`, the
-batched Jacobi loop, which checks for a change on the host once per
-sweep.
+loop on the device: the plain version checks for a change on the host
+once per sweep, while the kernels run each bucket to its own fixpoint in
+one block and the host neither waits nor reads anything back.
 
 The fixpoint is unique, so the sweep order cannot change it: the
-kernel updates in place (Gauss-Seidel), visits only each slot's
+kernels update in place (Gauss-Seidel), visit only each slot's
 position-group range (an edge joins two slots of one position, and the
-slots are sorted by position), and returns the plain loop's keys bit
-for bit. Contract: ``edge[n, i, j]`` is set only where
-``u_pos[n, i] == u_pos[n, j] != I32_MAX``, an edge between two valid
-slots of one position (``_directional_cluster``'s edge grid ANDs both
-in).
+slots are sorted by position; unsorted positions take a full scan), and
+return the plain loop's keys bit for bit. ``propagate_min``'s contract:
+``edge[n, i, j]`` is set only where ``u_pos[n, i] == u_pos[n, j] !=
+I32_MAX``, an edge between two valid slots of one position (the plain
+edge build ANDs both in).
 """
 
 from __future__ import annotations
 
 import ctypes
+import operator
 import threading
 
 import torch
 
 from duplexumiconsensusreads_torch.kernels.build import device_guard, load
+from duplexumiconsensusreads_torch.kernels.encoding import CODES_PER_WORD, n_umi_words
 
 I32_MAX = 2**31 - 1
-# the kernel keeps s, u_pos and the CSR offsets in shared memory (12
-# bytes a slot) and a slot index in 16 bits
+# both kernels keep their keys and CSR offsets in shared memory and a
+# slot index in 16 bits
 MAX_U = 16384
 # the dynamic shared memory a block may ask for on sm_90 (227 KB, less
 # 1 KB for the kernel's static scratch)
 SMEM_LIMIT = 231_424
 # the in-neighbour list's default length, in i16 entries (32 KB): at
-# u_max 2048 a block then asks for 57 KB, so three fit an SM. A bucket
-# with more in-group edges sweeps over the edge grid instead
+# u_max 2048 a propagate_min block then asks for 57 KB, so three fit an
+# SM. A bucket with more in-group edges sweeps over the edge grid (or
+# runs the edge test again) instead
 LIST_CAP = 16384
+# directional_cluster's kernel keeps its keys and CSR offsets in shared
+# memory (8 bytes a slot), and the slot table too (4 (W + 2) bytes a
+# slot) where that leaves a list of at least MIN_LIST entries; else the
+# block reads the table from global memory
+MIN_LIST = 4096
 
 
 def propagate_min_plain(edge: torch.Tensor, s0: torch.Tensor, u_pos: torch.Tensor) -> torch.Tensor:
@@ -64,6 +86,111 @@ def propagate_min_plain(edge: torch.Tensor, s0: torch.Tensor, u_pos: torch.Tenso
             break
         s = new
     return s
+
+
+def _pairwise_less_eq(primary_less, primary_eq, words):
+    """Lexicographic pairwise compare on an (N, U, U) grid: extends the
+    primary key's less/eq masks with the word columns of ``words``
+    (N, U, W). Orientation: out_less[n, i, j] == key_j < key_i (so a
+    row-sum over valid j is key_i's rank)."""
+    less, eq = primary_less, primary_eq
+    for k in range(words.shape[-1]):
+        a = words[..., k]
+        aj, ai = a[:, None, :], a[:, :, None]
+        less = less | (eq & (aj < ai))
+        eq = eq & (aj == ai)
+    return less, eq
+
+
+def _unpack_codes(u_words: torch.Tensor, u_valid: torch.Tensor, umi_len: int) -> torch.Tensor:
+    """(N, U, W) packed words -> (N, U, umi_len) i32 codes in {0..3}
+    (encoding.pack_umi_words inverted), 0 on empty slots."""
+    n, u, w = u_words.shape
+    shifts = torch.arange(CODES_PER_WORD - 1, -1, -1, dtype=torch.int32,
+                          device=u_words.device) * 2
+    codes = ((u_words[..., None] >> shifts) & 3).reshape(n, u, w * CODES_PER_WORD)
+    return torch.where(u_valid[..., None], codes[..., :umi_len], 0)
+
+
+def cluster_edges_plain(u_words, u_pos, u_cnt, umi_len: int, max_hamming: int,
+                        count_ratio: int):
+    """The plain edge build: the directed UMI-tools edge grid (N, U, U)
+    bool and the start keys s0 = rank * U + slot (N, U) i32, rank by
+    (-count, packed words) over the valid slots; an empty slot (u_pos
+    I32_MAX) starts at U * U + slot and has no edge. Hamming distances
+    come from a one-hot product of the codes: the entries are 0/1, so
+    the f32 product is exact (integer sums far below 2^24), and stays
+    exact under TF32 too, which rounds inputs but represents 0 and 1."""
+    n, u, _ = u_words.shape
+    if (u + 1) * u >= 2**31:
+        raise ValueError(f"u_max {u} overflows the i32 combined seed key")
+    dev = u_words.device
+    u_valid = u_pos != I32_MAX
+    u_codes = _unpack_codes(u_words, u_valid, umi_len)
+    b = u_codes.shape[-1]
+    onehot = (
+        u_codes[..., None] == torch.arange(4, dtype=u_codes.dtype, device=dev)
+    ).to(torch.float32).reshape(n, u, 4 * b)
+    matches = torch.bmm(onehot, onehot.transpose(1, 2))
+    ham = b - matches.to(torch.int32)
+    eye = torch.eye(u, dtype=torch.bool, device=dev)
+    edge = (
+        (ham <= max_hamming)
+        & (u_pos[:, :, None] == u_pos[:, None, :])
+        & (u_cnt[:, :, None] >= count_ratio * u_cnt[:, None, :] - 1)
+        & u_valid[:, :, None]
+        & u_valid[:, None, :]
+        & ~eye
+    )
+    del matches, ham
+
+    # rank by (-count, packed UMI words): pairwise compare-count
+    cj, ci = u_cnt[:, None, :], u_cnt[:, :, None]
+    less, _ = _pairwise_less_eq(cj > ci, cj == ci, u_words)
+    rank = (less & u_valid[:, None, :]).sum(dim=2, dtype=torch.int32)
+    del less
+    idx = torch.arange(u, dtype=torch.int32, device=dev)
+    s0 = torch.where(u_valid, rank, torch.full_like(rank, u)) * u + idx
+    return edge, s0
+
+
+def directional_cluster_plain(u_words, u_pos, u_cnt, umi_len: int, max_hamming: int,
+                              count_ratio: int):
+    """Plain PyTorch version, on any device: (seed, mid_of_slot, n_mol).
+
+    The edge grid and start keys of :func:`cluster_edges_plain`, the
+    fixpoint by :func:`propagate_min_plain` (seed = key % U), then the
+    molecule ids: a slot's cluster key is (pos, words of its seed), and
+    mid = the number of distinct valid keys below it, each key counted
+    at its first slot; I32_MAX on empty slots. n_mol (N,) counts the
+    distinct keys. The JAX package's _directional_cluster and the
+    molecule-rank block of its group_kernel, step for step."""
+    n, u, w = u_words.shape
+    dev = u_words.device
+    edge, s0 = cluster_edges_plain(u_words, u_pos, u_cnt, umi_len, max_hamming, count_ratio)
+    seed = propagate_min_plain(edge, s0, u_pos) % u
+    del edge, s0
+
+    u_valid = u_pos != I32_MAX
+    imax = torch.full((), I32_MAX, dtype=torch.int32, device=dev)
+    seed_words = torch.gather(u_words, 1, seed.long()[..., None].expand(-1, -1, w))
+    key_w = torch.where(u_valid[..., None], seed_words, imax)
+    key_p = torch.where(u_valid, u_pos, imax)
+    kless, keq = _pairwise_less_eq(
+        key_p[:, None, :] < key_p[:, :, None],
+        key_p[:, None, :] == key_p[:, :, None],
+        key_w,
+    )
+    idx_u = torch.arange(u, device=dev)
+    earlier = idx_u[None, :] < idx_u[:, None]
+    firstk = ~(keq & earlier).any(dim=2)
+    del keq
+    fv = firstk & u_valid
+    mid_raw_t = (kless & fv[:, None, :]).sum(dim=2, dtype=torch.int32)
+    del kless
+    n_mol = fv.sum(dim=1, dtype=torch.int32)
+    mid_of_slot = torch.where(u_valid, mid_raw_t, imax)
+    return seed, mid_of_slot, n_mol
 
 
 def _check(edge: torch.Tensor, s0: torch.Tensor, u_pos: torch.Tensor) -> None:
@@ -141,7 +268,108 @@ def _kernel():
     return _FN
 
 
+def cluster_smem_bytes(u: int, w: int, table_in_smem: bool, list_cap: int) -> int:
+    """directional_cluster's dynamic shared memory: keys and offsets
+    (i32), the slot table if it is held there, then the i16 list."""
+    return 4 * (2 * u + 1) + (4 * u * (w + 2) if table_in_smem else 0) + 2 * list_cap
+
+
+def cluster_plan(u: int, w: int) -> tuple[bool, int]:
+    """(whether the slot table goes into shared memory, the list's
+    length in entries) for a table of u slots of w words."""
+    in_smem = cluster_smem_bytes(u, w, True, MIN_LIST) <= SMEM_LIMIT
+    room = SMEM_LIMIT - cluster_smem_bytes(u, w, in_smem, 0)
+    return in_smem, max(0, min(LIST_CAP, room // 2))
+
+
+def _check_table(u_words, u_pos, u_cnt, umi_len, max_hamming, count_ratio) -> None:
+    if not (u_words.dtype == u_pos.dtype == u_cnt.dtype == torch.int32):
+        raise TypeError(
+            f"directional_cluster wants i32 words, positions and counts, got "
+            f"{u_words.dtype} / {u_pos.dtype} / {u_cnt.dtype}"
+        )
+    if u_words.dim() != 3 or u_pos.shape != u_words.shape[:2] or u_cnt.shape != u_pos.shape:
+        raise ValueError(
+            f"directional_cluster wants words (N, U, W), positions and counts (N, U), got "
+            f"{tuple(u_words.shape)} / {tuple(u_pos.shape)} / {tuple(u_cnt.shape)}"
+        )
+    if u_words.shape[-1] != n_umi_words(umi_len):
+        raise ValueError(f"{u_words.shape[-1]} words do not hold a {umi_len}-base UMI")
+    if not (u_words.device == u_pos.device == u_cnt.device):
+        raise ValueError(
+            f"words on {u_words.device}, positions on {u_pos.device}, counts on {u_cnt.device}"
+        )
+    for name, v in (("max_hamming", max_hamming), ("count_ratio", count_ratio)):
+        try:
+            ok = -(2**31) <= operator.index(v) < 2**31
+        except TypeError:
+            ok = False
+        if not ok:
+            raise ValueError(f"{name} must be an i32 integer, got {v!r}")
+
+
+def directional_cluster(u_words: torch.Tensor, u_pos: torch.Tensor, u_cnt: torch.Tensor,
+                        umi_len: int, max_hamming: int, count_ratio: int):
+    """The slot table of a dispatch class -- (N, U, W) i32 packed UMI
+    words (I32_MAX on empty slots), (N, U) i32 positions (I32_MAX on
+    empty slots) and read counts -- and the UMI length, Hamming limit
+    and count ratio -> (seed (N, U) i32, mid_of_slot (N, U) i32, n_mol
+    (N,) i32), bit-identical to :func:`directional_cluster_plain`.
+
+    CUDA tensors launch the hand-written kernel, one launch per call
+    (and raise if it cannot launch), with nothing of size U x U in
+    device memory; CPU tensors take the plain version. Every launch adds
+    one to ``directional_cluster.launches`` and to
+    ``directional_cluster.stream_launches[(device index, stream handle)]``
+    of the stream it was queued on (under a lock: the streaming
+    executor's transfer workers launch at once)."""
+    _check_table(u_words, u_pos, u_cnt, umi_len, max_hamming, count_ratio)
+    dev = u_words.device
+    if dev.type == "cpu":
+        return directional_cluster_plain(u_words, u_pos, u_cnt, umi_len, max_hamming,
+                                         count_ratio)
+    if dev.type != "cuda":
+        raise ValueError(f"directional_cluster runs on cuda or cpu tensors, not {dev}")
+    n, u, w = u_words.shape
+    if u > MAX_U:
+        raise ValueError(f"directional_cluster's kernel takes u_max <= {MAX_U}, got {u}")
+    seed = torch.empty((n, u), dtype=torch.int32, device=dev)
+    mid = torch.empty_like(seed)
+    n_mol = torch.empty((n,), dtype=torch.int32, device=dev)
+    if n == 0:
+        return seed, mid, n_mol
+    in_smem, cap = cluster_plan(u, w)
+    u_words, u_pos, u_cnt = u_words.contiguous(), u_pos.contiguous(), u_cnt.contiguous()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with device_guard(dev):
+        rc = _cluster_kernel()(u_words.data_ptr(), u_pos.data_ptr(), u_cnt.data_ptr(),
+                               seed.data_ptr(), mid.data_ptr(), n_mol.data_ptr(),
+                               n, u, w, cap, int(in_smem), operator.index(max_hamming),
+                               operator.index(count_ratio), stream)
+    if rc != 0:
+        raise RuntimeError(f"directional_cluster kernel launch failed (cudaError {rc})")
+    with _COUNT_LOCK:
+        directional_cluster.launches += 1
+        on = (dev.index, stream)
+        directional_cluster.stream_launches[on] = directional_cluster.stream_launches.get(on, 0) + 1
+    return seed, mid, n_mol
+
+
+def _cluster_kernel():
+    """directional_cluster's C entry point, built and bound at first use."""
+    global _CLUSTER_FN
+    if _CLUSTER_FN is None:
+        fn = load("cluster_fixpoint").directional_cluster_i32
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _CLUSTER_FN = fn
+    return _CLUSTER_FN
+
+
 _FN = None
+_CLUSTER_FN = None
 propagate_min.launches = 0
 propagate_min.stream_launches = {}
+directional_cluster.launches = 0
+directional_cluster.stream_launches = {}
 _COUNT_LOCK = threading.Lock()

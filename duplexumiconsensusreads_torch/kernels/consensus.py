@@ -55,6 +55,22 @@ def _phred_from_err(err: torch.Tensor, max_qual: int) -> torch.Tensor:
     return torch.clamp(q, 2, max_qual).to(torch.int32)
 
 
+def _qual_logs(max_input_qual, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """(log1p(-e), log(e/3)) for each of the 256 u8 quality values: two
+    (256,) f32 tables. A quality's terms are a function of its value
+    alone, so evaluating them once per value gives every cycle the same
+    bits whatever the thread count: on the CPU an elementwise pass over
+    (N, R, L) is split among the intra-op threads, whose chunks may take
+    another code path of MKL's or Sleef's log (ROADMAP Faults 3). 256
+    values are one chunk on the calling thread, and each device computes
+    f(q) as its elementwise pass would."""
+    q = torch.clamp(torch.arange(256, dtype=torch.float32, device=device),
+                    max=float(max_input_qual))
+    e = torch.pow(10.0, -q / 10.0)
+    e = torch.clamp(e, min=MIN_ERROR_PROB)
+    return torch.log1p(-e), torch.log(e / 3.0)
+
+
 def _contributions(bases, quals, valid, max_input_qual, min_input_qual=0):
     """Per-read per-cycle evidence rows, zeroed for N/PAD/invalid and
     for bases below min_input_qual. bases/quals (..., R, L) u8, valid
@@ -63,11 +79,12 @@ def _contributions(bases, quals, valid, max_input_qual, min_input_qual=0):
     real = (bases < N_REAL_BASES) & valid[..., None]
     if min_input_qual > 0:
         real = real & (quals >= min_input_qual)
-    q = torch.clamp(quals.to(torch.float32), max=float(max_input_qual))
-    e = torch.pow(10.0, -q / 10.0)
-    e = torch.clamp(e, min=MIN_ERROR_PROB)
-    log_match = torch.log1p(-e)
-    log_mis = torch.log(e / 3.0)
+    if quals.dtype != torch.uint8:
+        raise TypeError(f"_contributions wants u8 quals, got {quals.dtype}")
+    log_match_t, log_mis_t = _qual_logs(max_input_qual, quals.device)
+    qi = quals.reshape(-1).to(torch.int32)
+    log_match = log_match_t.index_select(0, qi).reshape(quals.shape)
+    log_mis = log_mis_t.index_select(0, qi).reshape(quals.shape)
     onehot = bases[..., None] == torch.arange(
         N_REAL_BASES, dtype=bases.dtype, device=bases.device
     )

@@ -17,8 +17,10 @@ written out. The algorithm is the same, step for step:
    minimum ancestor key ``rank * U + index`` to a fixpoint — each UMI
    joins the minimum-rank node that reaches it, which is the oracle's
    BFS-with-removal seed (see the JAX module's docstring for the
-   proof). On CUDA the fixpoint is the kernel of
-   ``kernels/cluster_fixpoint.py``.
+   proof). ``kernels/cluster_fixpoint.py:directional_cluster`` does this
+   and step 4's molecule ids in one call: on CUDA one kernel launch
+   that builds the edges, ranks and ids of each bucket in shared memory
+   (no (N, U, U) tensor), on the CPU the plain version over the grids.
 4. Dense ids come from the table: molecule id = rank of the slot's
    cluster key (pos, seed words); family/unit ids = presence-cumsum
    ranks over the (molecule, frag_end, strand) embeddings.
@@ -33,24 +35,10 @@ from __future__ import annotations
 import torch
 
 from duplexumiconsensusreads_torch.constants import NO_FAMILY
-from duplexumiconsensusreads_torch.kernels.cluster_fixpoint import propagate_min
+from duplexumiconsensusreads_torch.kernels.cluster_fixpoint import directional_cluster
 from duplexumiconsensusreads_torch.kernels.encoding import pack_umi_words
 
 I32_MAX = 2**31 - 1
-
-
-def _pairwise_less_eq(primary_less, primary_eq, words):
-    """Lexicographic pairwise compare on an (N, U, U) grid: extends the
-    primary key's less/eq masks with the word columns of ``words``
-    (N, U, W). Orientation: out_less[n, i, j] == key_j < key_i (so a
-    row-sum over valid j is key_i's rank)."""
-    less, eq = primary_less, primary_eq
-    for k in range(words.shape[-1]):
-        a = words[..., k]
-        aj, ai = a[:, None, :], a[:, :, None]
-        less = less | (eq & (aj < ai))
-        eq = eq & (aj == ai)
-    return less, eq
 
 
 def _run_ids(keys: list[torch.Tensor]) -> torch.Tensor:
@@ -73,45 +61,6 @@ def _scatter_set(n: int, slots: int, tail: tuple, fill, dtype, index, src):
         idx = idx.reshape(*idx.shape, *([1] * len(tail))).expand(*idx.shape, *tail)
     out.scatter_(1, idx, src.to(dtype))
     return out[:, :slots]
-
-
-def _directional_cluster(u_words, u_codes, u_pos, u_cnt, u_valid, max_hamming, count_ratio):
-    """Seed slot index per unique-UMI slot: (N, U) i32."""
-    n, u, b = u_codes.shape
-    if (u + 1) * u >= 2**31:
-        raise ValueError(f"u_max {u} overflows the i32 combined seed key")
-    dev = u_codes.device
-    # Hamming distance via a one-hot product. The entries are 0/1, so
-    # the f32 product is exact (integer sums far below 2^24) — and stays
-    # exact under TF32 too, which rounds inputs but represents 0 and 1.
-    onehot = (
-        u_codes[..., None] == torch.arange(4, dtype=u_codes.dtype, device=dev)
-    ).to(torch.float32).reshape(n, u, 4 * b)
-    matches = torch.bmm(onehot, onehot.transpose(1, 2))
-    ham = b - matches.to(torch.int32)
-    eye = torch.eye(u, dtype=torch.bool, device=dev)
-    edge = (
-        (ham <= max_hamming)
-        & (u_pos[:, :, None] == u_pos[:, None, :])
-        & (u_cnt[:, :, None] >= count_ratio * u_cnt[:, None, :] - 1)
-        & u_valid[:, :, None]
-        & u_valid[:, None, :]
-        & ~eye
-    )
-    del matches, ham
-
-    # rank by (-count, packed UMI words): pairwise compare-count
-    cj, ci = u_cnt[:, None, :], u_cnt[:, :, None]
-    less, _ = _pairwise_less_eq(cj > ci, cj == ci, u_words)
-    rank = (less & u_valid[:, None, :]).sum(dim=2, dtype=torch.int32)
-    del less
-    idx = torch.arange(u, dtype=torch.int32, device=dev)
-    s = torch.where(u_valid, rank, torch.full_like(rank, u)) * u + idx
-
-    # min-ancestor propagation to the fixpoint: the hand-written kernel
-    # on CUDA (one launch, no host sync), the batched while loop on the
-    # CPU (kernels/cluster_fixpoint.py)
-    return propagate_min(edge, s, u_pos) % u
 
 
 def group_kernel(
@@ -167,7 +116,6 @@ def group_kernel(
         spos = torch.gather(spos, 1, order)
         swords = torch.gather(swords, 1, order[..., None].expand(-1, -1, w))
         svalid = torch.gather(valid, 1, order)
-        umi_codes = torch.gather(umi_codes, 1, order[..., None].expand(-1, -1, umi_codes.shape[-1]))
         strand_ab = torch.gather(strand_ab, 1, order)
         frag_end = torch.gather(frag_end, 1, order)
 
@@ -179,40 +127,20 @@ def group_kernel(
     tslot = torch.where(first, torch.clamp(uid, max=u_max), torch.full_like(uid, u_max))
     u_words = _scatter_set(n, u_max, (w,), I32_MAX, torch.int32, tslot, swords)
     u_pos = _scatter_set(n, u_max, (), I32_MAX, torch.int32, tslot, spos)
-    u_valid = u_pos != I32_MAX
     in_table = uid < u_max
     ok_sorted = svalid & in_table
 
     if strategy == "exact":
         mid_of_slot = torch.arange(u_max, dtype=torch.int32, device=dev).expand(n, u_max)
-        n_mol = u_valid.sum(dim=1, dtype=torch.int32)
+        n_mol = (u_pos != I32_MAX).sum(dim=1, dtype=torch.int32)
     else:
-        codes = umi_codes.to(torch.int32)
-        u_codes = _scatter_set(n, u_max, (codes.shape[-1],), 0, torch.int32, tslot, codes)
         cnt_slot = torch.clamp(uid, max=u_max).long()
         u_cnt = torch.zeros(n, u_max + 1, dtype=torch.int32, device=dev)
         u_cnt.scatter_add_(1, cnt_slot, svalid.to(torch.int32))
         u_cnt = u_cnt[:, :u_max]
-        seed = _directional_cluster(
-            u_words, u_codes, u_pos, u_cnt, u_valid, max_hamming, count_ratio
+        _seed, mid_of_slot, n_mol = directional_cluster(
+            u_words, u_pos, u_cnt, umi_codes.shape[-1], max_hamming, count_ratio
         )
-        seed_words = torch.gather(u_words, 1, seed.long()[..., None].expand(-1, -1, w))
-        key_w = torch.where(u_valid[..., None], seed_words, imax)
-        key_p = torch.where(u_valid, u_pos, imax)
-        kless, keq = _pairwise_less_eq(
-            key_p[:, None, :] < key_p[:, :, None],
-            key_p[:, None, :] == key_p[:, :, None],
-            key_w,
-        )
-        idx_u = torch.arange(u_max, device=dev)
-        earlier = idx_u[None, :] < idx_u[:, None]
-        firstk = ~(keq & earlier).any(dim=2)
-        del keq
-        fv = firstk & u_valid
-        mid_raw_t = (kless & fv[:, None, :]).sum(dim=2, dtype=torch.int32)
-        del kless
-        n_mol = fv.sum(dim=1, dtype=torch.int32)
-        mid_of_slot = torch.where(u_valid, mid_raw_t, imax)
 
     slot_c = torch.clamp(uid, max=u_max - 1).long()
     mid_raw = torch.gather(mid_of_slot, 1, slot_c)

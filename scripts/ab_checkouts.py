@@ -1,0 +1,209 @@
+"""Compare this checkout's port with another checkout's on one device.
+
+    python scripts/ab_checkouts.py --other DIR
+        [--reads 600000] [--chunk-reads 150000] [--reps 10] [--device cuda]
+        [--json OUT]
+
+DIR is the root of another checkout of the repository (an unpacked
+``git archive`` of a parent commit, say). One config5 input (the
+simulator's duplex model at read_len 150, family size 4, umi_error
+0.01, seed 7; ``--reads`` reads) is simulated once by this checkout;
+then each checkout, in its own subprocess and in turns other, this,
+this, other, builds its kernels and on the device:
+
+- runs the whole-file call (capacity 2048) and the streaming call
+  (``--chunk-reads`` chunks) on the input, and hashes both outputs;
+- takes the largest dispatch class of the whole-file call and times,
+  with CUDA events over ``--reps`` calls after a warm-up, the fused
+  step, ``group_kernel``, and the grouping function each checkout's
+  ``group_kernel`` calls for its unique-UMI table (``directional_cluster``,
+  or ``_directional_cluster`` in a checkout that has it), each timed
+  inside one ``group_kernel`` call.
+
+Prints one JSON line per turn and, last, the summary: whether every
+turn's outputs are byte-identical to the first's, and each checkout's
+mean of its two turns. ``--device cpu`` checks the bytes only (no
+device times). A device measurement that finds no card fails.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import tempfile
+
+# the turn a subprocess runs, with the checkout's root first on sys.path;
+# its arguments come in the environment, so that both checkouts' @PG
+# lines (which carry the command line) are the same
+CHILD = r"""
+import hashlib, json, os, sys, time
+root, in_bam, td, device = (os.environ[k] for k in ("AB_ROOT", "AB_IN", "AB_TD", "AB_DEVICE"))
+chunk_reads, reps = int(os.environ["AB_CHUNK_READS"]), int(os.environ["AB_REPS"])
+sys.path.insert(0, root)
+import torch
+from duplexumiconsensusreads_torch.cli.main import params_for
+from duplexumiconsensusreads_torch.kernels import grouping
+from duplexumiconsensusreads_torch.ops import pipeline
+from duplexumiconsensusreads_torch.runtime.executor import call_consensus_file
+from duplexumiconsensusreads_torch.runtime.stream import stream_call_consensus
+
+if device == "cuda":
+    from duplexumiconsensusreads_torch.kernels import build
+    build.build_all()
+gp, cp, _ = params_for("config5")
+out = {"root": root}
+
+def digest(path):
+    with open(path, "rb") as f:
+        return hashlib.sha256(f.read()).hexdigest()
+
+largest = {}
+inner = pipeline.fused_pipeline
+def keep(*args, **kw):
+    if args[0].numel() > largest.get("size", -1):
+        largest.update(size=args[0].numel(), args=args, kw=kw)
+    return inner(*args, **kw)
+pipeline.fused_pipeline = keep
+try:
+    t0 = time.monotonic()
+    call_consensus_file(in_bam, os.path.join(td, "whole.bam"), gp, cp, capacity=2048,
+                        device=device)
+    out["whole_file_s"] = time.monotonic() - t0
+finally:
+    pipeline.fused_pipeline = inner
+out["whole_file_sha256"] = digest(os.path.join(td, "whole.bam"))
+t0 = time.monotonic()
+stream_call_consensus(in_bam, os.path.join(td, "stream.bam"), gp, cp, capacity=2048,
+                      chunk_reads=chunk_reads, device=device)
+out["stream_s"] = time.monotonic() - t0
+out["stream_sha256"] = digest(os.path.join(td, "stream.bam"))
+
+if device == "cuda":
+    args, kw = largest["args"], largest["kw"]
+    out["class_shape"] = list(args[0].shape)
+    seen = {}
+    g_inner = pipeline.group_kernel
+    def keep_g(*a, **k):
+        seen["group"] = (a, k)
+        return g_inner(*a, **k)
+    pipeline.group_kernel = keep_g
+    try:
+        pipeline.fused_pipeline(*args, **kw)
+    finally:
+        pipeline.group_kernel = g_inner
+    ga, gk = seen["group"]
+
+    def device_ms(fn):
+        fn()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / reps
+
+    out["step_ms"] = device_ms(lambda: pipeline.fused_pipeline(*args, **kw))
+    out["group_kernel_ms"] = device_ms(lambda: g_inner(*ga, **gk))
+    name = ("directional_cluster" if hasattr(grouping, "directional_cluster")
+            else "_directional_cluster")
+    spans = []
+    c_inner = getattr(grouping, name)
+    def timed(*a, **k):
+        ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        r = c_inner(*a, **k)
+        ev[1].record()
+        spans.append(ev)
+        return r
+    setattr(grouping, name, timed)
+    try:
+        for _ in range(reps):
+            g_inner(*ga, **gk)
+    finally:
+        setattr(grouping, name, c_inner)
+    torch.cuda.synchronize()
+    out["cluster_function"] = name
+    out["cluster_ms"] = sum(s.elapsed_time(e) for s, e in spans) / reps
+    out["device"] = torch.cuda.get_device_name(0)
+print(json.dumps(out), flush=True)
+"""
+
+
+def simulate(path: str, n_reads: int) -> None:
+    from duplexumiconsensusreads_torch.io import simulated_bam
+    from duplexumiconsensusreads_torch.simulate import SimConfig
+
+    n_mol = n_reads // 9
+    simulated_bam(SimConfig(n_molecules=n_mol, read_len=150, n_positions=max(8, n_mol // 48),
+                            mean_family_size=4, umi_error=0.01, duplex=True, seed=7),
+                  path=path, sort=True)
+
+
+def run_turn(root: str, in_bam: str, device: str, chunk_reads: int, reps: int) -> dict:
+    with tempfile.TemporaryDirectory(prefix="ab_turn_") as td:
+        env = dict(os.environ, AB_ROOT=root, AB_IN=in_bam, AB_TD=td, AB_DEVICE=device,
+                   AB_CHUNK_READS=str(chunk_reads), AB_REPS=str(reps))
+        proc = subprocess.run([sys.executable, "-c", CHILD], capture_output=True, text=True,
+                              cwd=root, env=env)
+    if proc.returncode != 0:
+        raise RuntimeError(f"the turn in {root} exited {proc.returncode}: {proc.stderr[-3000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--other", required=True, help="root of the other checkout")
+    ap.add_argument("--reads", type=int, default=600_000)
+    ap.add_argument("--chunk-reads", type=int, default=150_000)
+    ap.add_argument("--reps", type=int, default=10)
+    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    ap.add_argument("--json", help="write the summary here too")
+    a = ap.parse_args(argv)
+    if a.device == "cuda":
+        import torch
+
+        if not torch.cuda.is_available():
+            print("ab_checkouts: no CUDA device (--device cpu checks the bytes only)",
+                  file=sys.stderr)
+            return 2
+    this = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, this)
+    other = os.path.abspath(a.other)
+    if not os.path.isdir(os.path.join(other, "duplexumiconsensusreads_torch")):
+        print(f"ab_checkouts: {other} holds no duplexumiconsensusreads_torch", file=sys.stderr)
+        return 2
+    with tempfile.TemporaryDirectory(prefix="ab_checkouts_") as td:
+        in_bam = os.path.join(td, "in.bam")
+        simulate(in_bam, a.reads)
+        turns = []
+        for label, root in (("other", other), ("this", this), ("this", this), ("other", other)):
+            row = {"checkout": label, **run_turn(root, in_bam, a.device, a.chunk_reads, a.reps)}
+            print(json.dumps(row), flush=True)
+            turns.append(row)
+    first = turns[0]
+    identical = all(t[k] == first[k] for t in turns for k in ("whole_file_sha256",
+                                                               "stream_sha256"))
+    summary = {"reads": a.reads, "chunk_reads": a.chunk_reads, "device": a.device,
+               "outputs_identical": identical}
+    keys = ("step_ms", "group_kernel_ms", "cluster_ms", "whole_file_s", "stream_s")
+    for label in ("other", "this"):
+        rows = [t for t in turns if t["checkout"] == label]
+        summary[label] = {k: sum(r[k] for r in rows) / len(rows) for k in keys if k in rows[0]}
+        summary[label]["cluster_function"] = rows[0].get("cluster_function")
+    if a.device == "cuda":
+        summary["device_name"] = first["device"]
+        summary["class_shape"] = first["class_shape"]
+    print(json.dumps(summary), flush=True)
+    if a.json:
+        with open(a.json, "w") as f:
+            json.dump({"turns": turns, "summary": summary}, f, indent=1)
+    return 0 if identical else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -474,3 +474,31 @@ def test_bench_legs_on_the_cpu(tmp_path, monkeypatch, capsys):
                 "serve_wall_s", "serve_trace"):
         assert key in full, key
 
+
+
+def test_ab_checkouts_compares_two_checkouts_bytes_on_the_cpu(tmp_path, capsys):
+    """scripts/ab_checkouts.py on the CPU, this checkout against a copy of
+    its port: four turns, identical whole-file and stream bytes (the @PG
+    command line included), and no device times; without a card the
+    device mode refuses."""
+    import importlib.util
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location(
+        "ab_checkouts", os.path.join(repo, "scripts", "ab_checkouts.py"))
+    ab_checkouts = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ab_checkouts)
+    shutil.copytree(os.path.join(repo, "duplexumiconsensusreads_torch"),
+                    tmp_path / "duplexumiconsensusreads_torch",
+                    ignore=shutil.ignore_patterns("_build", "__pycache__"))
+    out = tmp_path / "ab.json"
+    rc = ab_checkouts.main(["--other", str(tmp_path), "--reads", "4000", "--chunk-reads", "1500",
+                            "--device", "cpu", "--json", str(out)])
+    assert rc == 0
+    lines = [json.loads(x) for x in capsys.readouterr().out.splitlines()]
+    assert [x["checkout"] for x in lines[:4]] == ["other", "this", "this", "other"]
+    summary = json.load(open(out))["summary"]
+    assert summary == lines[-1] and summary["outputs_identical"]
+    assert "group_kernel_ms" not in summary["this"]
+    if not torch.cuda.is_available():
+        assert ab_checkouts.main(["--other", str(tmp_path)]) == 2

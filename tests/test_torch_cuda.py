@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import cluster_case, largest_tensor
 from duplexumiconsensusreads_torch.kernels import segment_gemm as sg
 
 N_B, R, C, F = 3, 256, 70, 64
@@ -357,6 +358,50 @@ def test_cuda_fixpoint_matches_plain(kind, n, u, cuda):
         assert (got % u == u - 1).all()
 
 
+CLUSTER_CASES = [("groups", u, umi_len, h, r) for u in (8, 64, 512) for umi_len in (12, 18)
+                 for h in (0, 1, 2) for r in (0, 2)] + [
+    ("chain_up", 512, 12, 1, 1), ("chain_down", 512, 18, 1, 1), ("dense", 2048, 12, 12, 0),
+    ("unsorted", 512, 12, 1, 2), ("unsorted", 2048, 18, 2, 0), ("groups", 16384, 12, 1, 2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind, u, umi_len, max_hamming, count_ratio", CLUSTER_CASES)
+def test_cuda_directional_cluster_matches_plain(kind, u, umi_len, max_hamming, count_ratio, cuda):
+    # tolerance 0 on seed, mid_of_slot and n_mol; "dense" has more
+    # in-group edges than the kernel's list holds (its sweeps run the
+    # edge test again), u 16384 reads its table from global memory
+    from duplexumiconsensusreads_torch.kernels import cluster_fixpoint as cf
+
+    n = 2 if u >= 2048 else 3
+    words, pos, cnt = (torch.from_numpy(a).to(cuda) for a in
+                       cluster_case(kind, n, u, umi_len, np.random.default_rng(u + umi_len))[1:])
+    before = cf.directional_cluster.launches
+    on = (pos.device.index, torch.cuda.current_stream(pos.device).cuda_stream)
+    before_on = cf.directional_cluster.stream_launches.get(on, 0)
+    got = cf.directional_cluster(words, pos, cnt, umi_len, max_hamming, count_ratio)
+    torch.cuda.synchronize()
+    assert cf.directional_cluster.launches == before + 1
+    assert cf.directional_cluster.stream_launches[on] == before_on + 1
+    want = cf.directional_cluster_plain(words, pos, cnt, umi_len, max_hamming, count_ratio)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    if kind == "dense":
+        edge, _ = cf.cluster_edges_plain(words, pos, cnt, umi_len, max_hamming, count_ratio)
+        assert int(edge[0].sum()) > cf.cluster_plan(u, words.shape[-1])[1]
+    if u == cf.MAX_U:
+        assert not cf.cluster_plan(u, words.shape[-1])[0]
+
+
+@pytest.mark.cuda
+def test_cuda_directional_cluster_raises_instead_of_falling_back(cuda):
+    from duplexumiconsensusreads_torch.kernels import cluster_fixpoint as cf
+
+    words, pos, cnt = (torch.from_numpy(a).to(cuda) for a in
+                       cluster_case("groups", 1, cf.MAX_U * 2, 12, np.random.default_rng(0))[1:])
+    with pytest.raises(ValueError, match="u_max"):
+        cf.directional_cluster(words, pos, cnt, 12, 1, 2)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("strategy", ["adjacency", "cluster"])
 def test_cuda_group_kernel_matches_cpu_without_a_host_sync(strategy, cuda):
@@ -378,15 +423,20 @@ def test_cuda_group_kernel_matches_cpu_without_a_host_sync(strategy, cuda):
     want = group_kernel(*args, **kw)
     dev_args = [a.to(cuda) for a in args]
     torch.cuda.synchronize()
-    before = cf.propagate_min.launches
+    before = (cf.directional_cluster.launches, cf.propagate_min.launches)
     torch.cuda.set_sync_debug_mode("error")
     try:
         got = group_kernel(*dev_args, **kw)
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    assert cf.propagate_min.launches == before + 1
+    # one directional_cluster launch per dispatch class, and no (N, U, U)
+    # tensor: no torch operation of the call creates one
+    assert (cf.directional_cluster.launches, cf.propagate_min.launches) == (before[0] + 1,
+                                                                            before[1])
     for g, w in zip(got, want):
         assert torch.equal(g.cpu(), w)
+    size, _ = largest_tensor(lambda: group_kernel(*dev_args, **kw))
+    assert 0 < size < dev_args[0].shape[0] * 256 * 256
 
 
 @pytest.mark.cuda
@@ -413,13 +463,13 @@ def test_cuda_mesh_lanes_give_the_one_lane_bytes(cuda, tmp_path):
         outs = {}
         for name, kw in (("one", dict(n_devices=1)), ("two", dict(n_devices=2)),
                          ("cycle", dict(n_devices=2, cycle_shards=2))):
-            before = (sg.segment_gemm.launches, cluster_fixpoint.propagate_min.launches)
+            before = (sg.segment_gemm.launches, cluster_fixpoint.directional_cluster.launches)
             out = str(tmp_path / f"{name}.bam")
             rep = stream_call_consensus(path, out, gp, cp, capacity=128, chunk_reads=150,
                                         device="cuda", **kw)
             assert rep.n_devices == kw["n_devices"]
             assert sg.segment_gemm.launches > before[0]
-            assert cluster_fixpoint.propagate_min.launches > before[1]
+            assert cluster_fixpoint.directional_cluster.launches > before[1]
             outs[name] = open(out, "rb").read()
     finally:
         mesh.device_pool = inner

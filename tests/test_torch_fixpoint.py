@@ -1,11 +1,12 @@
 """Grouping's directional-cluster fixpoint in the torch port against the
 JAX package.
 
-``kernels/cluster_fixpoint.py`` splits the min-ancestor propagation off
-``_directional_cluster``: on CUDA a hand-written kernel sweeps each
-bucket to its fixpoint in place, in ascending slot order within a
+``kernels/cluster_fixpoint.py`` holds grouping's directional cluster
+and its min-ancestor propagation: on CUDA hand-written kernels sweep
+each bucket to its fixpoint in place, in ascending slot order within a
 thread's run, scanning only each slot's position-group range; on the
-CPU ``propagate_min_plain`` runs the batched Jacobi loop. Held here:
+CPU ``propagate_min_plain`` runs the batched Jacobi loop inside
+``directional_cluster_plain``. Held here:
 
 - the plain version, through the port's ``group_kernel``, against the
   JAX ``group_kernel`` (adjacency and cluster) on numpy-seeded buckets:
@@ -70,9 +71,9 @@ def test_plain_fixpoint_through_group_kernel_matches_jax(strategy, paired, seed)
               presorted=True)
     args = [st_[k] for k in ("pos", "umi", "strand_ab", "frag_end", "valid")]
     want = jax.vmap(lambda *a: jax_group(*a, **kw))(*args)
-    before = cf.propagate_min.launches
+    before = (cf.propagate_min.launches, cf.directional_cluster.launches)
     got = grouping.group_kernel(*(torch.from_numpy(np.ascontiguousarray(a)) for a in args), **kw)
-    assert cf.propagate_min.launches == before
+    assert (cf.propagate_min.launches, cf.directional_cluster.launches) == before
     for key, w, g in zip(KEYS, want, got):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w), err_msg=key)
     # umi_error 0.05 at 6 positions: directional merges happened
@@ -207,16 +208,20 @@ def check_model_against_jax(kind, arrays, max_hamming, count_ratio, monkeypatch)
     u = arrays[0].shape[0]
     seen = {}
 
+    jacobi = cf.propagate_min_plain
+
     def modelled(edge, s0, u_pos):
         keys, sweeps = kernel_model(edge.numpy(), s0.numpy(), u_pos.numpy())
-        plain = cf.propagate_min_plain(edge, s0, u_pos)
+        plain = jacobi(edge, s0, u_pos)
         seen.update(edges=int(edge.sum()), sweeps=sweeps[0], plain=plain.numpy())
         return torch.from_numpy(keys)
 
-    monkeypatch.setattr(grouping, "propagate_min", modelled)
-    got = grouping._directional_cluster(
-        *(torch.from_numpy(np.ascontiguousarray(a)[None]) for a in arrays),
-        max_hamming, count_ratio)[0].numpy()
+    # the plain directional cluster with the model in its fixpoint's place
+    monkeypatch.setattr(cf, "propagate_min_plain", modelled)
+    u_words, u_codes, u_pos, u_cnt, _ = (torch.from_numpy(np.ascontiguousarray(a)[None])
+                                         for a in arrays)
+    got = cf.directional_cluster_plain(u_words, u_pos, u_cnt, u_codes.shape[-1],
+                                       max_hamming, count_ratio)[0][0].numpy()
     want = np.asarray(_jax_cluster(*(jnp.asarray(a) for a in arrays), max_hamming, count_ratio))
     np.testing.assert_array_equal(got, want)
     # the model's keys are the Jacobi loop's, bit for bit

@@ -177,6 +177,96 @@ def test_padded_evidence_view_equals_concatenated_columns(mode, l):
     sg.check_kernel_layout(got)
 
 
+@pytest.mark.parametrize("threads", [1, 2, 3, 6])
+@pytest.mark.parametrize("mode", ["fit", "full", "err"])
+def test_padded_evidence_view_bytes_do_not_depend_on_the_thread_count(mode, threads):
+    """The padded view built under ``threads`` intra-op threads against
+    the concatenated columns built on one thread, byte for byte with
+    the NaN positions: an elementwise pass split among threads hands
+    each chunk to another thread, and a chunk that took another code
+    path of a transcendental once moved a whole bucket by 4 ULPs
+    (ROADMAP Faults 3)."""
+    from duplexumiconsensusreads_torch.kernels import consensus
+
+    rng = np.random.default_rng(150)
+    bases = torch.from_numpy(rng.integers(0, 6, (2, 40, 150)).astype(np.uint8))
+    quals = torch.from_numpy(rng.integers(0, 60, (2, 40, 150)).astype(np.uint8))
+    ok = torch.from_numpy(rng.random((2, 40)) < 0.8)
+    want_err, want_depth = mode == "err", mode != "fit"
+    before = torch.get_num_threads()
+    try:
+        torch.set_num_threads(1)
+        want = _cat_evidence(bases, quals, ok, want_err, want_depth).numpy()
+        torch.set_num_threads(threads)
+        got = consensus._evidence_columns(bases, quals, ok, 50, 0, want_err, want_depth)
+        got = got.contiguous().numpy()
+    finally:
+        torch.set_num_threads(before)
+    nan = np.isnan(want)
+    assert nan.any()
+    assert np.array_equal(np.isnan(got), nan)
+    assert np.array_equal(got.view(np.uint32)[~nan], want.view(np.uint32)[~nan])
+
+
+def test_padded_evidence_view_bytes_hold_when_a_split_pass_varies_by_chunk(monkeypatch):
+    """A model of ROADMAP Faults 3's inferred cause, which no run here
+    reproduced: torch.log and torch.log1p over more than one 2,048-element
+    chunk (ATen's grain for them, the unit its intra-op threads take)
+    move one chunk by an ULP, another chunk on each call, as a chunk that
+    takes another code path would. The padded view and the concatenated
+    columns, built in two passes, must still agree byte for byte: the
+    evidence terms come from a table of 256 values, one chunk, and no
+    transcendental runs over (N, R, L)."""
+    import itertools
+
+    from duplexumiconsensusreads_torch.kernels import consensus
+
+    calls = itertools.count()
+
+    def split(fn):
+        def run(x, *a, **kw):
+            y = fn(x, *a, **kw)
+            if y.numel() <= 2048:
+                return y
+            flat = y.reshape(-1).clone()
+            at = next(calls) % -(-flat.numel() // 2048) * 2048
+            part = flat[at:at + 2048]
+            flat[at:at + 2048] = torch.nextafter(part, torch.full_like(part, np.inf))
+            return flat.reshape(y.shape)
+        return run
+
+    monkeypatch.setattr(torch, "log", split(torch.log))
+    monkeypatch.setattr(torch, "log1p", split(torch.log1p))
+    rng = np.random.default_rng(150)
+    bases = torch.from_numpy(rng.integers(0, 6, (2, 40, 150)).astype(np.uint8))
+    quals = torch.from_numpy(rng.integers(0, 60, (2, 40, 150)).astype(np.uint8))
+    ok = torch.from_numpy(rng.random((2, 40)) < 0.8)
+    got = consensus._evidence_columns(bases, quals, ok, 50, 0, False, False)
+    got = got.contiguous().numpy()
+    want = _cat_evidence(bases, quals, ok, False, False).numpy()
+    nan = np.isnan(want)
+    assert nan.any()
+    assert np.array_equal(np.isnan(got), nan)
+    assert np.array_equal(got.view(np.uint32)[~nan], want.view(np.uint32)[~nan])
+
+
+def test_quality_table_equals_the_elementwise_terms():
+    """Each quality's (log1p(-e), log(e/3)) from the 256-value table
+    equals the elementwise evaluation of the same arithmetic over a
+    large block, bit for bit: the table moves no byte of the CPU
+    backend's output, it only fixes which thread computes it."""
+    from duplexumiconsensusreads_torch.kernels import consensus
+
+    quals = torch.from_numpy(np.random.default_rng(0).integers(0, 256, 40_000).astype(np.uint8))
+    for max_q in (50, 93):
+        q = torch.clamp(quals.to(torch.float32), max=float(max_q))
+        e = torch.clamp(torch.pow(10.0, -q / 10.0), min=consensus.MIN_ERROR_PROB)
+        log_match, log_mis = consensus._qual_logs(max_q, quals.device)
+        idx = quals.long()
+        assert torch.equal(log_match[idx], torch.log1p(-e))
+        assert torch.equal(log_mis[idx], torch.log(e / 3.0))
+
+
 @pytest.mark.parametrize("method", ["segment_gemm", "matmul", "segment", "blockseg", "runsum"])
 def test_every_ssc_method_sums_the_view_as_its_contiguous_copy(method, rng):
     from duplexumiconsensusreads_torch.kernels import consensus
