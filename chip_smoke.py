@@ -332,6 +332,8 @@ RESUME_INDEX_EVERY = 25_000
 MESH_STEP_BUCKETS = 512
 MESH_STEP_READS = 1_000_000
 MESH_STEP_REPS = 10
+# staged dispatches of that class whose host time the mesh phase splits
+MESH_SPLIT_REPS = 5
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (data sheet)
 F32_FLOPS = 67e12  # H100 SXM f32 rate outside the tensor cores (data sheet)
 
@@ -599,8 +601,8 @@ def trace_sum_check(path: str, seconds: dict) -> dict:
 
 def mesh_only(smi: str) -> int:
     """``--mesh-only``: the build and the mesh phase alone (on the serve
-    phase's 250k-read input, after one untimed stream on the default
-    mesh; its device-side step cut from a 1M-read input), for a machine
+    phase's 250k-read input, after one untimed stream on every card;
+    its device-side step cut from a 1M-read input), for a machine
     with several cards; then the nvidia-smi line,
     the kernels line (the mesh path's launches, in total and per lane,
     and each kernel's largest error against its plain version over the
@@ -615,8 +617,10 @@ def mesh_only(smi: str) -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as td:
         in_bam, sim_s = benchmark._e2e_input(SERVE_SMALL_READS[1], td)
         t0 = time.monotonic()
+        # on every card, so no timed run pays a card's first use
         stream_call_consensus(in_bam, os.path.join(td, "warm.bam"), gp, cp,
-                              chunk_reads=TAKEOVER_CHUNK_READS, device="cuda")
+                              chunk_reads=TAKEOVER_CHUNK_READS, device="cuda",
+                              n_devices=torch.cuda.device_count())
         emit("mesh_warm_up", sim_seconds=sim_s, stream_seconds=round(time.monotonic() - t0, 3),
              cards=torch.cuda.device_count(), nvidia_smi=smi)
         step_bam, _ = benchmark._e2e_input(MESH_STEP_READS, td)
@@ -2171,6 +2175,27 @@ class LaneKeeper:
 
 
 @contextlib.contextmanager
+def enqueue_timer(pipeline_module):
+    """While entered, times every ``fused_pipeline`` call: the host
+    enqueue of one lane's step (the call returns once its kernels are
+    queued). Yields the list of seconds, in call order."""
+    inner = pipeline_module.fused_pipeline
+    times = []
+
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = inner(*args, **kwargs)
+        times.append(time.perf_counter() - t0)
+        return out
+
+    pipeline_module.fused_pipeline = timed
+    try:
+        yield times
+    finally:
+        pipeline_module.fused_pipeline = inner
+
+
+@contextlib.contextmanager
 def one_card_lanes(n: int):
     """On a one-card machine, the device pool of a CUDA run is ``n``
     lanes of cuda:0, each with its own stream (parallel/mesh.py
@@ -2211,7 +2236,10 @@ def mesh_phase(in_bam: str, step_bam: str, td: str, smi: str):
     and e2e_mesh_scaling (1-lane over all-lane stream walls, in turns).
     Last the device side alone: a config5 class of MESH_STEP_BUCKETS
     buckets of ``step_bam`` resident on the lanes, one fused step at 1
-    lane and at all lanes, in turns. Returns the kernels' launches on
+    lane and at all lanes, in turns, with each lane's host enqueue (its
+    ``fused_pipeline`` call) timed; then that class staged at all lanes,
+    each lane's host time split into staging, pipeline call and fetch
+    start. Returns the kernels' launches on
     the lanes run and their launches per lane."""
     import numpy as np
     import torch
@@ -2222,13 +2250,26 @@ def mesh_phase(in_bam: str, step_bam: str, td: str, smi: str):
     from duplexumiconsensusreads_torch.kernels import grouping
     from duplexumiconsensusreads_torch.kernels import segment_gemm as sg
     from duplexumiconsensusreads_torch.bucketing import build_buckets, stack_buckets
+    from duplexumiconsensusreads_torch.ops import pipeline
     from duplexumiconsensusreads_torch.parallel.mesh import run_mesh
+    from duplexumiconsensusreads_torch.interop import ARRAY_KEYS, stacked_from_numpy
     from duplexumiconsensusreads_torch.parallel.sharded import (
+        lane_blocks,
+        lane_context,
+        lane_specs,
         lane_streams,
         presharded_pipeline,
         shard_stacked,
     )
-    from duplexumiconsensusreads_torch.runtime.executor import call_batch, partition_buckets
+    from duplexumiconsensusreads_torch.runtime.executor import (
+        PACKED_FETCH_KEYS,
+        call_batch,
+        d2h_k_pad,
+        fetch_outputs,
+        pack_fetch_outputs,
+        partition_buckets,
+        start_fetch,
+    )
     from duplexumiconsensusreads_torch.runtime.stream import stream_call_consensus
 
     cards = torch.cuda.device_count()
@@ -2328,7 +2369,7 @@ def mesh_phase(in_bam: str, step_bam: str, td: str, smi: str):
         cb, cspec = max(partition_buckets(buckets, gp, cp, device="cuda"),
                         key=lambda p: len(p[0]))
         cb = cb[:MESH_STEP_BUCKETS]
-        step_ms = {}
+        step_ms, enqueue_ms = {}, {}
         for n in (1, lanes, 1, lanes):
             m = run_mesh("cuda", n)
             ss = lane_streams(m)
@@ -2340,12 +2381,45 @@ def mesh_phase(in_bam: str, step_bam: str, td: str, smi: str):
                     torch.cuda.synchronize(d)
 
             step()
-            t0 = time.monotonic()
-            for _ in range(MESH_STEP_REPS):
-                step()
-            step_ms.setdefault(str(n), []).append(
-                round((time.monotonic() - t0) / MESH_STEP_REPS * 1e3, 3))
+            with enqueue_timer(pipeline) as enq:
+                t0 = time.monotonic()
+                for _ in range(MESH_STEP_REPS):
+                    step()
+                dt = time.monotonic() - t0
+            step_ms.setdefault(str(n), []).append(round(dt / MESH_STEP_REPS * 1e3, 3))
+            # the lanes are issued in lane order, one call each a step
+            enqueue_ms.setdefault(str(n), []).append(
+                [round(sum(enq[i::n]) / len(enq[i::n]) * 1e3, 3) for i in range(n)])
             del args
+        # the same class staged at all lanes, each lane issued in turn as
+        # the stream's dispatch issues it, and each lane's host time split:
+        # pinned staging + H2D, the fused_pipeline call, the packed
+        # compaction + D2H start (ms, the median of the dispatches)
+        m = run_mesh("cuda", lanes)
+        ss = lane_streams(m)
+        blocks = lane_blocks(stack_buckets(cb, multiple_of=m.n_data), m, cspec)
+        specs, k_pad = lane_specs(cspec, m), d2h_k_pad(cb, cspec, m.n_data)
+        split = {part: [[] for _ in range(lanes)] for part in ("staging", "pipeline", "fetch")}
+        for _ in range(MESH_SPLIT_REPS):
+            fetches = []
+            for i, dev in enumerate(m.devices):
+                with lane_context(dev, ss[i]):
+                    staging = []
+                    t0 = time.perf_counter()
+                    a = stacked_from_numpy(blocks[i], dev, pin=True, keep=staging)
+                    t1 = time.perf_counter()
+                    o = pipeline.fused_pipeline(*(a[k] for k in ARRAY_KEYS), specs[i])
+                    t2 = time.perf_counter()
+                    fetches.append(start_fetch(pack_fetch_outputs(o, cspec, k_pad),
+                                               keys=PACKED_FETCH_KEYS, staging=staging))
+                    t3 = time.perf_counter()
+                for part, dt in zip(split, (t1 - t0, t2 - t1, t3 - t2)):
+                    split[part][i].append(dt)
+            for f in fetches:
+                fetch_outputs(f)
+        split = {part: [round(float(np.median(v)) * 1e3, 3) for v in per]
+                 for part, per in split.items()}
+        del blocks, fetches
     one = res["1"]
     if not all(np.array_equal(a, b) for a, b in zip(one, res[str(lanes)])):
         raise AssertionError("mesh: call_batch on the data lanes differs from one lane")
@@ -2371,6 +2445,7 @@ def mesh_phase(in_bam: str, step_bam: str, td: str, smi: str):
          whole_file_cycle_identical=bool(all(np.array_equal(a, b) for a, b in zip(one, cyc))),
          whole_file_cycle_quals_moved=int(dq.sum()),
          compute_class=[len(cb), CAPACITY], compute_step_ms=step_ms,
+         compute_enqueue_ms=enqueue_ms, staged_lane_split_ms=split,
          compute_scaling=round(sum(step_ms["1"]) / sum(step_ms[str(lanes)]), 3))
     return launches, lane_launches
 

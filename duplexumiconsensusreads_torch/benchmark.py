@@ -224,8 +224,8 @@ def mesh_classes(buckets, gp, cp, ssc_method, mesh, streams) -> list:
 
 
 def bench_mesh(dev):
-    """(mesh, lane streams) of the compute and per_config legs: every
-    card visible to ``dev``'s pool, one lane on the CPU."""
+    """(mesh, lane streams) of the compute and per_config legs: the
+    executors' default mesh (one lane)."""
     from duplexumiconsensusreads_torch.parallel.mesh import run_mesh
     from duplexumiconsensusreads_torch.parallel.sharded import lane_streams
 
@@ -381,8 +381,8 @@ def run_e2e(
     prefetch_depth = int(os.environ.get("DUT_BENCH_PREFETCH_DEPTH", 2))
     # mesh size for this leg: the explicit kwarg (the scaling A/B), or
     # DUT_BENCH_MESH when the pool holds that many devices (0/unset, or
-    # more than the pool = the executor default, every card: the
-    # scaling A/B then reports e2e_mesh_error instead of the run dying)
+    # more than the pool = the executor default, one lane: the scaling
+    # A/B then reports e2e_mesh_error instead of the run dying)
     if n_devices is None:
         from duplexumiconsensusreads_torch.parallel.mesh import device_pool
 
@@ -1085,8 +1085,12 @@ def run_serve_defense_bench(dev) -> dict:
     shutil.rmtree(spool2, ignore_errors=True)
     wd_out = os.path.join(cache, "serve_defense_wd.bam")
     jid2 = client.submit(spool2, in_path, wd_out, config=config)
+    # the watchdog is armed at the wedge, not at the start: a first chunk
+    # slower than the threshold (slice start-up on a loaded host) would
+    # otherwise be reclaimed before it commits, every slice, until the
+    # job is quarantined and the wedge is never reached
     svc = ConsensusService(spool2, chunk_budget=1, poll_s=0.02, lease_s=3600.0,
-                           watchdog_s=0.5, daemon_id="defense-wd", device=dev)
+                           watchdog_s=0, daemon_id="defense-wd", device=dev)
     wedged = [0.0]
     release = threading.Event()
     orig = svc.worker.run_slice
@@ -1095,6 +1099,7 @@ def run_serve_defense_bench(dev) -> dict:
         def wedge(*_a):
             if not wedged[0]:
                 wedged[0] = time.monotonic()
+                svc.watchdog_s = 0.5
             release.wait(timeout=120)
             return False
 

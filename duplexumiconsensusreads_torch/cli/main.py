@@ -204,11 +204,13 @@ def build_parser() -> argparse.ArgumentParser:
                    "requires a linear index, built on demand)")
     c.add_argument("--host-id", type=int, default=None, help="this host's id")
     c.add_argument("--index", help="linear index path (default: input + .dlix)")
-    c.add_argument("--devices", type=int, default=None, help="mesh size (default: all)")
+    c.add_argument("--devices", type=int, default=None,
+                   help="mesh size (default: one lane; the JAX package takes all)")
     c.add_argument(
         "--mesh", default=None, metavar="{auto,1,2,4,8,..}",
         help="streaming mesh size: shard each chunk's bucket batch across this "
-        "many devices ('auto' = all local devices). Output bytes are identical "
+        "many devices ('auto' = the --devices mesh, one lane by default). "
+        "Output bytes are identical "
         "at ANY device count — chunk order is the commit order and mesh-pad "
         "buckets emit nothing — so this is a pure throughput knob, A/B-tested "
         "like --drain-workers. Carried by --submit jobs (the daemon resolves "

@@ -15,8 +15,12 @@ What a device is here:
   never bare ``cuda``: the per-device caches and launch guards key on
   the index). The pool (:func:`device_pool`) is the visible cards,
   narrowed to an index subset by ``devices`` as the JAX executors
-  narrow ``jax.local_devices()``; with ``n_devices=None`` a run takes
-  every card of the pool.
+  narrow ``jax.local_devices()``. With ``n_devices=None`` a run takes
+  one lane, on the card as on the CPU, unless ``devices`` names a
+  subset (then all of it): the JAX package's default is every device,
+  but the port issues each lane's eager ops from Python, one lane
+  after another, and on four H100s the stream at four lanes ran below
+  one lane (ROADMAP Faults 13, PERF.md §6). ``--devices N`` / ``--mesh N`` ask for more.
 - **On the CPU** (``device="cpu"``, the tests) a lane is the one CPU
   device, and the pool holds ``CPU_LANES`` logical lanes of it: the
   counterpart of the virtual devices the JAX suite forces with
@@ -137,9 +141,10 @@ def run_mesh(
 ) -> DeviceMesh:
     """The mesh an executor runs on: :func:`make_mesh` over
     :func:`device_pool` (distinct cards, or CPU lanes). ``n_devices``
-    None is the whole pool on the card (or the ``devices`` subset), and
-    one lane on the CPU."""
+    None is the whole ``devices`` subset when one is given, else one
+    lane (on the card too, where JAX takes every device: ROADMAP Faults
+    13)."""
     pool = device_pool(device, devices)
     if n_devices is None:
-        n_devices = len(pool) if devices or pool[0].type == "cuda" else 1
+        n_devices = len(pool) if devices else 1
     return make_mesh(n_devices, cycle_shards=cycle_shards, devices=pool)

@@ -917,8 +917,8 @@ def call_batch(
     devices=None,
 ):
     """Run one host ReadBatch through the bucketed pipeline on a mesh of
-    lanes (parallel/mesh.py:run_mesh: every visible card unless
-    ``n_devices``/``devices`` narrow it, one lane on the CPU).
+    lanes (parallel/mesh.py:run_mesh: one lane unless ``n_devices`` or
+    ``devices`` ask for more).
 
     Returns (cons_base, cons_qual, cons_dstats, cons_valid, fam_pos,
     fam_umi, cons_mate, cons_pair, cons_end) over all buckets, sorted

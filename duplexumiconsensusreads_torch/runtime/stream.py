@@ -895,9 +895,9 @@ def stream_call_consensus(
     with ``device`` ("cuda" unless the caller asks for "cpu"; no card
     raises, nothing falls back). The mesh (parallel/mesh.py:run_mesh)
     is ``n_devices`` lanes of the pool — every visible card, narrowed
-    to the index subset ``devices``; ``n_devices=None`` takes the whole
-    pool on the card and one lane on the CPU, where lanes are logical
-    — split ``cycle_shards`` ways along the read length. Each class is
+    to the index subset ``devices``; ``n_devices=None`` takes that
+    subset when one is given, else one lane (on the card too: ROADMAP
+    Faults 13; on the CPU lanes are logical) — split ``cycle_shards`` ways along the read length. Each class is
     stacked to a multiple of the data lanes (``n_mesh_pad_buckets``
     counts the empty pad buckets) and every lane runs its bucket block
     on its own device and stream, with its own H2D, compaction and D2H

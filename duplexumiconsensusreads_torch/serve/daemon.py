@@ -95,8 +95,8 @@ def build_parser() -> argparse.ArgumentParser:
         "first 4 local devices). Slices of every job shard over them (a "
         "job's own 'mesh' config narrows the count), so daemons on a host "
         "with several cards each own a disjoint set. With --device cpu "
-        "the devices are logical lanes of the CPU. Default: all local "
-        "devices",
+        "the devices are logical lanes of the CPU. Default: one lane "
+        "(the JAX daemon takes all local devices)",
     )
     p.add_argument(
         "--build-dir", default=None, metavar="DIR",

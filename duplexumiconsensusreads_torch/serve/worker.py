@@ -190,7 +190,8 @@ class WarmWorker:
     def __init__(self, n_devices: int | None = None, device="cuda", devices=None):
         self.n_devices = n_devices
         # where this worker's slices run: the daemon's --device, and its
-        # --devices index subset of that pool (None = all local devices)
+        # --devices index subset of that pool (None = one lane unless a
+        # subset is named: parallel/mesh.py:run_mesh)
         self.device = device
         self.devices = list(devices) if devices else None
         self._lock = threading.Lock()

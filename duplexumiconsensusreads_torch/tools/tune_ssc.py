@@ -1,4 +1,4 @@
-"""Race of the ssc reduction methods on the run's mesh (every visible card).
+"""Race of the ssc reduction methods on the run's mesh (one lane by default).
 
 Times the FUSED pipeline (the only honest scope: a reduction method's
 cost depends on what surrounds it in the pipeline) on one

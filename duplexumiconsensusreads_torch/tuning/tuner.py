@@ -360,9 +360,9 @@ def race_ssc_methods(
     device="cuda",
 ) -> dict:
     """Timed fused-pipeline race over the ssc reduction methods on the
-    run's mesh (parallel/mesh.py:run_mesh: every visible card, one lane
-    on the CPU; the only honest scope: a method's cost depends on the
-    pipeline around it). Each method's dispatch classes are built once
+    run's mesh (parallel/mesh.py:run_mesh: one lane by default; the
+    only honest scope: a method's cost depends on the pipeline around
+    it). Each method's dispatch classes are built once
     from ``race_workload``'s buckets (``partition_buckets`` -> stacked
     tensors on the lanes, each class's bucket count padded to the data
     lanes as the executors pad it), then every class runs ``reps``

@@ -2,7 +2,7 @@
 
     python scripts/ab_checkouts.py --other DIR
         [--reads 600000] [--chunk-reads 150000] [--reps 10] [--device cuda]
-        [--json OUT]
+        [--mesh] [--json OUT]
 
 DIR is the root of another checkout of the repository (an unpacked
 ``git archive`` of a parent commit, say). One config5 input (the
@@ -19,6 +19,15 @@ this, other, builds its kernels and on the device:
   ``group_kernel`` calls for its unique-UMI table (``directional_cluster``,
   or ``_directional_cluster`` in a checkout that has it), each timed
   inside one ``group_kernel`` call.
+
+With ``--mesh`` each turn also runs the mesh: every card a data lane
+(two lanes on two streams of cuda:0 on a one-card machine; two CPU
+lanes with ``--device cpu``). After one untimed whole-file call on all
+lanes, the whole-file and streaming calls run at one lane and at all
+lanes (their bytes held to the default run's), and
+a class of up to ``MESH_STEP_BUCKETS`` buckets (the largest of the
+input) is put on the lanes once and its fused step timed at one lane
+and at all lanes, in turns, every card synchronized after the reps.
 
 Prints one JSON line per turn and, last, the summary: whether every
 turn's outputs are byte-identical to the first's, and each checkout's
@@ -130,8 +139,70 @@ if device == "cuda":
     out["cluster_function"] = name
     out["cluster_ms"] = sum(s.elapsed_time(e) for s, e in spans) / reps
     out["device"] = torch.cuda.get_device_name(0)
+
+if os.environ.get("AB_MESH") == "1":
+    from duplexumiconsensusreads_torch.bucketing import build_buckets, stack_buckets
+    from duplexumiconsensusreads_torch.io import load_input
+    from duplexumiconsensusreads_torch.parallel import mesh as mesh_mod
+    from duplexumiconsensusreads_torch.parallel import sharded
+    from duplexumiconsensusreads_torch.runtime.executor import partition_buckets
+
+    cards = torch.cuda.device_count() if device == "cuda" else 0
+    lanes = cards if cards >= 2 else 2
+    if device == "cuda" and cards < 2:
+        pool = mesh_mod.device_pool
+        mesh_mod.device_pool = lambda device="cuda", devices=None: (
+            [torch.device("cuda", 0)] * lanes
+            if torch.device(device).type == "cuda" and not devices else pool(device, devices))
+    out["mesh_lanes"] = lanes
+    # an untimed all-lane call first: no timed run pays a card's first use
+    call_consensus_file(in_bam, os.path.join(td, "warm.bam"), gp, cp, capacity=2048,
+                        device=device, n_devices=lanes)
+    for n in (1, lanes):
+        path = os.path.join(td, f"whole{n}.bam")
+        t0 = time.monotonic()
+        call_consensus_file(in_bam, path, gp, cp, capacity=2048, device=device, n_devices=n)
+        out[f"mesh_whole_s_{n}"] = time.monotonic() - t0
+        out[f"mesh_whole_identical_{n}"] = digest(path) == out["whole_file_sha256"]
+        path = os.path.join(td, f"stream{n}.bam")
+        t0 = time.monotonic()
+        stream_call_consensus(in_bam, path, gp, cp, capacity=2048, chunk_reads=chunk_reads,
+                              device=device, n_devices=n)
+        out[f"mesh_stream_s_{n}"] = time.monotonic() - t0
+        out[f"mesh_stream_identical_{n}"] = digest(path) == out["stream_sha256"]
+    _, batch, _ = load_input(in_bam, duplex=True)
+    buckets = build_buckets(batch, capacity=2048, grouping=gp)
+    cb, spec = max(partition_buckets(buckets, gp, cp, device=device), key=lambda p: len(p[0]))
+    cb = cb[:int(os.environ["AB_MESH_BUCKETS"])]
+    out["mesh_class"] = [len(cb), 2048]
+
+    def sync(m):
+        for d in set(m.devices):
+            if d.type == "cuda":
+                torch.cuda.synchronize(d)
+
+    for n in (1, lanes, 1, lanes):
+        m = mesh_mod.run_mesh(device, n)
+        stacked = stack_buckets(cb, multiple_of=m.n_data)
+        ss = sharded.lane_streams(m)
+        args = sharded.shard_stacked(stacked, m, spec, streams=ss)
+        step = lambda: sharded.presharded_pipeline(args, spec, m, streams=ss)
+        step()
+        sync(m)
+        t0 = time.monotonic()
+        for _ in range(reps):
+            step()
+        sync(m)
+        out.setdefault(f"mesh_step_ms_{n}", []).append((time.monotonic() - t0) / reps * 1e3)
+        del args
+    for n in (1, lanes):
+        out[f"mesh_step_ms_{n}"] = sum(out[f"mesh_step_ms_{n}"]) / 2
 print(json.dumps(out), flush=True)
 """
+
+# the largest dispatch class of the input cut to this many buckets is
+# the mesh's fused step (chip_smoke.py's MESH_STEP_BUCKETS)
+MESH_STEP_BUCKETS = 512
 
 
 def simulate(path: str, n_reads: int) -> None:
@@ -144,10 +215,12 @@ def simulate(path: str, n_reads: int) -> None:
                   path=path, sort=True)
 
 
-def run_turn(root: str, in_bam: str, device: str, chunk_reads: int, reps: int) -> dict:
+def run_turn(root: str, in_bam: str, device: str, chunk_reads: int, reps: int,
+             mesh: bool = False) -> dict:
     with tempfile.TemporaryDirectory(prefix="ab_turn_") as td:
         env = dict(os.environ, AB_ROOT=root, AB_IN=in_bam, AB_TD=td, AB_DEVICE=device,
-                   AB_CHUNK_READS=str(chunk_reads), AB_REPS=str(reps))
+                   AB_CHUNK_READS=str(chunk_reads), AB_REPS=str(reps),
+                   AB_MESH="1" if mesh else "0", AB_MESH_BUCKETS=str(MESH_STEP_BUCKETS))
         proc = subprocess.run([sys.executable, "-c", CHILD], capture_output=True, text=True,
                               cwd=root, env=env)
     if proc.returncode != 0:
@@ -162,6 +235,7 @@ def main(argv=None) -> int:
     ap.add_argument("--chunk-reads", type=int, default=150_000)
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    ap.add_argument("--mesh", action="store_true", help="also time one lane against all lanes")
     ap.add_argument("--json", help="write the summary here too")
     a = ap.parse_args(argv)
     if a.device == "cuda":
@@ -182,19 +256,31 @@ def main(argv=None) -> int:
         simulate(in_bam, a.reads)
         turns = []
         for label, root in (("other", other), ("this", this), ("this", this), ("other", other)):
-            row = {"checkout": label, **run_turn(root, in_bam, a.device, a.chunk_reads, a.reps)}
+            row = {"checkout": label,
+                   **run_turn(root, in_bam, a.device, a.chunk_reads, a.reps, a.mesh)}
             print(json.dumps(row), flush=True)
             turns.append(row)
     first = turns[0]
     identical = all(t[k] == first[k] for t in turns for k in ("whole_file_sha256",
                                                                "stream_sha256"))
+    identical = identical and all(v for t in turns for k, v in t.items()
+                                  if k.startswith("mesh_") and "_identical_" in k)
     summary = {"reads": a.reads, "chunk_reads": a.chunk_reads, "device": a.device,
                "outputs_identical": identical}
     keys = ("step_ms", "group_kernel_ms", "cluster_ms", "whole_file_s", "stream_s")
+    if a.mesh:
+        n = first["mesh_lanes"]
+        summary["mesh_lanes"], summary["mesh_class"] = n, first["mesh_class"]
+        keys += tuple(f"mesh_{k}_{i}" for k in ("whole_s", "stream_s", "step_ms")
+                      for i in (1, n))
     for label in ("other", "this"):
         rows = [t for t in turns if t["checkout"] == label]
         summary[label] = {k: sum(r[k] for r in rows) / len(rows) for k in keys if k in rows[0]}
         summary[label]["cluster_function"] = rows[0].get("cluster_function")
+        if a.mesh:
+            for k in ("whole_s", "stream_s", "step_ms"):
+                one, all_ = summary[label][f"mesh_{k}_1"], summary[label][f"mesh_{k}_{n}"]
+                summary[label][f"mesh_{k}_scaling"] = one / all_
     if a.device == "cuda":
         summary["device_name"] = first["device"]
         summary["class_shape"] = first["class_shape"]

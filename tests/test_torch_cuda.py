@@ -474,3 +474,32 @@ def test_cuda_mesh_lanes_give_the_one_lane_bytes(cuda, tmp_path):
     finally:
         mesh.device_pool = inner
     assert outs["one"] == outs["two"] == outs["cycle"]
+
+
+@pytest.mark.cuda
+def test_cuda_two_lane_stream_runs_keep_memory_flat(cuda, tmp_path, monkeypatch):
+    """Over repeated two-lane stream runs (two cards, or two lanes of
+    cuda:0) the cards' allocated memory stays flat once the first runs
+    have paired the transfer workers' cuBLAS handles with the pooled
+    lane streams (Faults 16: a workspace per new (handle, stream) pair
+    grew it by tens of MB a run)."""
+    from duplexumiconsensusreads_torch.cli.main import params_for
+    from duplexumiconsensusreads_torch.io import simulated_bam
+    from duplexumiconsensusreads_torch.parallel import mesh
+    from duplexumiconsensusreads_torch.runtime.stream import stream_call_consensus
+    from duplexumiconsensusreads_torch.simulate import SimConfig
+
+    pool = ([torch.device("cuda", 0), torch.device("cuda", 1)] if torch.cuda.device_count() >= 2
+            else [torch.device("cuda", 0)] * 2)
+    gp, cp, _ = params_for("config5")
+    path = str(tmp_path / "in.bam")
+    simulated_bam(SimConfig(n_molecules=120, read_len=40, n_positions=8, umi_error=0.02,
+                            duplex=True, paired_reads=True, seed=11), path=path, sort=True)
+    monkeypatch.setattr(mesh, "device_pool", lambda device="cuda", devices=None: pool)
+    allocated = []
+    for i in range(6):
+        stream_call_consensus(path, str(tmp_path / f"o{i}.bam"), gp, cp, capacity=128,
+                              chunk_reads=150, device="cuda", n_devices=2)
+        torch.cuda.synchronize()
+        allocated.append(sum(torch.cuda.memory_allocated(d) for d in set(pool)))
+    assert max(allocated[2:]) - min(allocated[2:]) < 32 << 20, allocated

@@ -520,3 +520,30 @@ def test_fleet_bench_leg_gives_the_jax_keys(tmp_path, monkeypatch, leg):
     elif leg == "run_serve_xhost_bench":
         assert out["serve_xhost_recovered"] == 1
         assert out["serve_xhost_takeover_latency_s"] >= out["serve_xhost_lease_s"] * 0.5
+
+
+def test_defense_leg_times_the_wedge_when_every_first_chunk_is_slow(tmp_path, monkeypatch):
+    # every slice's first commit takes longer than the leg's 0.5 s
+    # watchdog threshold (plus its 0.25 s tick), as slice start-up can
+    # on a loaded host: the watchdog must still time the wedge, not
+    # reclaim the slow first chunks until the job is quarantined
+    from duplexumiconsensusreads_torch.serve import worker
+
+    renew = worker.fenced_renew
+    slowed = set()
+
+    def slow_first_renewal(queue, job_id, daemon_id, token, *args, **kwargs):
+        if (job_id, token) not in slowed:
+            slowed.add((job_id, token))
+            time.sleep(1.0)
+        return renew(queue, job_id, daemon_id, token, *args, **kwargs)
+
+    monkeypatch.setattr(worker, "fenced_renew", slow_first_renewal)
+    monkeypatch.setenv("DUT_BENCH_SERVE_READS", "2000")
+    monkeypatch.setenv("DUT_BENCH_CACHE", str(tmp_path / "cache"))
+    monkeypatch.setenv("DUT_BENCH_CAPACITY", "256")
+    out = benchmark.run_serve_defense_bench("cpu")
+    assert set(out) == LEG_KEYS["run_serve_defense_bench"], out
+    assert out["serve_quarantine_after_crashes"] == 3
+    assert 0.25 < out["serve_watchdog_detect_latency_s"] < 30
+    assert slowed

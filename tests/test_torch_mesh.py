@@ -326,3 +326,35 @@ def test_daemon_devices_parse():
             parse_devices(bad)
     with pytest.raises(ValueError, match="one-element list"):
         parse_devices("0")
+
+
+# ---- the default mesh
+
+@pytest.mark.parametrize("kw, lanes", [
+    ({}, [0]),
+    ({"n_devices": 4}, [0, 1, 2, 3]),
+    ({"devices": [2, 3]}, [2, 3]),
+    ({"devices": [1, 2, 3], "n_devices": 2}, [1, 2]),
+    ({"n_devices": 4, "cycle_shards": 2}, [0, 1, 2, 3]),
+])
+def test_the_default_mesh_is_one_lane_on_a_host_of_four_cards(monkeypatch, kw, lanes):
+    """``run_mesh`` with no ``n_devices`` takes one lane of a four-card
+    pool (the JAX package takes every device; ROADMAP Faults 13), a
+    named ``devices`` subset whole, and an explicit count as asked."""
+    import torch
+
+    from duplexumiconsensusreads_torch.parallel import mesh
+
+    cards = [torch.device("cuda", i) for i in range(4)]
+    monkeypatch.setattr(mesh, "device_pool", lambda device="cuda", devices=None: (
+        [cards[i] for i in devices] if devices else cards))
+    m = mesh.run_mesh("cuda", **kw)
+    assert [d.index for d in m.devices] == lanes
+    assert m.n_cycle == kw.get("cycle_shards", 1)
+
+
+def test_the_default_mesh_is_one_lane_on_the_cpu():
+    from duplexumiconsensusreads_torch.parallel import mesh
+
+    assert mesh.run_mesh("cpu").size == 1
+    assert mesh.run_mesh("cpu", devices=[0, 1, 2]).size == 3

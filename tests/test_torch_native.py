@@ -362,3 +362,75 @@ def test_a_built_library_loads_while_another_process_holds_the_build_lock(tmp_pa
     finally:
         holder.kill()
         holder.wait()
+
+
+# The repository's conftest builds the JAX package's native library
+# once under a lock before collection (conftest.py:build_reference_native).
+# These run that function in several processes at once against a copy
+# of the reference's native/ directory with no library in it.
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+REFERENCE_NATIVE = os.path.join(REPO, "duplexumiconsensusreads_tpu", "native")
+BUILD_CHILD = (
+    "import importlib.util, sys\n"
+    "spec = importlib.util.spec_from_file_location('root_conftest', sys.argv[1])\n"
+    "hook = importlib.util.module_from_spec(spec)\n"
+    "spec.loader.exec_module(hook)\n"
+    "lib = hook.build_reference_native(sys.argv[2], sys.argv[3])\n"
+    "print('bound', lib.dut_bgzf_compress_bound(1000), flush=True)\n"
+)
+
+
+def _reference_native_copy(tmp_path):
+    import shutil
+
+    dst = tmp_path / "native"
+    dst.mkdir()
+    for name in ("Makefile", "__init__.py"):
+        shutil.copy(os.path.join(REFERENCE_NATIVE, name), dst / name)
+    shutil.copytree(os.path.join(REFERENCE_NATIVE, "src"), dst / "src")
+    assert not (dst / "libdutbam.so").exists()
+    return str(dst)
+
+
+def _start_build_process(native_dir, lock):
+    import sys
+
+    return subprocess.Popen(
+        [sys.executable, "-c", BUILD_CHILD, os.path.join(REPO, "conftest.py"), native_dir, lock],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def test_six_processes_build_the_reference_library_once_and_each_loads_it(tmp_path):
+    """Six processes run the conftest hook's build at once on a copy with
+    no library, as six xdist workers do on a fresh checkout: each one
+    ends with a library that binds."""
+    native_dir = _reference_native_copy(tmp_path)
+    lock = str(tmp_path / "build" / "reference-native.lock")
+    procs = [_start_build_process(native_dir, lock) for _ in range(6)]
+    for p in procs:
+        out, err = p.communicate(timeout=300)
+        assert p.returncode == 0, err
+        assert out.split()[0] == "bound" and int(out.split()[1]) > 1000, out
+    assert os.path.exists(os.path.join(native_dir, "libdutbam.so"))
+
+
+def test_a_process_finding_the_reference_build_lock_held_waits_and_then_loads(tmp_path):
+    """While another process holds the lock, the hook waits (it neither
+    builds nor gives up); once the lock is free it builds and binds."""
+    import fcntl
+    import time
+
+    native_dir = _reference_native_copy(tmp_path)
+    lock = str(tmp_path / "reference-native.lock")
+    with open(lock, "a") as held:
+        fcntl.flock(held, fcntl.LOCK_EX)
+        p = _start_build_process(native_dir, lock)
+        try:
+            time.sleep(2.0)
+            assert p.poll() is None, p.communicate()
+            assert not os.path.exists(os.path.join(native_dir, "libdutbam.so"))
+        finally:
+            fcntl.flock(held, fcntl.LOCK_UN)
+    out, err = p.communicate(timeout=300)
+    assert p.returncode == 0, err
+    assert out.split()[0] == "bound", out
