@@ -192,7 +192,8 @@ line:
           every explicit rung; records equal to the ladder-off output
           in every field but seq/qual, whose differing cycles are
           counted (config5's cycle model is fit per bucket, in the JAX
-          package too). Then, under the model-free duplex config, ladder
+          package too). Then, under the model-free duplex config on the
+          serve phase's 250k-read input in 50k-read chunks, ladder
           off, auto and explicit give identical bytes, and a run killed
           at a checkpoint mark under "auto", resumed under the explicit
           ladder, gives them too
@@ -213,6 +214,23 @@ line:
           card a lane on a machine with two or more): the sharded call
           set, the packed-io identity, (1, 2) cycle shards, the stream at
           2 lanes and 1 lane byte-identical, the MULTICHIP_BALANCE record
+  features  each feature path of the JAX package through
+          ``call_consensus_file`` on the card and on the CPU (plain
+          versions) on one seeded input at read_len 150 and the
+          configuration's capacity (FEATURE_PATHS): exact and adjacency
+          single strand (configs 1-2), cluster duplex with a position of
+          > 3 x capacity reads (host-preclustered) beside positions the
+          card groups at count ratio 0, config4 at capacity 4096 with
+          such a position and one family past the capacity (a jumbo
+          pow2 bucket), --ref-projected on indel reads, mate-aware on
+          paired mates, and ``filter --min-base-depth --max-n-frac``
+          of config5's per-base output from each side. One line per
+          path: the records card against CPU under compare_records
+          (ties counted by kind), the kernels' launches (exact grouping
+          launches no directional_cluster), the bucket layout, and
+          segment_gemm at the largest class and the widest bucket and
+          directional_cluster at the largest slot table against their
+          plain versions (tolerance 0)
   race    race_ssc_methods() on the card at its defaults (22k
           molecules, L 150, capacity 2048) with blockseg T 64/128/256:
           step seconds and reads/s per method and the winner; then on
@@ -248,8 +266,9 @@ line:
 
 Every path (whole_file, stream, per_base, workflow, operators, live,
 serve, shard, multihost, mesh, ladder, race, bench, fleet, fit_counts,
-chaos, entry, dryrun) must launch both kernels of the main path, and
-the mesh path on every lane: segment_gemm and grouping's directional
+chaos, entry, dryrun, features) must launch both kernels of the main
+path (each feature path those it runs), and the mesh path on every
+lane: segment_gemm and grouping's directional
 cluster (directional_cluster); the serve, shard and multihost paths
 count the daemon and host subprocesses' launches too (each writes its
 counts at exit). Then the nvidia-smi line, the ``kernels``
@@ -425,12 +444,14 @@ def cuda_ms(fn, reps: int) -> float:
 class Capture:
     """Wraps a function in a module namespace and keeps references to
     the arguments of its call with the largest first tensor (the main
-    path's biggest dispatch class): all of them, or only those at the
-    indices ``keep``. Each call's device span (CUDA events around it)
+    path's biggest dispatch class; ``size`` measures the arguments
+    otherwise): all of them, or only those at the indices ``keep``.
+    Each call's device span (CUDA events around it)
     is kept too."""
 
-    def __init__(self, module, name: str, keep: tuple | None = None):
+    def __init__(self, module, name: str, keep: tuple | None = None, size=None):
         self.module, self.name, self.keep = module, name, keep
+        self.measure = size or (lambda args: args[0].numel())
         self.inner = getattr(module, name)
         self.args = None
         self.size = -1
@@ -441,10 +462,9 @@ class Capture:
         import torch
 
         def wrapped(*args, **kwargs):
-            first = args[0]
-            self.shapes.append(tuple(first.shape))
-            if first.numel() > self.size:
-                self.size = first.numel()
+            self.shapes.append(tuple(args[0].shape))
+            if self.measure(args) > self.size:
+                self.size = self.measure(args)
                 keep = range(len(args)) if self.keep is None else self.keep
                 self.args = ([args[i] if i in keep else None for i in range(len(args))], kwargs)
             ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
@@ -487,19 +507,48 @@ def per_base_tags(aux: bytes) -> tuple[bytes, dict]:
     return bytes(rest), arrays
 
 
+def tie_kinds(sa, sb, qa, qb, qual_tol: int, duplex: bool) -> dict:
+    """The cycles where two consensus calls of one input may differ at
+    the parity bar, by kind ({name: bool mask}; ROADMAP Faults 4 and
+    20). Single strand, ``evidence``: a strand consensus that ties
+    between two bases (err >= 0.5, so both quals <= TIE_QUAL) may call
+    either. Duplex, the merge of two strand calls each within the bar:
+      - ``qual_move`` (Faults 4): a strand tie flips a strand base, and
+        the duplex base stays while its qual moves by at most
+        2 * TIE_QUAL + qual_tol;
+      - ``n_call`` (Faults 4 and 20): N at NO_CALL_QUAL (2) on one side,
+        a base at 2 on the other: the strands disagree, and their quals
+        are equal on one side only, from a strand tie or from strand
+        quals one apart at the Phred floor;
+      - ``strand_qual_flip`` (Faults 20): two different bases, both at
+        2: the strands disagree and their quals, each one apart between
+        the sides, cross, so each side keeps another strand's base."""
+    import numpy as np
+
+    diff = sa != sb
+    if not duplex:
+        return {"evidence": diff & (qa <= TIE_QUAL) & (qb <= TIE_QUAL)}
+    dq = np.abs(qa - qb)
+    at_floor = diff & (qa == 2) & (qb == 2)
+    one_n = (sa == 4) | (sb == 4)
+    return {"qual_move": ~diff & (dq > qual_tol) & (dq <= 2 * TIE_QUAL + qual_tol),
+            "n_call": at_floor & one_n, "strand_qual_flip": at_floor & ~one_n}
+
+
 def compare_records(a, b, qual_tol: int, duplex_ties: bool = False,
-                    per_base: bool = False) -> dict:
+                    per_base: bool = False, ss_ties: bool = False) -> dict:
     """Record-by-record agreement of two consensus BAM record sets:
     everything identical but the quals, which agree within
-    ``qual_tol``. With ``duplex_ties``, the parity bar's evidence ties
-    are allowed too: a strand consensus that ties between two bases
-    (strand qual <= TIE_QUAL) may call either, which in the duplex merge
-    either turns the cycle into N at NO_CALL_QUAL (2) on one side or
-    moves the duplex qual by at most 2 * TIE_QUAL + qual_tol with the
-    same base; such cycles are counted and must stay under 1 in 10,000.
-    With ``per_base``, every record carries cd/ce: cd (an integer depth)
-    must be identical, ce (reads disagreeing with the call) may differ
-    only at those tie cycles, and its differing cycles are counted."""
+    ``qual_tol``. With ``duplex_ties`` (or ``ss_ties`` for single-strand
+    records) the parity bar's ties are allowed too, each kind of
+    :func:`tie_kinds`: a strand evidence tie (Faults 4), and strand
+    quals one apart at the Phred floor that move a duplex call between
+    N and a base or between the two strands' bases (Faults 20). Such
+    cycles are counted, by kind, and must stay under 1 in 10,000 (at
+    the smoke's input sizes). With ``per_base``, every record
+    carries cd/ce: cd (an integer depth) must be identical, ce (reads
+    disagreeing with the call) may differ only at those tie cycles, and
+    its differing cycles are counted."""
     import numpy as np
 
     if len(a) != len(b):
@@ -519,14 +568,16 @@ def compare_records(a, b, qual_tol: int, duplex_ties: bool = False,
     sa, sb = np.asarray(a.seq), np.asarray(b.seq)
     qa, qb = np.asarray(a.qual).astype(int), np.asarray(b.qual).astype(int)
     dq = np.abs(qa - qb)
-    n_tie = 0
-    if duplex_ties:
-        n_call = (sa == 4) | (sb == 4)
-        tie = ((sa != sb) & n_call & (qa == 2) & (qb == 2)) | (
-            (sa == sb) & (dq > qual_tol) & (dq <= 2 * TIE_QUAL + qual_tol))
-        n_tie = int(tie.sum())
-        if n_tie * 10_000 > sa.size:
-            raise AssertionError(f"{n_tie} tie cycles of {sa.size}: more than 1 in 10,000")
+    tie = np.zeros(sa.shape, bool)
+    kinds = {}
+    if duplex_ties or ss_ties:
+        masks = tie_kinds(sa, sb, qa, qb, qual_tol, duplex=duplex_ties)
+        kinds = {k: int(m.sum()) for k, m in masks.items()}
+        for m in masks.values():
+            tie |= m
+        if tie.sum() * 10_000 > sa.size:
+            raise AssertionError(f"{int(tie.sum())} tie cycles of {sa.size} ({kinds}): "
+                                 "more than 1 in 10,000")
         dq = np.where(tie, 0, dq)
         sb = np.where(tie, sa, sb)
     if not np.array_equal(sa, sb):
@@ -534,10 +585,10 @@ def compare_records(a, b, qual_tol: int, duplex_ties: bool = False,
     if dq.size and dq.max() > qual_tol:
         raise AssertionError(f"quals differ by {dq.max()} > {qual_tol}")
     out = {"n_records": len(a), "max_qual_diff": int(dq.max(initial=0)),
-           "tie_cycles": n_tie, "cycles": int(sa.size)}
+           "tie_cycles": int(tie.sum()), "tie_kinds": kinds, "cycles": int(sa.size)}
     if per_base:
         ce_ties = 0
-        tie_rows = tie if duplex_ties else np.zeros(sa.shape, bool)
+        tie_rows = tie
         for i, ((_, ta), (_, tb)) in enumerate(zip(pa, pb)):
             if not np.array_equal(ta[b"cd"], tb[b"cd"]):
                 raise AssertionError(f"record {i}: cd differs")
@@ -953,6 +1004,12 @@ def main(argv=None) -> int:
     kernel_rows.append(entry_case)
     cluster_row["entry_shape"] = entry_fix
     torch.cuda.empty_cache()
+    launches["features"], feature_seg, feature_dc = features_phase(smi)
+    kernel_rows.extend(feature_seg)
+    cluster_row["features_shapes"] = feature_dc
+    cluster_row["max_abs_err"] = max([cluster_row["max_abs_err"]]
+                                     + [c["max_abs_err"] for c in feature_dc])
+    torch.cuda.empty_cache()
     launches["race"] = race_phase(smi)
     launches["bench"], bench_calls, launches["fleet"] = bench_phase(bench_cache.name, smi)
     bench_cache.cleanup()
@@ -979,7 +1036,7 @@ def main(argv=None) -> int:
     seg_row["bench_shapes"] = bench_shapes
     paths = ("whole_file", "stream", "per_base", "workflow", "operators", "live", "serve",
              "shard", "multihost", "mesh", "ladder", "race", "bench", "fleet", "fit_counts",
-             "chaos", "entry", "dryrun")
+             "chaos", "entry", "dryrun", "features")
     for row, name in ((seg_row, "segment_gemm"), (cluster_row, "directional_cluster"),
                       (fix_row, "cluster_fixpoint")):
         row["launches"] = {k: launches[k][name] for k in paths}
@@ -2084,7 +2141,7 @@ def stream_phases(gp, smi: str, bench_cache: str, launches: dict):
              chunks_skipped=r.n_chunks_skipped, chunks=r.n_chunks, identical=True)
 
         launches["ladder"], rung_calls, captures = ladder_phase(
-            in_bam, out_bam, gp, cp, settings, td, smi)
+            in_bam, out_bam, gp, cp, settings, td, smi, smalls[-1])
         capture_phase({"stream": (trace, out_bam), **captures}, td, smi)
     return rung_calls
 
@@ -2646,12 +2703,11 @@ def entry_phase(smi: str):
         if not np.array_equal(host[k], chost[k]):
             raise AssertionError(f"entry: {k} differs between the card and the CPU")
     # the parity bar of compare_records: quals within 2 (one per
-    # strand), bases identical, but for counted duplex evidence ties
+    # strand), bases identical, but for counted duplex ties
     sa, sb = host["cons_base"], chost["cons_base"]
     qa, qb = host["cons_qual"].astype(int), chost["cons_qual"].astype(int)
     dq = np.abs(qa - qb)
-    tie = ((sa != sb) & ((sa == 4) | (sb == 4)) & (qa == 2) & (qb == 2)) | (
-        (sa == sb) & (dq > 2) & (dq <= 2 * TIE_QUAL + 2))
+    tie = np.logical_or.reduce(list(tie_kinds(sa, sb, qa, qb, 2, duplex=True).values()))
     if ((sa != sb) & ~tie).any() or np.where(tie, 0, dq).max() > 2:
         raise AssertionError("entry: bases or quals apart between the card and the CPU")
     (big, fid, f_max), _ = cap_s.args
@@ -2682,6 +2738,233 @@ def entry_phase(smi: str):
                  "balance": balance, "launches": dry},
          nvidia_smi=smi)
     return launches, dry, seg_case, fix_case
+
+
+# the features phase: each feature path of the JAX package, card against
+# CPU, at read_len 150 and the configuration's own capacity. A path is
+# (name, preset, GroupingParams and ConsensusParams fields over the
+# preset's, call knobs, input parts, the kernels it must launch). A part
+# is SimConfig fields (each part at its own positions) or "jumbo": one
+# duplex molecule of JUMBO_READS reads, past config4's capacity.
+FEATURE_READ_LEN = 150
+JUMBO_READS = 5_000
+SEG, DC = "segment_gemm", "directional_cluster"
+FEATURE_PATHS = (
+    # config1's bench plan (benchmark.py:_config_plans) cut to 2k
+    # molecules; exact grouping runs no cluster kernel
+    ("exact_single_strand", "config1", {}, {}, {},
+     [dict(n_molecules=2000, n_positions=24, mean_family_size=6, duplex=False, seed=11)],
+     (SEG,)),
+    ("adjacency_single_strand", "config2", {}, {}, {},
+     [dict(n_molecules=2000, n_positions=400, mean_family_size=5, umi_error=0.02,
+           duplex=False, seed=12)], (SEG, DC)),
+    # tests/test_jumbo.py's seed-43 geometry scaled so its position holds
+    # > 3 x capacity reads (host-preclustered, then exact on the card),
+    # beside positions the card groups with the count ratio at 0
+    ("cluster_duplex", "config3", {"strategy": "cluster"}, {"min_duplex_reads": 1}, {},
+     [dict(n_molecules=1000, n_positions=1, mean_family_size=4, umi_error=0.04, duplex=True,
+           seed=43),
+      dict(n_molecules=1000, n_positions=40, mean_family_size=4, umi_error=0.04, duplex=True,
+           seed=44)], (SEG, DC)),
+    # an oversized position (> 3 x 4096 reads), one family past the
+    # capacity (a jumbo pow2 bucket), and config4's bench plan cut down
+    ("jumbo_config4", "config4", {}, {}, {},
+     [dict(n_molecules=3500, n_positions=1, mean_family_size=4, umi_error=0.01, duplex=True,
+           seed=14), "jumbo",
+      dict(n_molecules=2000, n_positions=1600, mean_family_size=3, umi_error=0.01,
+           duplex=True, seed=15)], (SEG, DC)),
+    # tests/test_refproject.py:test_indel_sim_truth_and_parity's input
+    ("ref_projected", "config3", {}, {}, {"ref_projected": True},
+     [dict(n_molecules=100, mean_family_size=5, indel_error=0.08, base_error=0.01,
+           duplex=True, seed=21)], (SEG, DC)),
+    # tests/test_mate.py:test_cli_mate_aware_end_to_end's input
+    ("mate_aware", "config3", {}, {}, {"mate_aware": "on"},
+     [dict(n_molecules=150, n_positions=16, mean_family_size=5, umi_error=0.02, duplex=True,
+           paired_reads=True, seed=31)], (SEG, DC)),
+    # the e2e_small_reference input with per-base tags, then ``filter``
+    ("filter", "config5", {}, {}, {"per_base_tags": True},
+     [dict(n_molecules=400, n_positions=10, umi_error=0.01, duplex=True, seed=3)], (SEG, DC)),
+)
+FILTER_ARGS = ("--min-base-depth", "3", "--max-n-frac", "0.1")
+
+
+def jumbo_molecule(pos_key: int, seed: int):
+    """One duplex molecule of JUMBO_READS reads (half a strand each) at
+    ``pos_key``, 1 % base errors, quals 20-40: a family past config4's
+    capacity, which bucketing gives a pow2 bucket of its own."""
+    import numpy as np
+
+    from duplexumiconsensusreads_torch.types import ReadBatch
+
+    rng = np.random.default_rng(seed)
+    n, l = JUMBO_READS, FEATURE_READ_LEN
+    bases = np.tile(rng.integers(0, 4, l, dtype=np.uint8), (n, 1))
+    err = rng.random((n, l)) < 0.01
+    bases[err] = (bases[err] + rng.integers(1, 4, int(err.sum()), dtype=np.uint8)) % 4
+    return ReadBatch(bases=bases, quals=rng.integers(20, 41, (n, l), dtype=np.uint8),
+                     umi=np.tile(rng.integers(0, 4, 12, dtype=np.uint8), (n, 1)),
+                     pos_key=np.full(n, pos_key, np.int64),
+                     strand_ab=np.arange(n) % 2 == 0, frag_end=np.zeros(n, bool),
+                     valid=np.ones(n, bool))
+
+
+def feature_input(path: str, parts: list) -> "np.ndarray":
+    """A sorted BAM at ``path`` of the parts, each shifted to positions of
+    its own; returns its reads' pos_keys. One simulated part is the
+    simulator's own BAM (indels injected as ``simulated_bam`` does)."""
+    import numpy as np
+
+    from duplexumiconsensusreads_torch.io import simulated_bam
+    from duplexumiconsensusreads_torch.io.bam import BamHeader, write_bam
+    from duplexumiconsensusreads_torch.io.convert import readbatch_to_records
+    from duplexumiconsensusreads_torch.simulate import SimConfig, simulate_batch
+    from duplexumiconsensusreads_torch.types import ReadBatch
+
+    if len(parts) == 1:
+        _, _, batch, _ = simulated_bam(SimConfig(read_len=FEATURE_READ_LEN, **parts[0]),
+                                       path=path, sort=True)
+        return np.asarray(batch.pos_key)[np.asarray(batch.valid, bool)]
+    batches = []
+    for k, part in enumerate(parts):
+        offset = 1_000_000 * (k + 1)
+        if part == "jumbo":
+            batches.append(jumbo_molecule(offset, seed=k))
+            continue
+        b, _ = simulate_batch(SimConfig(read_len=FEATURE_READ_LEN, **part))
+        b.pos_key = np.asarray(b.pos_key) + offset
+        batches.append(b)
+    fields = [f.name for f in dataclasses.fields(ReadBatch)]
+    batch = ReadBatch(**{f: np.concatenate([np.asarray(getattr(b, f)) for b in batches])
+                         for f in fields})
+    batch = batch.take(np.argsort(batch.pos_key, kind="stable"))
+    write_bam(path, BamHeader.synthetic(sort_order="coordinate"),
+              readbatch_to_records(batch, duplex=True))
+    return np.asarray(batch.pos_key)
+
+
+def features_phase(smi: str):
+    """Every path of FEATURE_PATHS through ``call_consensus_file`` on the
+    card and on the CPU (plain versions) on one input: the records
+    agree at the parity bar (compare_records, ties counted by kind, 1 in
+    10,000); the ``filter`` path then filters both outputs and compares
+    those. The kernels each path must launch did; at the path's largest
+    class (and its widest bucket) segment_gemm, and at its largest slot
+    table directional_cluster, equal their plain versions (tolerance
+    0). One line per path. Returns (the launches over the phase, the
+    segment_gemm cases, the directional_cluster cases)."""
+    t_phase = time.monotonic()
+    total = {name: 0 for name in kernel_wrappers()}
+    seg_cases, dc_cases = [], []
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_features_") as td:
+        for path in FEATURE_PATHS:
+            feature_path(path, td, total, seg_cases, dc_cases, smi)
+    emit("features_total", paths=[p[0] for p in FEATURE_PATHS], launches=total,
+         phase_seconds=round(time.monotonic() - t_phase, 3), nvidia_smi=smi)
+    return total, seg_cases, dc_cases
+
+
+def feature_path(path: tuple, td: str, total: dict, seg_cases: list, dc_cases: list,
+                 smi: str) -> None:
+    """One path of FEATURE_PATHS (see features_phase): adds its launches
+    to ``total`` and its kernel cases to the lists."""
+    import numpy as np
+    import torch
+
+    from duplexumiconsensusreads_torch import bucketing
+    from duplexumiconsensusreads_torch.cli.main import params_for
+    from duplexumiconsensusreads_torch.io import read_bam
+    from duplexumiconsensusreads_torch.kernels import cluster_fixpoint as cf
+    from duplexumiconsensusreads_torch.kernels import consensus, grouping
+    from duplexumiconsensusreads_torch.kernels import segment_gemm as sg
+    from duplexumiconsensusreads_torch.runtime.executor import call_consensus_file
+
+    name, preset, g_over, c_over, knobs, parts, expect = path
+    gp, cp, capacity = params_for(preset)
+    gp, cp = dataclasses.replace(gp, **g_over), dataclasses.replace(cp, **c_over)
+    duplex = cp.mode == "duplex"
+    in_bam = os.path.join(td, f"feature_{name}.bam")
+    keys = feature_input(in_bam, parts)
+    largest_pos = int(np.unique(keys, return_counts=True)[1].max())
+    outs = {d: os.path.join(td, f"feature_{name}_{d}.bam") for d in ("cuda", "cpu")}
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.monotonic()
+    with Capture(consensus, "_reduce") as cap_c, \
+            Capture(consensus, "_reduce", size=lambda a: a[0].shape[1]) as cap_r, \
+            Capture(grouping, "directional_cluster") as cap_g, \
+            Tally(bucketing, "build_buckets", lambda bks: (
+                len(bks), sum(b.preclustered for b in bks),
+                max((b.n_unique_umi for b in bks if b.preclustered), default=0),
+                sorted({b.capacity for b in bks}))) as t_bk:
+        rep = call_consensus_file(in_bam, outs["cuda"], gp, cp, capacity=capacity,
+                                  device="cuda", **knobs)
+        torch.cuda.synchronize()
+    secs = {"cuda": round(time.monotonic() - t0, 3)}
+    got = {k: fn.launches for k, fn in kernel_wrappers().items()}
+    t0 = time.monotonic()
+    call_consensus_file(in_bam, outs["cpu"], gp, cp, capacity=capacity, device="cpu", **knobs)
+    secs["cpu"] = round(time.monotonic() - t0, 3)
+    missing = [k for k in expect if got[k] == 0]
+    if missing:
+        raise AssertionError(f"the {name} feature path launched {missing} no time")
+    for k, v in got.items():
+        total[k] += v
+    parity = compare_records(read_bam(outs["cuda"])[1], read_bam(outs["cpu"])[1],
+                             qual_tol=2 if duplex else 1, duplex_ties=duplex,
+                             ss_ties=not duplex, per_base=bool(knobs.get("per_base_tags")))
+    n_bk, n_pre, pre_u, caps = t_bk.seen[0]
+    if name in ("cluster_duplex", "jumbo_config4"):
+        if largest_pos <= 3 * capacity or n_pre == 0:
+            raise AssertionError(f"{name}: largest position {largest_pos} reads, "
+                                 f"{n_pre} preclustered buckets (want > 3 x {capacity})")
+    if name == "jumbo_config4" and max(caps) <= capacity:
+        raise AssertionError(f"{name}: no jumbo bucket (capacities {caps})")
+    filtered = None
+    if name == "filter":
+        for d in ("cuda", "cpu"):
+            cli("filter", outs[d], "-o", outs[d] + ".filtered.bam", *FILTER_ARGS)
+        filtered = compare_records(read_bam(outs["cuda"] + ".filtered.bam")[1],
+                                   read_bam(outs["cpu"] + ".filtered.bam")[1], qual_tol=2,
+                                   duplex_ties=True, per_base=True)
+        filtered["args"] = list(FILTER_ARGS)
+    # each kernel against its plain version: segment_gemm at the
+    # largest class and at the widest bucket, directional_cluster at
+    # the largest slot table
+    cases = {}
+    for which, cap in (("largest_class", cap_c), ("widest_bucket", cap_r)):
+        (big, fid, f_max, _method), _ = cap.args
+        case = kernel_case(sg, f"features_{name}_{which}", big, fid, f_max)
+        seg_cases.append(case)
+        cases[which] = case
+    shapes = sorted({tuple(s) for s in cap_c.shapes})
+    dc_case = None
+    if cap_g.args is not None:
+        table, _ = cap_g.args
+        g_got = cf.directional_cluster(*table)
+        g_want = cf.directional_cluster_plain(*table)
+        err = max((a.long() - b.long()).abs().max().item() for a, b in zip(g_got, g_want))
+        if not all(torch.equal(a, b) for a, b in zip(g_got, g_want)):
+            raise AssertionError(f"features {name}: directional_cluster max abs err {err}")
+        dc_case = {"case": f"features_{name}", "shape": list(table[0].shape),
+                   "umi_len": table[3], "max_hamming": table[4], "count_ratio": table[5],
+                   "max_abs_err": err, "tolerance": 0}
+        dc_cases.append(dc_case)
+        if name == "cluster_duplex" and table[5] != 0:
+            raise AssertionError(f"{name}: directional_cluster ran at count ratio {table[5]}")
+        del table, g_got, g_want
+    del cap_c, cap_r, cap_g
+    torch.cuda.empty_cache()
+    emit("features", path=name, config=preset, grouping=gp.strategy, mode=cp.mode,
+         knobs=knobs, capacity=capacity, reads=int(keys.size),
+         largest_position_reads=largest_pos, buckets=n_bk, preclustered_buckets=n_pre,
+         preclustered_max_unique_umis=pre_u, bucket_capacities=caps,
+         consensus_out=rep.n_consensus, card_vs_cpu=parity,
+         filtered_card_vs_cpu=filtered,
+         launches=got, segment_gemm_shapes=[list(s) for s in shapes],
+         largest_class=cases["largest_class"]["shape"],
+         largest_class_f_max=cases["largest_class"]["f_max"],
+         segment_gemm_vs_plain=cases, directional_cluster_vs_plain=dc_case,
+         seconds=secs, nvidia_smi=smi)
 
 
 def start_daemon(spool: str, daemon_id: str, counts: str, device: str, *extra):
@@ -3353,7 +3636,8 @@ class RungKeeper:
         self.module.segment_gemm = self.inner
 
 
-def ladder_phase(in_bam: str, out_bam: str, gp, cp, settings: dict, td: str, smi: str):
+def ladder_phase(in_bam: str, out_bam: str, gp, cp, settings: dict, td: str, smi: str,
+                 free_bam: str):
     """The stream phase's input and settings with bucket_ladder "auto"
     and LADDER.
 
@@ -3363,9 +3647,10 @@ def ladder_phase(in_bam: str, out_bam: str, gp, cp, settings: dict, td: str, smi
     cycle error model is fit per bucket, and a ladder regroups the
     buckets (ROADMAP Faults found); those cycles are counted, and every
     other field must be identical. Byte identity is held where the
-    output does not depend on the bucket composition: the same input
-    under the model-free duplex config, ladder off, auto and LADDER,
-    then a kill under auto and a resume under LADDER. Returns the
+    output does not depend on the bucket composition: ``free_bam`` (the
+    serve phase's 250k-read input, in TAKEOVER_CHUNK_READS chunks) under
+    the model-free duplex config, ladder off, auto and LADDER, then a
+    kill under auto and a resume under LADDER. Returns the
     launches of the two config5 ladder runs, the explicit run's largest
     launch per rung, and {name: (trace, output)} of their captures."""
     import numpy as np
@@ -3431,6 +3716,7 @@ def ladder_phase(in_bam: str, out_bam: str, gp, cp, settings: dict, td: str, smi
 
     # byte identity where the output cannot depend on the buckets' make-up
     cp_free = dataclasses.replace(cp, error_model=None)
+    in_bam, settings = free_bam, dict(settings, chunk_reads=TAKEOVER_CHUNK_READS)
     ident = {}
     ref_path = os.path.join(td, "ladder_free_off.bam")
     t0 = time.monotonic()
@@ -3470,7 +3756,8 @@ def ladder_phase(in_bam: str, out_bam: str, gp, cp, settings: dict, td: str, smi
     emit("ladder", config="config5 (min_duplex_reads=1)",
          ladders={"auto": "auto", "explicit": LADDER}, runs=runs,
          launches=launches,
-         byte_identity={"config": "config5 with error_model=None", "runs": ident,
+         byte_identity={"config": "config5 with error_model=None", "input": free_bam,
+                        "chunk_reads": TAKEOVER_CHUNK_READS, "runs": ident,
                         "resume": {"kill": "ckpt.save:3:kill", "killed_under": "auto",
                                    "resumed_under": LADDER, "committed_before_kill": committed,
                                    "chunks_skipped": r.n_chunks_skipped, "identical": True}},

@@ -1239,7 +1239,9 @@ def _stream_call(
     }
     # device-ledger side table (while tracing): one entry per (chunk,
     # class), folded by dispatch, popped by the drain into ONE dev
-    # record. Guarded by phase_lock.
+    # record. A class is keyed by its capacity and spec: under a ladder
+    # two capacities of one chunk can share a spec, which does not
+    # carry R (ROADMAP Faults 21). Guarded by phase_lock.
     dev_pending: dict = {}
     # classes whose first pipeline call was timed (jit_compile event)
     dev_compiled: set = set()
@@ -1415,7 +1417,7 @@ def _stream_call(
             if tr is not None:
                 led["h2d_logical"] += logical
                 led["h2d_wire"] += h2d
-                ent = dev_pending.setdefault((chunk, spec), {
+                ent = dev_pending.setdefault((chunk, buckets[0].capacity, spec), {
                     "cap": int(buckets[0].capacity), "cycles": l_cyc,
                     "method": spec.ssc_method, "buckets": 0,
                     "flops": 0.0, "h2d_wire": 0, "disp_s": 0.0,
@@ -1634,7 +1636,7 @@ def _stream_call(
                 if tr is not None:
                     led["d2h_wire"] += d2h_wire
                     led["d2h_logical"] += d2h_logical
-                    dent = dev_pending.pop((k, cspec), None)
+                    dent = dev_pending.pop((k, cbuckets[0].capacity, cspec), None)
             if tr is not None:
                 tr.span("device_wait_fetch", t0, dt, chunk=k)
                 if dent is not None:

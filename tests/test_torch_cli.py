@@ -29,6 +29,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import tie_kinds
 from duplexumiconsensusreads_tpu.cli.main import main as jax_main
 from duplexumiconsensusreads_tpu.io import simulated_bam
 from duplexumiconsensusreads_tpu.runtime import executor as jax_executor
@@ -37,9 +38,6 @@ from duplexumiconsensusreads_tpu.simulate import SimConfig
 from duplexumiconsensusreads_torch.cli.main import main as cli_main
 from duplexumiconsensusreads_torch.io import read_bam, write_bam
 from duplexumiconsensusreads_torch.runtime import executor, knobs
-
-# a strand call at an evidence tie has qual <= 3 (chip_smoke.py TIE_QUAL)
-TIE_QUAL = 3
 
 
 @pytest.fixture(scope="module")
@@ -83,8 +81,11 @@ def assert_same_bam(a: str, b: str) -> None:
 
 def assert_parity(a: str, b: str, duplex: bool) -> int:
     """The parity bar between the JAX output (a) and the port's (b):
-    every field identical but seq/qual, bases identical except at
-    evidence ties, quals within 1 per strand. Returns the tie cycles."""
+    every field identical but seq/qual, bases identical except at ties
+    (chip_smoke.tie_kinds: strand evidence ties, ROADMAP Faults 4, and
+    strand quals one apart at the Phred floor, Faults 20), quals within
+    1 per strand; at most 1 tie cycle in 1,000. Returns the tie
+    cycles."""
     ha, ra = read_bam(a)
     hb, rb = read_bam(b)
     assert _strip_pg(ha) == _strip_pg(hb)
@@ -100,8 +101,7 @@ def assert_parity(a: str, b: str, duplex: bool) -> int:
     qa, qb = np.asarray(ra.qual).astype(int), np.asarray(rb.qual).astype(int)
     tol = 2 if duplex else 1
     dq = np.abs(qa - qb)
-    tie = (((sa != sb) & (qa <= TIE_QUAL) & (qb <= TIE_QUAL))
-           | ((sa == sb) & (dq > tol) & (dq <= 2 * TIE_QUAL + tol) & duplex))
+    tie = np.logical_or.reduce(list(tie_kinds(sa, sb, qa, qb, tol, duplex).values()))
     assert not ((sa != sb) & ~tie).any(), "bases differ outside a tie"
     assert (np.where(tie, 0, dq) <= tol).all()
     assert tie.sum() * 1000 <= sa.size

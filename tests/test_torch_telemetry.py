@@ -310,3 +310,53 @@ def test_tools_run_as_modules(port_capture):
     )
     assert r.returncode == 0, r.stderr
     assert "byte sum-check" in r.stdout and "output check: OK" in r.stdout
+
+
+def test_each_dispatched_class_gets_its_own_dev_record(tmp_path, monkeypatch):
+    """ROADMAP Faults 21: under a bucket ladder a chunk can hold two
+    classes of different capacities with the same PipelineSpec (the
+    spec does not carry the capacity). With every class dispatched
+    before the drain fetches the first (a synchronous transfer pool, as
+    on the card where dispatch runs ahead), each class still gets its
+    own dev record: its capacity, its buckets, its dispatch seconds and
+    its fetch window, and the device sum-check holds."""
+    from concurrent.futures import Future, ThreadPoolExecutor
+
+    from duplexumiconsensusreads_torch.bucketing import build_buckets
+    from duplexumiconsensusreads_torch.io import read_bam, records_to_readbatch
+    from duplexumiconsensusreads_torch.runtime import stream
+    from duplexumiconsensusreads_torch.runtime.executor import partition_buckets
+
+    class InlinePool(ThreadPoolExecutor):
+        def submit(self, fn, *args, **kwargs):
+            f = Future()
+            try:
+                f.set_result(fn(*args, **kwargs))
+            except BaseException as e:  # surfaced where the drain reads it
+                f.set_exception(e)
+            return f
+
+    def pool(max_workers=None, thread_name_prefix=""):
+        cls = InlinePool if thread_name_prefix == "dut-xfer" else ThreadPoolExecutor
+        return cls(max_workers=max_workers, thread_name_prefix=thread_name_prefix)
+
+    bam, trace = str(tmp_path / "in.bam"), str(tmp_path / "t.jsonl")
+    simulated_bam(SimConfig(n_molecules=600, read_len=30, n_positions=30, mean_family_size=4,
+                            umi_error=0.01, duplex=True, seed=0), path=bam, sort=True)
+    gp, cp, _ = params_for("config3")
+    batch, _ = records_to_readbatch(read_bam(bam)[1], duplex=True)
+    classes = partition_buckets(build_buckets(batch, capacity=512, grouping=gp,
+                                              ladder=(128, 256, 512)),
+                                gp, cp, packed_io=True, device="cpu")
+    specs = [spec for _, spec in classes]
+    assert len(set(specs)) < len(specs)  # two capacities share a spec
+    monkeypatch.setattr(stream, "ThreadPoolExecutor", pool)
+    stream_call_consensus(bam, str(tmp_path / "o.bam"), gp, cp, device="cpu", capacity=512,
+                          chunk_reads=100_000, bucket_ladder="128,256,512", trace_path=trace)
+    recs = [json.loads(line) for line in open(trace)]
+    dev = sorted((r["chunk"], r["cap"], r["buckets"]) for r in recs if r.get("type") == "dev")
+    # one H2D record per dispatched class, with its capacity and rows
+    h2d = sorted((r["chunk"], r["cap"], r["rows_pad"] // r["cap"]) for r in recs
+                 if r.get("type") == "xfer" and r.get("dir") == "h2d")
+    assert dev == h2d and len({cap for _, cap, _ in dev}) == 3
+    assert devledger.sum_check_dev(recs)[1]
