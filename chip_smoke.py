@@ -50,6 +50,16 @@ line:
           through, and with the plain directional cluster patched in it
           raises; then fused_pipeline under "warn", with every implicit
           sync that remains counted by file:line
+  graphs  runtime/graphs.py at the main class and a 64-bucket class of
+          it, every output bit for bit against the eager step: eager,
+          captured, replayed; a replay on other inputs (the buckets
+          reversed) and back; the two classes interleaved on one
+          lane; one class replayed on two streams at once; the
+          packed epilogue at two k_pad values (eager, captured,
+          replayed each). Launches equal one eager step's per call
+          (the replays counted through the capture's tally), 0
+          implicit syncs at both captured shapes, capture seconds,
+          replay enqueue ms, each lane's pool bytes and the LRU bound
   cluster the directional cluster kernel vs its plain version at
           tolerance 0 (seed, mid_of_slot, n_mol): at the stages rerun's
           slot table and on synthetic tables (position groups, groups
@@ -159,9 +169,11 @@ line:
           dispatch.pack:2 and fetch.unpack:2 each followed by a resume.
           Every output byte-identical to the fault-free run, both kernels
           launched in every run, and torch.cuda.memory_allocated() after
-          each kill-and-resume pair, and after the phase's last run, back
-          within one chunk's footprint of where it started; per run the
-          wall, n_fired, n_retries, launches and allocated bytes
+          each kill-and-resume pair back within one chunk's footprint of
+          where it started, and after every run from the third on within
+          one chunk's footprint of the second run's (the first two
+          capture the fault-free path's graphs); per run the wall, n_fired, n_retries, launches, allocated bytes
+          and the graphs' static and pool bytes
   stream_small_reference  a small paired config5 input streamed on the
           card and on the CPU (plain versions) must agree record by
           record, with per-base tags and a BAI too; on the card,
@@ -271,7 +283,15 @@ path (each feature path those it runs), and the mesh path on every
 lane: segment_gemm and grouping's directional
 cluster (directional_cluster); the serve, shard and multihost paths
 count the daemon and host subprocesses' launches too (each writes its
-counts at exit). Then the nvidia-smi line, the ``kernels``
+counts at exit). Each path's steps and packed epilogues by how they
+ran (eager, captured, replayed; runtime/graphs.py) and the distinct
+step classes it met are printed in a ``graphs_paths`` line, with each
+path's graph pools, the smoke's process and each subprocess apart:
+each one's peak on one card, which may not pass one process's budget
+(graphs.MAX_DEVICE_POOL_BYTES), and the least free share of the card a
+capture left. A kernel wrapper called inside a capture is kept by the
+phases' keepers as an eager call is (see :func:`capturing`), so the
+kernels are held at the shapes the graphs run them at. Then the nvidia-smi line, the ``kernels``
 JSON line (one row per kernel with its launches per path and its
 mesh path's launches per lane, the fixpoint kernel's row too, with its
 count of 0 on every path; under
@@ -367,6 +387,25 @@ def emit(phase: str, **fields) -> None:
 PATH_KERNELS = ("segment_gemm", "directional_cluster")
 
 
+def capturing() -> bool:
+    """Whether this thread's current stream is capturing a CUDA graph
+    (runtime/graphs.py). A wrapper called there keeps its arguments all
+    the same (a replay never calls it): they are tensors of the graph's
+    pool, which the capture's replay writes before the step returns,
+    and which a kept reference keeps from any other allocation, so the
+    kernel's inputs of the graph's last replay are what a later check
+    reads. It records no events, which a capture would take in."""
+    import torch
+
+    return torch.cuda.is_current_stream_capturing()
+
+
+# each path's graph counts ({kind: {mode: calls}}, runtime/graphs.py),
+# read with its launches (read_launches), its subprocesses' added
+# (note_child_graphs)
+GRAPH_PATHS: dict = {}
+
+
 def kernel_wrappers() -> dict:
     """{kernel name: its wrapper}, each wrapper carrying a ``launches``
     count."""
@@ -383,14 +422,77 @@ def path_launched(counts: dict) -> bool:
 
 
 def reset_launches() -> None:
+    from duplexumiconsensusreads_torch.runtime import graphs
+
     for fn in kernel_wrappers().values():
         fn.launches = 0
         fn.stream_launches = {}
+    graphs.reset_counts()
+
+
+def graph_modes(counts: dict) -> dict:
+    """{kind: {mode: calls}} of a graphs.read_counts() result, with the
+    distinct step classes it met (``classes``)."""
+    from duplexumiconsensusreads_torch.runtime import graphs
+
+    return {**{k: {m: counts[k][m] for m in graphs.MODES} for k in graphs.KINDS},
+            "classes": counts["classes"]}
+
+
+def add_graph_modes(path: str, modes: dict) -> None:
+    """Add a run's graph counts to GRAPH_PATHS[path]."""
+    acc = GRAPH_PATHS.setdefault(path, {})
+    for k, per in modes.items():
+        if isinstance(per, dict):
+            sub = acc.setdefault(k, dict.fromkeys(per, 0))
+            for m, n in per.items():
+                sub[m] += n
+        else:
+            acc[k] = acc.get(k, 0) + per
+
+
+# each path's graph pools, the smoke's process first and then each of
+# its subprocesses: {path: {"processes": n, "pool_peak_bytes": [each
+# one's peak on one card], "card_free_min": the least free share of the
+# card a capture left}}
+PATH_POOLS: dict = {}
+
+
+def check_pools(path: str, counts: dict) -> None:
+    """Note a process's graph pools (a graphs.read_counts() result) in
+    PATH_POOLS[path]; raise if they held more than one process's budget
+    on one card (runtime/graphs.py: MAX_DEVICE_POOL_BYTES)."""
+    from duplexumiconsensusreads_torch.runtime import graphs
+
+    if counts["pool_peak_bytes"] > graphs.MAX_DEVICE_POOL_BYTES:
+        raise AssertionError(f"{path}: a process's graph pools held {counts['pool_peak_bytes']} "
+                             f"bytes (budget {graphs.MAX_DEVICE_POOL_BYTES})")
+    acc = PATH_POOLS.setdefault(path, {"processes": 0, "pool_peak_bytes": [],
+                                       "card_free_min": 1.0})
+    acc["processes"] += 1
+    acc["pool_peak_bytes"].append(counts["pool_peak_bytes"])
+    acc["card_free_min"] = min(acc["card_free_min"], counts["card_free_min"])
+
+
+def note_child_graphs(path: str, counts_path: str) -> None:
+    """A daemon or host subprocess's graph counts (written beside its
+    launch counts) into GRAPH_PATHS[path], and its pools into
+    PATH_POOLS[path] (check_pools)."""
+    with open(counts_path + ".graphs") as f:
+        got = json.load(f)
+    check_pools(path, got.pop("pools"))
+    add_graph_modes(path, got)
 
 
 def read_launches(path: str) -> dict:
     """Each kernel's launches since reset_launches(); raises if the path
-    launched one of PATH_KERNELS no time."""
+    launched one of PATH_KERNELS no time. The graph counts since then
+    are added to GRAPH_PATHS[path]."""
+    from duplexumiconsensusreads_torch.runtime import graphs
+
+    counts = graphs.read_counts()
+    add_graph_modes(path, graph_modes(counts))
+    check_pools(path, counts)
     got = {name: fn.launches for name, fn in kernel_wrappers().items()}
     missing = [name for name in PATH_KERNELS if got[name] == 0]
     if missing:
@@ -467,6 +569,8 @@ class Capture:
                 self.size = self.measure(args)
                 keep = range(len(args)) if self.keep is None else self.keep
                 self.args = ([args[i] if i in keep else None for i in range(len(args))], kwargs)
+            if capturing():
+                return self.inner(*args, **kwargs)
             ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
             ev[0].record()
             out = self.inner(*args, **kwargs)
@@ -884,6 +988,9 @@ def main(argv=None) -> int:
 
     # ---- sync_debug: grouping with no host sync, and what remains
     sync_debug_phase(group_args, full, spec, smi)
+    # ---- graphs: the step and the epilogue as CUDA graphs, replayed
+    # bit for bit equal to eager
+    graphs_phase(full, spec, smi)
     # ---- cluster: the directional cluster kernel vs its plain version
     cluster_row = cluster_phase(cluster_args, group_args, smi)
     del group_args
@@ -1042,6 +1149,16 @@ def main(argv=None) -> int:
         row["launches"] = {k: launches[k][name] for k in paths}
         # the mesh path's launches on each lane
         row["mesh_lane_launches"] = launches["mesh_lanes"][name]
+    # each path's steps and epilogues by how they ran (runtime/graphs.py)
+    from duplexumiconsensusreads_torch.runtime import graphs, pinned
+
+    emit("graphs_paths", paths=GRAPH_PATHS,
+         replayed={k: v["step"]["replayed"] for k, v in GRAPH_PATHS.items()},
+         classes={k: v["classes"] for k, v in GRAPH_PATHS.items()},
+         pool_bytes=graphs.pool_bytes(), pinned_staging=pinned.stats(),
+         pool_budget={"per_process_bytes": graphs.MAX_DEVICE_POOL_BYTES,
+                      "card_free_share": graphs.CARD_FREE_SHARE},
+         path_pools=PATH_POOLS, nvidia_smi=smi)
 
     print(smi, flush=True)
     print(json.dumps({"kernels": [seg_row, cluster_row, fix_row]}), flush=True)
@@ -1540,9 +1657,6 @@ def sync_debug_phase(group_args, full, spec, smi: str) -> None:
     stream turns patch it; its fixpoint loop checks for a change on the
     host) raises there. Then fused_pipeline under "warn": every implicit
     sync that remains, counted by file:line."""
-    import collections
-    import warnings
-
     import torch
 
     from duplexumiconsensusreads_torch.kernels import cluster_fixpoint as cf
@@ -1574,6 +1688,26 @@ def sync_debug_phase(group_args, full, spec, smi: str) -> None:
         grouping.directional_cluster = cf.directional_cluster
     if not plain_raises:
         raise AssertionError("the plain directional cluster ran under sync debug mode 'error'")
+    n_syncs, sites = implicit_syncs(full, spec)
+    emit("sync_debug", group_kernel_shape=list(args[0].shape),
+         group_kernel_under_error_mode="ran through",
+         plain_directional_cluster_raises=True,
+         fused_pipeline_implicit_syncs=n_syncs, fused_pipeline_sync_sites=sites,
+         nvidia_smi=smi)
+
+
+def implicit_syncs(full, spec) -> tuple[int, dict]:
+    """fused_pipeline on ``full`` under torch.cuda.set_sync_debug_mode
+    ("warn"): the implicit host syncs it makes, and their file:line
+    sites. A step that syncs cannot be captured as a graph."""
+    import collections
+    import warnings
+
+    import torch
+
+    from duplexumiconsensusreads_torch.ops import pipeline
+
+    torch.cuda.synchronize()
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
@@ -1585,11 +1719,171 @@ def sync_debug_phase(group_args, full, spec, smi: str) -> None:
     syncs = [w for w in caught if "synchronizing CUDA operation" in str(w.message)]
     sites = collections.Counter(
         f"{os.path.relpath(w.filename, HERE)}:{w.lineno}" for w in syncs)
-    emit("sync_debug", group_kernel_shape=list(args[0].shape),
-         group_kernel_under_error_mode="ran through",
-         plain_directional_cluster_raises=True,
-         fused_pipeline_implicit_syncs=len(syncs), fused_pipeline_sync_sites=dict(sites),
-         nvidia_smi=smi)
+    return len(syncs), dict(sites)
+
+
+# buckets of the graphs phase's second class (the main class's first
+# buckets: another shape, so another graph)
+GRAPHS_SMALL_BUCKETS = 64
+
+
+def graphs_phase(full, spec, smi: str) -> dict:
+    """runtime/graphs.py on the card, at the main whole-file class (the
+    stages rerun's inputs) and a class of its first
+    GRAPHS_SMALL_BUCKETS buckets, every output held bit for bit against
+    the eager step: the main class eager, captured, replayed; a replay
+    on other inputs of that class (its buckets reversed), then on the
+    first again (no stale static buffer); the two classes A, B, A, B,
+    A, B on one lane; one class on two streams at once (two replays in
+    flight on other inputs); the packed epilogue at two k_pad values
+    (eager, captured, replayed each) against the eager compaction of the
+    eager step. Each replay adds the step's launches (the counts equal
+    one eager step's per call); implicit syncs at every captured shape
+    (0); segment_gemm past MAX_GRID_Z buckets (two launches in one
+    call) captured and replayed, bit for bit against its plain version;
+    capture seconds, replay enqueue ms and each lane's pool bytes.
+    Returns the counts and pool bytes."""
+    import torch
+
+    from duplexumiconsensusreads_torch.interop import ARRAY_KEYS
+    from duplexumiconsensusreads_torch.ops import pipeline
+    from duplexumiconsensusreads_torch.ops.pipeline import _pow2
+    from duplexumiconsensusreads_torch.runtime import graphs
+    from duplexumiconsensusreads_torch.runtime.executor import _pack_d2h, pack_fetch_outputs
+
+    t_phase = time.monotonic()
+    graphs.clear()
+    a = dict(zip(ARRAY_KEYS, full))
+    other = {k: v.flip(0).contiguous() for k, v in a.items()}
+    small = {k: v[:GRAPHS_SMALL_BUCKETS].contiguous() for k, v in a.items()}
+
+    def eager(args):
+        out = pipeline.fused_pipeline(*(args[k] for k in ARRAY_KEYS), spec)
+        return {k: v.clone() for k, v in out.items()}
+
+    torch.cuda.synchronize()
+    reset_launches()
+    ref = {"a": eager(a)}
+    per_step = {k: fn.launches for k, fn in kernel_wrappers().items()}
+    ref["other"], ref["small"] = eager(other), eager(small)
+    if all(torch.equal(ref["a"][k], ref["other"][k]) for k in ref["a"]):
+        raise AssertionError("graphs: the reversed class gave the same outputs")
+    s1, s2 = torch.cuda.Stream(), torch.cuda.Stream()
+    torch.cuda.synchronize()
+    reset_launches()
+    n_calls = [0]
+    enqueue_ms = []
+
+    def step(args, stream):
+        with torch.cuda.stream(stream):
+            t0 = time.perf_counter()
+            out, (mode, _) = graphs.run_step(args, spec, ARRAY_KEYS)
+            if mode == "replayed":
+                enqueue_ms.append((time.perf_counter() - t0) * 1e3)
+        n_calls[0] += 1
+        return out, mode
+
+    def held(out, name) -> bool:
+        torch.cuda.synchronize()
+        return all(torch.equal(out[k], ref[name][k]) for k in ref[name])
+
+    cases = {}
+    rows = [step(a, s1) for _ in range(3)]
+    cases["main_class"] = [(m, held(o, "a")) for o, m in rows]
+    o1, m1 = step(other, s1)
+    ok1 = held(o1, "other")
+    o2, m2 = step(a, s1)
+    cases["other_inputs_then_first"] = [(m1, ok1), (m2, held(o2, "a"))]
+    seq = []
+    for name in ("small", "a", "small", "a", "small", "a"):
+        o, m = step(small if name == "small" else a, s1)
+        seq.append((name, m, held(o, name)))
+    cases["interleaved_on_one_lane"] = seq
+    two = [step(a, s2)[1], step(a, s2)[1]]
+    torch.cuda.synchronize()
+    x, mx = step(a, s1)  # both replays queued before either is read
+    y, my = step(other, s2)
+    cases["two_streams_at_once"] = two + [(mx, held(x, "a")), (my, held(y, "other"))]
+    distinct = all(x[k].data_ptr() != y[k].data_ptr() for k in x if x[k].numel())
+    # the packed epilogue on the main class's replayed outputs (s1's,
+    # holding the main class now)
+    duplex = spec.consensus.mode == "duplex"
+    n_out = x["n_molecules" if duplex else "n_families"].clamp(0, x["cons_valid"].shape[1])
+    k1 = min(_pow2(int(n_out.sum())), x["cons_valid"].numel())
+    epi = []
+    for kp in (k1, 2 * k1):
+        want = _pack_d2h(ref["a"], duplex, kp)
+        for _ in range(3):
+            before = graphs.read_counts()["epilogue"]
+            with torch.cuda.stream(s1):
+                got = pack_fetch_outputs(x, spec, kp)
+            torch.cuda.synchronize()
+            after = graphs.read_counts()["epilogue"]
+            mode = next(m for m in graphs.MODES if after[m] > before[m])
+            epi.append((kp, mode, all(torch.equal(got[k], want[k]) for k in want)))
+    cases["epilogue_two_k_pad"] = epi
+    flat = ([ok for _, ok in cases["main_class"]]
+            + [ok for _, ok in cases["other_inputs_then_first"]]
+            + [ok for *_, ok in seq] + [ok for _, ok in cases["two_streams_at_once"][2:]]
+            + [ok for *_, ok in epi])
+    if not all(flat) or not distinct:
+        raise AssertionError(f"graphs: replayed outputs differ from eager: {cases}")
+    modes = [m for m, _ in cases["main_class"]]
+    if modes != ["eager", "captured", "replayed"] or [m for _, m, _ in epi[:3]] != modes:
+        raise AssertionError(f"graphs: modes {cases}")
+    counts = graphs.read_counts()
+    launches = {k: fn.launches for k, fn in kernel_wrappers().items()}
+    want_l = {k: n * n_calls[0] for k, n in per_step.items()}
+    if launches != want_l:
+        raise AssertionError(f"graphs: launches {launches} over {n_calls[0]} steps, "
+                             f"want {want_l} ({per_step} a step)")
+    # segment_gemm past MAX_GRID_Z buckets, which one call queues as
+    # several launches, captured and replayed: the tally holds each
+    from duplexumiconsensusreads_torch.kernels import build
+    from duplexumiconsensusreads_torch.kernels import segment_gemm as sg
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    nb = sg.MAX_GRID_Z + 5
+    big = sg.pad_rows(torch.randn(nb, 8, 13, device="cuda", generator=gen))
+    fid = torch.randint(-1, 6, (nb, 8), device="cuda", generator=gen, dtype=torch.int32)
+    want = sg.segment_gemm_plain(big, fid, 5)
+    s3 = torch.cuda.Stream()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(s3):
+        sg.segment_gemm(big, fid, 5)
+        with build.tally_launches() as tally:
+            g.capture_begin()
+            got = sg.segment_gemm(big, fid, 5)
+            g.capture_end()
+        g.replay()
+    torch.cuda.synchronize()
+    past_z = {"buckets": nb, "launches_in_graph": tally.get(sg.segment_gemm, 0),
+              "bit_identical": bool(torch.equal(got, want))}
+    if past_z["launches_in_graph"] != 2 or not past_z["bit_identical"]:
+        raise AssertionError(f"graphs: segment_gemm past MAX_GRID_Z {past_z}")
+    del g, got, want, big, fid
+    syncs = {"main_class": implicit_syncs(full, spec),
+             "small_class": implicit_syncs(tuple(small[k] for k in ARRAY_KEYS), spec)}
+    if any(n for n, _ in syncs.values()):
+        raise AssertionError(f"graphs: implicit syncs at a captured shape: {syncs}")
+    pools = graphs.pool_bytes()
+    emit("graphs", shapes={"main_class": list(full[0].shape),
+                           "small_class": list(small["pos"].shape)},
+         cases=cases, all_bit_identical=True, static_buffers_distinct_per_stream=distinct,
+         segment_gemm_past_max_grid_z=past_z,
+         launches=launches, launches_per_step=per_step, steps=n_calls[0],
+         counts=counts, capture_s=counts["step"]["capture_s"],
+         replay_enqueue_ms=[round(t, 3) for t in enqueue_ms],
+         fused_pipeline_implicit_syncs={k: n for k, (n, _) in syncs.items()},
+         sync_sites={k: v for k, (_, v) in syncs.items()},
+         pool_bytes=pools, lru_bound={"step_graphs_per_lane": graphs.MAX_GRAPHS,
+                                      "static_bytes_per_lane": graphs.MAX_LANE_STATIC_BYTES,
+                                      "epilogues_per_step_graph": graphs.MAX_EPILOGUES},
+         phase_seconds=round(time.monotonic() - t_phase, 3), nvidia_smi=smi)
+    del x, y, o1, o2, rows, ref
+    graphs.clear()
+    torch.cuda.empty_cache()
+    return {"counts": counts, "pool_bytes": pools}
 
 
 def stream_turns(in_bam: str, out_bam: str, gp, cp, settings: dict, td: str, smi: str) -> None:
@@ -1602,6 +1896,7 @@ def stream_turns(in_bam: str, out_bam: str, gp, cp, settings: dict, td: str, smi
 
     from duplexumiconsensusreads_torch.kernels import cluster_fixpoint as cf
     from duplexumiconsensusreads_torch.kernels import grouping
+    from duplexumiconsensusreads_torch.runtime import graphs
     from duplexumiconsensusreads_torch.runtime.stream import stream_call_consensus
     from duplexumiconsensusreads_torch.telemetry import ledger, report
 
@@ -1615,12 +1910,16 @@ def stream_turns(in_bam: str, out_bam: str, gp, cp, settings: dict, td: str, smi
         torch.cuda.synchronize()
         reset_launches()
         try:
-            t0 = time.monotonic()
-            rep = stream_call_consensus(in_bam, out, gp, cp, device="cuda", trace_path=trace,
-                                        **settings)
-            wall = time.monotonic() - t0
+            # the plain cluster checks its fixpoint on the host, which a
+            # graph capture forbids: its turn runs eagerly
+            with graphs.disabled() if turn == "plain" else contextlib.nullcontext():
+                t0 = time.monotonic()
+                rep = stream_call_consensus(in_bam, out, gp, cp, device="cuda",
+                                            trace_path=trace, **settings)
+                wall = time.monotonic() - t0
         finally:
             grouping.directional_cluster = cf.directional_cluster
+        add_graph_modes(f"stream_turns_{turn}", graph_modes(graphs.read_counts()))
         n_fix = cf.directional_cluster.launches
         if (n_fix > 0) != (turn == "kernel"):
             raise AssertionError(f"turn {i} ({turn}): {n_fix} directional_cluster launches")
@@ -2173,10 +2472,10 @@ class LaneKeeper:
                 lanes[lane] = lanes.get(lane, 0) + n
         return per
 
-    def lane(self, device) -> int:
+    def lane(self, device, stream=None) -> int:
         import torch
 
-        s = torch.cuda.current_stream(device).cuda_stream
+        s = stream or torch.cuda.current_stream(device).cuda_stream
         return self.stream_lane.get(s, self.card_lane.get(device.index, -1))
 
     def _patch(self, module, name, make):
@@ -2187,12 +2486,25 @@ class LaneKeeper:
     def __enter__(self):
         import threading
 
+        import torch
+
         from duplexumiconsensusreads_torch.kernels import consensus, grouping
         from duplexumiconsensusreads_torch.ops import pipeline
         from duplexumiconsensusreads_torch.parallel import sharded
-        from duplexumiconsensusreads_torch.runtime import stream
+        from duplexumiconsensusreads_torch.runtime import graphs, stream
 
         lock = threading.Lock()
+        # the stream of the step this thread runs: a capture runs on a
+        # side stream (runtime/graphs.py), and its kernels are the lane's
+        step_stream = threading.local()
+
+        def steps(inner):
+            def wrapped(args, *a, **k):
+                dev = next(iter(args.values())).device
+                step_stream.s = (torch.cuda.current_stream(dev).cuda_stream
+                                 if dev.type == "cuda" else None)
+                return inner(args, *a, **k)
+            return wrapped
 
         def streams(inner):
             def wrapped(mesh, *a, **k):
@@ -2210,14 +2522,16 @@ class LaneKeeper:
             def make(inner):
                 def wrapped(*args, **kwargs):
                     if args[0].is_cuda:
+                        s = getattr(step_stream, "s", None) if capturing() else None
                         with lock:
-                            self.last[(name, self.lane(args[0].device))] = (args, kwargs)
+                            self.last[(name, self.lane(args[0].device, s))] = (args, kwargs)
                     return inner(*args, **kwargs)
                 return wrapped
             return make
 
         for mod in (sharded, stream):
             self._patch(mod, "lane_streams", streams)
+        self._patch(graphs, "run_step", steps)
         self._patch(consensus, "segment_gemm", kept("segment_gemm"))
         self._patch(grouping, "directional_cluster", kept("directional_cluster"))
         self._patch(pipeline, "group_kernel", kept("group_kernel"))
@@ -2232,11 +2546,12 @@ class LaneKeeper:
 
 
 @contextlib.contextmanager
-def enqueue_timer(pipeline_module):
-    """While entered, times every ``fused_pipeline`` call: the host
-    enqueue of one lane's step (the call returns once its kernels are
-    queued). Yields the list of seconds, in call order."""
-    inner = pipeline_module.fused_pipeline
+def enqueue_timer(graphs_module):
+    """While entered, times every ``run_step`` call (runtime/graphs.py):
+    the host enqueue of one lane's step, eager or replayed (the call
+    returns once its work is queued). Yields the list of seconds, in
+    call order."""
+    inner = graphs_module.run_step
     times = []
 
     def timed(*args, **kwargs):
@@ -2245,11 +2560,11 @@ def enqueue_timer(pipeline_module):
         times.append(time.perf_counter() - t0)
         return out
 
-    pipeline_module.fused_pipeline = timed
+    graphs_module.run_step = timed
     try:
         yield times
     finally:
-        pipeline_module.fused_pipeline = inner
+        graphs_module.run_step = inner
 
 
 @contextlib.contextmanager
@@ -2307,17 +2622,19 @@ def mesh_phase(in_bam: str, step_bam: str, td: str, smi: str):
     from duplexumiconsensusreads_torch.kernels import grouping
     from duplexumiconsensusreads_torch.kernels import segment_gemm as sg
     from duplexumiconsensusreads_torch.bucketing import build_buckets, stack_buckets
-    from duplexumiconsensusreads_torch.ops import pipeline
     from duplexumiconsensusreads_torch.parallel.mesh import run_mesh
-    from duplexumiconsensusreads_torch.interop import ARRAY_KEYS, stacked_from_numpy
+    from duplexumiconsensusreads_torch.interop import ARRAY_KEYS
     from duplexumiconsensusreads_torch.parallel.sharded import (
         lane_blocks,
         lane_context,
         lane_specs,
         lane_streams,
         presharded_pipeline,
+        put_lane,
+        release_streams,
         shard_stacked,
     )
+    from duplexumiconsensusreads_torch.runtime import graphs
     from duplexumiconsensusreads_torch.runtime.executor import (
         PACKED_FETCH_KEYS,
         call_batch,
@@ -2427,6 +2744,10 @@ def mesh_phase(in_bam: str, step_bam: str, td: str, smi: str):
                         key=lambda p: len(p[0]))
         cb = cb[:MESH_STEP_BUCKETS]
         step_ms, enqueue_ms = {}, {}
+        # the largest class the smoke captures: the earlier phases'
+        # graphs and cached blocks give the card back first
+        graphs.clear()
+        torch.cuda.empty_cache()
         for n in (1, lanes, 1, lanes):
             m = run_mesh("cuda", n)
             ss = lane_streams(m)
@@ -2437,8 +2758,11 @@ def mesh_phase(in_bam: str, step_bam: str, td: str, smi: str):
                 for d in set(m.devices):
                     torch.cuda.synchronize(d)
 
+            # eager at the class's first sight on a lane, captured at
+            # the second (runtime/graphs.py): the timed steps replay
             step()
-            with enqueue_timer(pipeline) as enq:
+            step()
+            with enqueue_timer(graphs) as enq:
                 t0 = time.monotonic()
                 for _ in range(MESH_STEP_REPS):
                     step()
@@ -2448,10 +2772,13 @@ def mesh_phase(in_bam: str, step_bam: str, td: str, smi: str):
             enqueue_ms.setdefault(str(n), []).append(
                 [round(sum(enq[i::n]) / len(enq[i::n]) * 1e3, 3) for i in range(n)])
             del args
+            release_streams(ss)
         # the same class staged at all lanes, each lane issued in turn as
         # the stream's dispatch issues it, and each lane's host time split:
-        # pinned staging + H2D, the fused_pipeline call, the packed
-        # compaction + D2H start (ms, the median of the dispatches)
+        # staging in the lane's pinned ring + H2D (into the step graph's
+        # static inputs once it exists), the step (eager, captured, then
+        # replayed), the packed compaction + D2H start (ms, the median of
+        # the dispatches)
         m = run_mesh("cuda", lanes)
         ss = lane_streams(m)
         blocks = lane_blocks(stack_buckets(cb, multiple_of=m.n_data), m, cspec)
@@ -2463,9 +2790,9 @@ def mesh_phase(in_bam: str, step_bam: str, td: str, smi: str):
                 with lane_context(dev, ss[i]):
                     staging = []
                     t0 = time.perf_counter()
-                    a = stacked_from_numpy(blocks[i], dev, pin=True, keep=staging)
+                    a = put_lane(blocks[i], dev, specs[i], keep=staging)
                     t1 = time.perf_counter()
-                    o = pipeline.fused_pipeline(*(a[k] for k in ARRAY_KEYS), specs[i])
+                    o, _ = graphs.run_step(a, specs[i], ARRAY_KEYS)
                     t2 = time.perf_counter()
                     fetches.append(start_fetch(pack_fetch_outputs(o, cspec, k_pad),
                                                keys=PACKED_FETCH_KEYS, staging=staging))
@@ -2477,6 +2804,7 @@ def mesh_phase(in_bam: str, step_bam: str, td: str, smi: str):
         split = {part: [round(float(np.median(v)) * 1e3, 3) for v in per]
                  for part, per in split.items()}
         del blocks, fetches
+        release_streams(ss)
     one = res["1"]
     if not all(np.array_equal(a, b) for a, b in zip(one, res[str(lanes)])):
         raise AssertionError("mesh: call_batch on the data lanes differs from one lane")
@@ -2515,12 +2843,18 @@ DAEMON_CHILD = """
 import json, sys
 sys.path.insert(0, {here!r})
 from duplexumiconsensusreads_torch.kernels import cluster_fixpoint, segment_gemm
+from duplexumiconsensusreads_torch.runtime import graphs
 from duplexumiconsensusreads_torch.serve import daemon
 rc = daemon.main(sys.argv[2:])
 with open(sys.argv[1], "w") as f:
     json.dump({{"segment_gemm": segment_gemm.segment_gemm.launches,
                "directional_cluster": cluster_fixpoint.directional_cluster.launches,
                "cluster_fixpoint": cluster_fixpoint.propagate_min.launches}}, f)
+with open(sys.argv[1] + ".graphs", "w") as f:
+    c = graphs.read_counts()
+    json.dump({{**{{k: {{m: c[k][m] for m in graphs.MODES}} for k in graphs.KINDS}},
+               "classes": c["classes"],
+               "pools": {{k: c[k] for k in ("pool_peak_bytes", "card_free_min")}}}}, f)
 sys.exit(rc)
 """
 
@@ -2541,7 +2875,15 @@ def chaos_phase(in_bam: str, td: str, smi: str) -> dict:
     memory allocated after each kill-and-resume pair is back within one
     chunk's footprint of where it started (a retried H2D or D2H reusing
     a pinned staging buffer still in flight, or tensors kept alive by a
-    killed run, would show here). Returns the path's launches, summed
+    killed run, would show here). Over the phase, the memory allocated
+    after every run from the third on is within one chunk's footprint
+    of what it was after the second (ROADMAP Faults 16): the first two
+    runs see each class of the fault-free path twice, and so capture its
+    graphs (runtime/graphs.py). The graphs' static and pool bytes are
+    reported beside each run's memory: the statics may still grow by
+    the graphs of classes that only a fault's retry dispatches (another
+    d2h rung), captured when a later run meets them again, and that
+    growth is inside the check. Returns the path's launches, summed
     over the runs."""
     import gc
     import zlib
@@ -2549,7 +2891,7 @@ def chaos_phase(in_bam: str, td: str, smi: str) -> dict:
     import torch
 
     from duplexumiconsensusreads_torch import benchmark
-    from duplexumiconsensusreads_torch.runtime import faults
+    from duplexumiconsensusreads_torch.runtime import faults, graphs
     from duplexumiconsensusreads_torch.runtime.stream import stream_call_consensus
 
     gp, cp = benchmark._e2e_params()
@@ -2576,7 +2918,9 @@ def chaos_phase(in_bam: str, td: str, smi: str) -> dict:
         row = {"run": name, "wall_seconds": round(wall, 3), "n_retries": rep.n_retries,
                "n_fired": plan.n_fired if plan is not None else 0, "launches": got,
                "chunks": rep.n_chunks, "chunks_skipped": rep.n_chunks_skipped,
-               "allocated_after": torch.cuda.memory_allocated()}
+               "allocated_after": torch.cuda.memory_allocated(),
+               "graph_static_bytes": graphs.static_bytes(),
+               "graph_pool_bytes": sum(graphs.pool_bytes().values())}
         runs.append(row)
         return out, row
 
@@ -2653,12 +2997,16 @@ def chaos_phase(in_bam: str, td: str, smi: str) -> dict:
                       "chunks_skipped": row["chunks_skipped"]})
     # and over the whole phase: device memory does not grow run by run
     # (ROADMAP Faults 16: a new stream per run left a cuBLAS workspace)
-    if runs[-1]["allocated_after"] - base_mem > chunk_bytes:
-        raise AssertionError(
-            f"chaos: {runs[-1]['allocated_after'] - base_mem} bytes more allocated after "
-            f"{len(runs)} runs than at the start (one chunk is {chunk_bytes:.0f})")
+    # once the second run has captured the fault-free path's graphs
+    second = runs[1]
+    for row in runs[2:]:
+        if row["allocated_after"] - second["allocated_after"] > chunk_bytes:
+            raise AssertionError(
+                f"chaos {row['run']}: {row['allocated_after'] - second['allocated_after']} "
+                f"bytes more allocated than after the second run (one chunk is "
+                f"{chunk_bytes:.0f})")
     emit("chaos", input_reads=SERVE_SMALL_READS[1], chunk_reads=TAKEOVER_CHUNK_READS,
-         allocated_at_start=base_mem,
+         allocated_at_start=base_mem, allocated_after_second_run=second["allocated_after"],
          config="config5 (min_duplex_reads=1)", runs=runs, kills=kills,
          wall_seconds=round(sum(r["wall_seconds"] + r.get("kill_wall_seconds", 0)
                                 for r in runs), 3),
@@ -2994,7 +3342,10 @@ def finish_daemon(proc, timeout_s: float, what: str) -> str:
     return err
 
 
-def add_launches(total: dict, counts_path: str) -> dict:
+def add_launches(total: dict, counts_path: str, path: str) -> dict:
+    """``total`` plus a subprocess's launch counts; its graph counts go
+    into GRAPH_PATHS[path]."""
+    note_child_graphs(path, counts_path)
     with open(counts_path) as f:
         got = json.load(f)
     return {k: total.get(k, 0) + got[k] for k in got}
@@ -3230,7 +3581,7 @@ def serve_phase(in_bam: str, small_bams: list, td: str, smi: str,
     b = start_daemon(tk_spool, "smoke-B", b_counts, device, "--once", "--heartbeat", "0")
     finish_daemon(b, SERVE_DAEMON_TIMEOUT_S, "daemon B")
     b_done = time.monotonic()
-    launches = add_launches(launches, b_counts)
+    launches = add_launches(launches, b_counts, "serve")
     st = client.status(tk_spool, jid)
     if st["state"] != "done" or st["token"] < 2 or read_bytes(tk_out) != tk_ref:
         raise AssertionError(f"takeover: {st.get('state')} token {st.get('token')}, "
@@ -3314,7 +3665,7 @@ def shard_phase(in_bam: str, ref: str, unsharded_s: float, td: str, smi: str,
     sharded_s = time.monotonic() - t0
     launches = {}
     for c in counts:
-        launches = add_launches(launches, c)
+        launches = add_launches(launches, c, "shard")
     if not path_launched(launches):
         raise AssertionError(f"the shard path launched {launches}")
     with contextlib.redirect_stdout(io.StringIO()) as buf:
@@ -3411,6 +3762,7 @@ HOST_CHILD = """
 import json, sys, time
 sys.path.insert(0, {here!r})
 from duplexumiconsensusreads_torch.kernels import cluster_fixpoint, segment_gemm
+from duplexumiconsensusreads_torch.runtime import graphs
 from duplexumiconsensusreads_torch.parallel import distributed
 from duplexumiconsensusreads_torch.cli.main import main
 barriers = []
@@ -3428,6 +3780,11 @@ with open(sys.argv[1], "w") as f:
                "directional_cluster": cluster_fixpoint.directional_cluster.launches,
                "cluster_fixpoint": cluster_fixpoint.propagate_min.launches,
                "wall_s": time.monotonic() - t0, "barriers": barriers}}, f)
+with open(sys.argv[1] + ".graphs", "w") as f:
+    c = graphs.read_counts()
+    json.dump({{**{{k: {{m: c[k][m] for m in graphs.MODES}} for k in graphs.KINDS}},
+               "classes": c["classes"],
+               "pools": {{k: c[k] for k in ("pool_peak_bytes", "card_free_min")}}}}, f)
 sys.exit(rc)
 """
 
@@ -3543,6 +3900,7 @@ def multihost_phase(in_bam: str, td: str, smi: str) -> dict:
                       "index_election_s": round(b["duplexumi:index:done"][1]
                                                 - b["duplexumi:index:elect"][0], 3)})
         launches = {k: launches.get(k, 0) + got[k] for k in kernel_wrappers()}
+        note_child_graphs("multihost", c)
     if sorted(n for n in os.listdir(mh) if ".dlix" in n) != ["in.bam.dlix"]:
         raise AssertionError(f"multihost: index files {os.listdir(mh)}")
     parts = [(pid, os.path.join(mh, f"mh.host{pid}.bam")) for pid in range(2)]

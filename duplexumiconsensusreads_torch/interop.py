@@ -20,28 +20,63 @@ ARRAY_KEYS = ("pos", "umi", "strand_ab", "frag_end", "valid", "bases", "quals")
 
 
 def stacked_from_numpy(
-    stacked: dict, device, pin: bool = False, keep: list | None = None
+    stacked: dict, device, pin: bool = False, keep: list | None = None,
+    out: dict | None = None, depth: int | None = None,
 ) -> dict:
     """numpy stacked bucket arrays -> tensors on ``device`` (ARRAY_KEYS
     only; read_index and n_real_buckets stay on the host). u16 lanes
     (the packed pos) cross as their int16 bit pattern, which the
-    pipeline's decode widens back. ``pin=True`` stages each array in
-    pinned host memory and copies without blocking, on the current
-    stream; ``keep`` collects the pinned staging tensors, for a caller
-    that holds them until its copies are known to be done."""
+    pipeline's decode widens back. ``pin=True`` stages each array in a
+    pinned host buffer of the current stream's ring
+    (runtime/pinned.py: reused once the fetch that closes its copies
+    has fired; ``depth`` free buffers a ring keeps) and copies without
+    blocking, on the current stream; ``keep`` collects the staging
+    buffers, for a caller that fences them with that event and holds
+    them until it has fired. ``out`` (a dict of device tensors of the
+    arrays' shapes and dtypes: a step graph's static inputs,
+    runtime/graphs.py:bound_inputs) receives the copies instead of new
+    tensors."""
     device = torch.device(device)
-    out = {}
+    staged = pin and device.type == "cuda"
+    lane = None
+    if staged:
+        from duplexumiconsensusreads_torch.runtime import pinned
+
+        lane = pinned.lane_of(device)
+    res = {}
     for k in ARRAY_KEYS:
-        a = np.ascontiguousarray(stacked[k])
+        a = stacked[k]
         if a.dtype == np.uint16:
             a = a.view(np.int16)
-        t = torch.from_numpy(a)
-        if pin and device.type == "cuda":
-            t = t.pin_memory()
+        if staged:
+            t = pinned.take(a.shape, TORCH_DTYPES[a.dtype], lane, depth)
+            t.copy_(torch.from_numpy(a))
             if keep is not None:
                 keep.append(t)
-        out[k] = t.to(device, non_blocking=pin)
-    return out
+        else:
+            t = torch.from_numpy(np.ascontiguousarray(a))
+        if out is not None:
+            res[k] = out[k].copy_(t, non_blocking=staged)
+        else:
+            res[k] = t.to(device, non_blocking=staged)
+    return res
+
+
+def host_shapes(stacked: dict) -> tuple:
+    """(shape, torch dtype) of each tensor stacked_from_numpy makes from
+    ``stacked`` (without making them), in ARRAY_KEYS order."""
+    out = []
+    for k in ARRAY_KEYS:
+        dt = np.dtype(stacked[k].dtype)
+        out.append((tuple(stacked[k].shape),
+                    TORCH_DTYPES[np.dtype(np.int16) if dt == np.uint16 else dt]))
+    return tuple(out)
+
+
+# numpy dtypes of the stacked arrays -> torch's
+TORCH_DTYPES = {np.dtype(d): torch.from_numpy(np.empty(0, d)).dtype
+                for d in (np.bool_, np.uint8, np.int8, np.int16, np.int32, np.int64,
+                          np.float32)}
 
 
 # JAX method names -> the port's (the Pallas kernel's counterpart is

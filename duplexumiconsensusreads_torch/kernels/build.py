@@ -38,6 +38,12 @@ NVCC_FLAGS = (
 )
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+# launch accounting of the kernel wrappers (count_launch): one lock for
+# every wrapper's counters, and the tally of the launches a thread is
+# capturing into a CUDA graph (runtime/graphs.py), which launch nothing
+# until the graph replays
+_COUNT_LOCK = threading.Lock()
+_CAPTURING = threading.local()
 # serialises the first build + load of each library: the streaming
 # executor's transfer workers can all reach their first kernel launch
 # at once, and must not start two nvcc runs or two CDLL loads
@@ -128,3 +134,40 @@ def load(name: str) -> ctypes.CDLL:
                 lib = ctypes.CDLL(lib_path(name))
                 _LIBS[name] = lib
     return lib
+
+
+def count_launch(wrapper, device_index, stream) -> None:
+    """One launch of ``wrapper``'s kernel queued on (device index,
+    stream handle): added to ``wrapper.launches`` and
+    ``wrapper.stream_launches[(device_index, stream)]``, or, while this
+    thread captures a CUDA graph (:func:`tally_launches`), to the
+    capture's tally instead, since a captured launch runs only when the
+    graph replays (runtime/graphs.py adds the tally per replay)."""
+    tally = getattr(_CAPTURING, "tally", None)
+    if tally is not None:
+        tally[wrapper] = tally.get(wrapper, 0) + 1
+        return
+    add_launches(wrapper, 1, device_index, stream)
+
+
+def add_launches(wrapper, n: int, device_index, stream) -> None:
+    """Add ``n`` launches on (device index, stream handle) to a
+    wrapper's counters (under the lock: several threads launch at
+    once in the streaming executor)."""
+    with _COUNT_LOCK:
+        wrapper.launches += n
+        on = (device_index, stream)
+        wrapper.stream_launches[on] = wrapper.stream_launches.get(on, 0) + n
+
+
+@contextlib.contextmanager
+def tally_launches():
+    """While entered, this thread's kernel launches go into the yielded
+    {wrapper: launches} dict instead of the wrappers' counters."""
+    prev = getattr(_CAPTURING, "tally", None)
+    tally: dict = {}
+    _CAPTURING.tally = tally
+    try:
+        yield tally
+    finally:
+        _CAPTURING.tally = prev

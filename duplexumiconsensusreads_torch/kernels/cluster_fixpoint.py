@@ -45,11 +45,10 @@ from __future__ import annotations
 
 import ctypes
 import operator
-import threading
 
 import torch
 
-from duplexumiconsensusreads_torch.kernels.build import device_guard, load
+from duplexumiconsensusreads_torch.kernels.build import count_launch, device_guard, load
 from duplexumiconsensusreads_torch.kernels.encoding import CODES_PER_WORD, n_umi_words
 
 I32_MAX = 2**31 - 1
@@ -229,8 +228,9 @@ def propagate_min(edge: torch.Tensor, s0: torch.Tensor, u_pos: torch.Tensor) -> 
     bucket with more in-group edges re-reads its edge grid every sweep
     instead. Every launch adds one to ``propagate_min.launches`` and to
     ``propagate_min.stream_launches[(device index, stream handle)]`` of
-    the stream it was queued on (under a lock: the streaming executor's
-    transfer workers launch at once)."""
+    the stream it was queued on (``build.count_launch``: under a lock,
+    since the streaming executor's transfer workers launch at once; a
+    launch captured into a CUDA graph counts at each replay)."""
     _check(edge, s0, u_pos)
     if s0.device.type == "cpu":
         return propagate_min_plain(edge, s0, u_pos)
@@ -250,10 +250,7 @@ def propagate_min(edge: torch.Tensor, s0: torch.Tensor, u_pos: torch.Tensor) -> 
                        n, u, cap, stream)
     if rc != 0:
         raise RuntimeError(f"cluster_fixpoint kernel launch failed (cudaError {rc})")
-    with _COUNT_LOCK:
-        propagate_min.launches += 1
-        on = (s0.device.index, stream)
-        propagate_min.stream_launches[on] = propagate_min.stream_launches.get(on, 0) + 1
+    count_launch(propagate_min, s0.device.index, stream)
     return out
 
 
@@ -321,8 +318,9 @@ def directional_cluster(u_words: torch.Tensor, u_pos: torch.Tensor, u_cnt: torch
     device memory; CPU tensors take the plain version. Every launch adds
     one to ``directional_cluster.launches`` and to
     ``directional_cluster.stream_launches[(device index, stream handle)]``
-    of the stream it was queued on (under a lock: the streaming
-    executor's transfer workers launch at once)."""
+    of the stream it was queued on (``build.count_launch``: under a
+    lock, since the streaming executor's transfer workers launch at
+    once; a launch captured into a CUDA graph counts at each replay)."""
     _check_table(u_words, u_pos, u_cnt, umi_len, max_hamming, count_ratio)
     dev = u_words.device
     if dev.type == "cpu":
@@ -348,10 +346,7 @@ def directional_cluster(u_words: torch.Tensor, u_pos: torch.Tensor, u_cnt: torch
                                operator.index(count_ratio), stream)
     if rc != 0:
         raise RuntimeError(f"directional_cluster kernel launch failed (cudaError {rc})")
-    with _COUNT_LOCK:
-        directional_cluster.launches += 1
-        on = (dev.index, stream)
-        directional_cluster.stream_launches[on] = directional_cluster.stream_launches.get(on, 0) + 1
+    count_launch(directional_cluster, dev.index, stream)
     return seed, mid, n_mol
 
 
@@ -372,4 +367,3 @@ propagate_min.launches = 0
 propagate_min.stream_launches = {}
 directional_cluster.launches = 0
 directional_cluster.stream_launches = {}
-_COUNT_LOCK = threading.Lock()

@@ -24,11 +24,10 @@ one. :func:`choose_tiles` picks each launch's tile shape.
 from __future__ import annotations
 
 import ctypes
-import threading
 
 import torch
 
-from duplexumiconsensusreads_torch.kernels.build import device_guard, load
+from duplexumiconsensusreads_torch.kernels.build import count_launch, device_guard, load
 
 # the kernel's (columns, families) per block, largest first; columns
 # are also its threads per block. None is larger than the kernel's first
@@ -134,8 +133,9 @@ def segment_gemm(big: torch.Tensor, fid: torch.Tensor, f_max: int) -> torch.Tens
     ranges, each at the tile :func:`choose_tiles` picks for it. Every
     launch adds one to ``segment_gemm.launches`` and to
     ``segment_gemm.stream_launches[(device index, stream handle)]`` of
-    the stream it was queued on (under a lock: several threads launch
-    at once in the streaming executor)."""
+    the stream it was queued on (``build.count_launch``: under a lock,
+    since several threads launch at once in the streaming executor; a
+    launch captured into a CUDA graph counts at each replay)."""
     _check(big, fid, f_max)
     if big.device.type == "cpu":
         return segment_gemm_plain(big, fid, f_max)
@@ -159,10 +159,7 @@ def segment_gemm(big: torch.Tensor, fid: torch.Tensor, f_max: int) -> torch.Tens
                     n, r, c, f_max, ct, ft, stream)
             if rc != 0:
                 raise RuntimeError(f"segment_gemm kernel launch failed (cudaError {rc})")
-            with _COUNT_LOCK:
-                segment_gemm.launches += 1
-                on = (big.device.index, stream)
-                segment_gemm.stream_launches[on] = segment_gemm.stream_launches.get(on, 0) + 1
+            count_launch(segment_gemm, big.device.index, stream)
     return out
 
 
@@ -183,4 +180,3 @@ MAX_GRID_Z = 65535
 _FN = None
 segment_gemm.launches = 0
 segment_gemm.stream_launches = {}
-_COUNT_LOCK = threading.Lock()

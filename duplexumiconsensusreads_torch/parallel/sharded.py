@@ -208,35 +208,53 @@ def lane_context(device, stream=None):
 def shard_stacked(stacked: dict, mesh, spec=None, streams=None, keep=None) -> list[dict]:
     """Put each lane's block on its device (see :func:`lane_blocks`),
     on the lane's stream; returns the per-lane tensor dicts. On the
-    card the copies are staged in pinned memory and do not block; the
-    pinned buffers are appended to ``keep[i]`` (a list per lane) for a
-    caller that holds them until its copies are known done."""
-    from duplexumiconsensusreads_torch.interop import stacked_from_numpy
-
+    card the copies are staged in the lane's reused pinned buffers
+    (runtime/pinned.py) and do not block, and a lane whose step graph
+    for this class exists copies straight into the graph's static
+    inputs (runtime/graphs.py:bound_inputs); the staging buffers are
+    appended to ``keep[i]`` (a list per lane) for a caller that holds
+    them until its copies are known done."""
     streams = streams or [None] * mesh.size
+    specs = lane_specs(spec, mesh)
     out = []
     for i, (dev, block) in enumerate(zip(mesh.devices, lane_blocks(stacked, mesh, spec))):
         with lane_context(dev, streams[i]):
-            pin = dev.type == "cuda"
-            out.append(stacked_from_numpy(block, dev, pin=pin,
-                                          keep=None if keep is None else keep[i]))
+            out.append(put_lane(block, dev, specs[i], keep=None if keep is None else keep[i]))
     return out
 
 
-def presharded_pipeline(args: list, spec, mesh, streams=None) -> list[dict]:
+def put_lane(block: dict, dev, spec, keep: list | None = None, depth: int | None = None) -> dict:
+    """One lane's H2D, on the current stream (see :func:`shard_stacked`;
+    ``depth``: the free buffers its staging ring keeps)."""
+    from duplexumiconsensusreads_torch.interop import host_shapes, stacked_from_numpy
+    from duplexumiconsensusreads_torch.runtime import graphs
+
+    pin = dev.type == "cuda"
+    static = graphs.bound_inputs(spec, host_shapes(block), _ARRAY_KEYS, dev) if pin else None
+    return stacked_from_numpy(block, dev, pin=pin, keep=keep, out=static, depth=depth)
+
+
+def presharded_pipeline(args: list, spec, mesh, streams=None, modes: list | None = None) -> list[dict]:
     """Run :func:`fused_pipeline` on each lane's device-resident block
     (from :func:`shard_stacked`), on the lane's device and stream; the
-    pure-compute path benchmarks time. Returns the per-lane output
-    dicts, in lane order."""
-    from duplexumiconsensusreads_torch.ops.pipeline import fused_pipeline
+    pure-compute path benchmarks time. On the card each lane's step goes
+    through the lane's graph cache (runtime/graphs.py: eager at a
+    class's first sight on the lane, captured at the second, replayed
+    after); ``modes`` collects each lane's (mode, capture seconds).
+    Returns the per-lane output dicts, in lane order: a replayed lane's
+    are its graph's static outputs, which hold until the next step on
+    the lane's stream."""
+    from duplexumiconsensusreads_torch.runtime import graphs
 
     streams = streams or [None] * mesh.size
     specs = lane_specs(spec, mesh)
     outs = []
     for i, dev in enumerate(mesh.devices):
         with lane_context(dev, streams[i]):
-            a = args[i]
-            outs.append(fused_pipeline(*(a[k] for k in _ARRAY_KEYS), specs[i]))
+            out, mode = graphs.run_step(args[i], specs[i], _ARRAY_KEYS)
+            outs.append(out)
+            if modes is not None:
+                modes.append(mode)
     return outs
 
 

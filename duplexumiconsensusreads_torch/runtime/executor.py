@@ -368,26 +368,35 @@ class Fetch(dict):
     span = None
 
 
-def start_fetch(out: dict, keys: tuple = FETCH_KEYS, staging=(), extra: tuple = ()) -> Fetch:
+def start_fetch(out: dict, keys: tuple = FETCH_KEYS, staging=(), extra: tuple = (),
+                depth: int | None = None) -> Fetch:
     """Select ``keys`` (+ ``extra``, e.g. PER_BASE_KEYS for per-base
-    tags) and start their device->host copies NOW into
-    pinned host buffers (non-blocking, on the current stream), so every
-    copy is queued before any is awaited; then record the event the
-    waiter blocks on. CPU tensors pass through."""
+    tags) and start their device->host copies NOW into pinned host
+    buffers of the current stream's ring (runtime/pinned.py; ``depth``
+    free buffers a ring keeps), non-blocking, on the current stream, so
+    every copy is queued before any is awaited; then record the event
+    the waiter blocks on, which fences those buffers and the ``staging``
+    ones (the dispatch's H2D sources) before they are reused. CPU
+    tensors pass through."""
     sel = Fetch()
     stream = None
     for k in (*keys, *extra):
         v = out[k]
         if v.is_cuda:
-            h = torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+            from duplexumiconsensusreads_torch.runtime import pinned
+
+            h = pinned.take(v.shape, v.dtype, pinned.lane_of(v.device), depth)
             h.copy_(v, non_blocking=True)
             stream = torch.cuda.current_stream(v.device)
             v = h
         sel[k] = v
     if stream is not None:
+        from duplexumiconsensusreads_torch.runtime import pinned
+
         sel.event = torch.cuda.Event()
         sel.event.record(stream)
         sel.staging = staging
+        pinned.fence([*sel.values(), *staging], sel.event)
     return sel
 
 
@@ -630,6 +639,10 @@ def d2h_k_pad(cbuckets, spec, n_shards: int = 1) -> int:
 def pack_fetch_outputs(out, spec, k_pad: int, mesh=None, streams=None):
     """Apply the packed-D2H epilogue on the device the outputs live on;
     returns the compact dict (PACKED_FETCH_KEYS) of one lane's outputs.
+    A lane whose step replayed a graph runs the epilogue through that
+    graph's epilogue graph for (duplex, k_pad, shards) once the key
+    recurs (runtime/graphs.py:run_epilogue), as the JAX package jits it
+    per (duplex, k_pad, n_shards).
 
     With a ``mesh``, ``out`` is the per-lane output list of
     parallel/sharded.py:presharded_pipeline, and each lane compacts its
@@ -638,16 +651,22 @@ def pack_fetch_outputs(out, spec, k_pad: int, mesh=None, streams=None):
     compact dicts, whose host join (a cycle mesh's lanes first, then
     the data blocks' rows in order) is the wire of the mesh's n_data
     shards, shard-major."""
+    from duplexumiconsensusreads_torch.runtime.graphs import run_epilogue
+
     duplex = spec.consensus.mode == "duplex"
+
+    def lane(o, n_shards):
+        return run_epilogue(o, lambda x: _pack_d2h(x, duplex, k_pad), (duplex, k_pad, n_shards))
+
     if mesh is None:
-        return _pack_d2h(out, duplex, k_pad)
+        return lane(out, 1)
     from duplexumiconsensusreads_torch.parallel.sharded import lane_context
 
     streams = streams or [None] * mesh.size
     packed = []
     for i, dev in enumerate(mesh.devices):
         with lane_context(dev, streams[i]):
-            packed.append(_pack_d2h(out[i], duplex, k_pad))
+            packed.append(lane(out[i], mesh.n_data))
     return packed
 
 
@@ -938,6 +957,7 @@ def call_batch(
         lane_context,
         lane_streams,
         presharded_pipeline,
+        release_streams,
         shard_stacked,
     )
 
@@ -1011,6 +1031,9 @@ def call_batch(
                                             want_depth=per_base_tags))
         pair_base += n_real
         _add(rep, "scatter", time.monotonic() - t1)
+    # every lane's copies are done: later calls take the same streams
+    # (and so the same graphs and cuBLAS workspaces)
+    release_streams(streams)
 
     t0 = time.monotonic()
     cols = sort_consensus_outputs(*(np.concatenate(x) for x in zip(*parts)))

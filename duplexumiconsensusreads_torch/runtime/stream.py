@@ -38,6 +38,7 @@ data); violations raise.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import hashlib
 import itertools
@@ -50,7 +51,7 @@ import threading
 import time
 import warnings
 import zlib
-from collections import deque
+from collections import OrderedDict, deque
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -846,6 +847,31 @@ def _iterator_flavor() -> str:
 
 # -------------------------------------------------------------- executor
 
+# each class's stream slot: a ticket handed out in turn at the class's
+# first sight in the process and kept, so that a class meets the same
+# streams run after run (its graphs replay there, runtime/graphs.py) and
+# new classes, which come chunk after chunk, meet the slots in turn; the
+# classes met least recently are forgotten past MAX_SLOT_CLASSES
+MAX_SLOT_CLASSES = 4096
+_SLOT_OF: OrderedDict = OrderedDict()
+_SLOT_LOCK = threading.Lock()
+_SLOT_NEXT = itertools.count()
+
+
+def class_slot(key) -> int:
+    """The slot ticket of a dispatch class (a slot is the ticket modulo
+    the run's slot count)."""
+    with _SLOT_LOCK:
+        ticket = _SLOT_OF.get(key)
+        if ticket is None:
+            ticket = _SLOT_OF[key] = next(_SLOT_NEXT)
+            if len(_SLOT_OF) > MAX_SLOT_CLASSES:
+                _SLOT_OF.popitem(last=False)
+        else:
+            _SLOT_OF.move_to_end(key)
+    return ticket
+
+
 def stream_call_consensus(
     in_path: str,
     out_path: str,
@@ -897,7 +923,8 @@ def stream_call_consensus(
     is ``n_devices`` lanes of the pool — every visible card, narrowed
     to the index subset ``devices``; ``n_devices=None`` takes that
     subset when one is given, else one lane (on the card too: ROADMAP
-    Faults 13; on the CPU lanes are logical) — split ``cycle_shards`` ways along the read length. Each class is
+    Faults 13; on the CPU lanes are logical) — split ``cycle_shards``
+    ways along the read length. Each class is
     stacked to a multiple of the data lanes (``n_mesh_pad_buckets``
     counts the empty pad buckets) and every lane runs its bucket block
     on its own device and stream, with its own H2D, compaction and D2H
@@ -1050,9 +1077,8 @@ def _stream_call(
     atomic rename, inside the finalise stage."""
     from duplexumiconsensusreads_torch import tuning
     from duplexumiconsensusreads_torch.bucketing import build_buckets, stack_buckets
-    from duplexumiconsensusreads_torch.interop import stacked_from_numpy
     from duplexumiconsensusreads_torch.io.bam import serialize_bam
-    from duplexumiconsensusreads_torch.parallel.sharded import stacked_nbytes
+    from duplexumiconsensusreads_torch.parallel.sharded import lane_specs, put_lane, stacked_nbytes
     from duplexumiconsensusreads_torch.runtime.executor import resolve_mate_aware
 
     if chunk_reads < 1:
@@ -1198,26 +1224,36 @@ def _stream_call(
     # set when the run is going down: drain workers stop their retry
     # ladders instead of grinding through backoff the shutdown waits on
     aborting = threading.Event()
-    # one CUDA stream per (thread that dispatches, mesh lane): transfer
-    # workers, and drain workers on the retry path. A lane's H2D,
+    # the run's CUDA streams: XFER_WORKERS slots, each one stream per
+    # mesh lane and a lock. A dispatch takes its class's slot (spec,
+    # stacked bucket count, capacity: class_slot) and holds it from its
+    # first H2D copy to its last D2H start, whichever thread dispatches
+    # it (transfer workers, and drain workers on the retry path): a
+    # class meets the same streams chunk after chunk, so the graph its
+    # lanes captured replays there (runtime/graphs.py keys graphs by
+    # stream), and two dispatches on one stream queue one after the
+    # other, so neither sees the other's static buffers. A lane's H2D,
     # pipeline, compaction and D2H all run on its stream, in order, so
     # no tensor crosses streams and the caching allocator reuses a block
     # only after the stream's earlier work on it; two lanes on one card
-    # get two streams
-    streams = threading.local()
-    # every stream this run took, handed back to the pool when the
-    # transfer and drain workers have finished
+    # get two streams. The streams come from the pool the main thread's
+    # earlier runs handed back (parallel/sharded.py), and go back to it
+    # when the run's workers have finished
+    slots = []
     run_streams: list = []
+    if on_cuda:
+        for _ in range(XFER_WORKERS):
+            ss = lane_streams(mesh, fresh=True)
+            run_streams.extend(ss)
+            slots.append((threading.Lock(), ss))
+        # in handle order: a run that takes the streams an earlier run
+        # handed back gives each class the same ones again
+        slots.sort(key=lambda slot: [st.cuda_stream for st in slot[1]])
 
-    def _lane_streams():
+    def _class_streams(key):
         if not on_cuda:
-            return [None] * mesh.size
-        ss = getattr(streams, "s", None)
-        if ss is None:
-            ss = streams.s = lane_streams(mesh, fresh=True)
-            with phase_lock:
-                run_streams.extend(ss)
-        return ss
+            return contextlib.nullcontext(), [None] * mesh.size
+        return slots[class_slot(key) % len(slots)]
 
     # per-stage BUSY seconds accrued on whichever thread runs the stage
     # (they overlap, so they do not sum to the wall); every += pairs
@@ -1275,9 +1311,15 @@ def _stream_call(
     # (None = overflowed every dictionary width; scanning stopped)
     alpha_seen: set | None = set()
 
-    def _mesh_put(blocks, buckets, bucket_rows, chunk, sstreams, staging):
+    # free pinned staging buffers a lane's ring keeps per shape: the
+    # dispatches a run keeps in flight
+    ring_depth = prefetch_depth + drain_workers
+
+    def _mesh_put(blocks, buckets, bucket_rows, chunk, sstreams, staging, spec):
         """Per-lane H2D of one dispatch: each lane's block goes to its
-        device on its stream (pinned, non-blocking), timed per lane.
+        device on its stream (pinned staging reused per lane,
+        non-blocking; into the lane's step graph's static inputs when
+        the class has one), timed per lane.
         On a 1-D multi-lane mesh each lane's window is a ``mesh_h2d``
         span on its dev-N lane, with its wire bytes, fill rows and
         mesh-pad buckets for the ledger; otherwise the dispatch span
@@ -1285,11 +1327,13 @@ def _stream_call(
         ledger stats)."""
         per = int(blocks[0]["pos"].shape[0])
         cap = buckets[0].capacity
+        specs = lane_specs(spec, mesh)
         args, stats = [], []
         for i, lane in enumerate(mesh.devices):
             td = time.monotonic()
             with lane_context(lane, sstreams[i]):
-                args.append(stacked_from_numpy(blocks[i], lane, pin=on_cuda, keep=staging[i]))
+                args.append(put_lane(blocks[i], lane, specs[i], keep=staging[i],
+                                     depth=ring_depth))
             dtd = time.monotonic() - td
             if not dev_lanes_on:
                 continue
@@ -1348,60 +1392,74 @@ def _stream_call(
                 "packed_fallback", scope="d2h",
                 reason=fallback, capacity=buckets[0].capacity,
             )
-        sstreams = _lane_streams()
-        staging = [[] for _ in range(mesh.size)]
-        spans = []
-        for i, lane in enumerate(mesh.devices):
-            ev0 = None
-            if on_cuda:
-                # a lane's device span opens before its first H2D copy
+        # the class's streams, held from its first H2D copy to its last
+        # D2H start: a class always meets the same streams, and so its
+        # graphs (runtime/graphs.py), whichever thread dispatches it
+        slot_lock, sstreams = _class_streams((spec, n_stacked, buckets[0].capacity))
+        with slot_lock:
+            staging = [[] for _ in range(mesh.size)]
+            spans = []
+            for i, lane in enumerate(mesh.devices):
+                ev0 = None
+                if on_cuda:
+                    # a lane's device span opens before its first H2D copy
+                    with lane_context(lane, sstreams[i]):
+                        ev0 = torch.cuda.Event(enable_timing=True)
+                        ev0.record()
+                spans.append(ev0)
+            t_pre = time.monotonic() - t0  # stack + pack, "dispatch"
+            args, dev_stats = _mesh_put(blocks, buckets, bucket_rows, chunk, sstreams, staging,
+                                        spec)
+            del blocks
+            t0b = time.monotonic() if dev_lanes_on else t0
+            t_pipe = time.monotonic()
+            modes: list = []
+            outs = presharded_pipeline(args, spec, mesh, streams=sstreams, modes=modes)
+            del args
+            captured = [m for m, _ in modes if m == "captured"]
+            if tr is not None and (first_call or captured):
+                # the first call of a fresh class on this engine, and every
+                # call that captured its class's step graph on a lane
+                # (runtime/graphs.py, the counterpart of a jit compile):
+                # the call's host wall (an eager first call pays lazy CUDA
+                # module loading and allocator growth), how lane 0 ran
+                # (eager, captured or replayed), and the lanes' capture s
+                tr.event(
+                    "jit_compile", chunk=chunk,
+                    compile_s=round(time.monotonic() - t_pipe, 6),
+                    mode=modes[0][0],
+                    capture_s=round(sum(c for _, c in modes), 6),
+                    cap=int(buckets[0].capacity), cycles=l_cyc,
+                    method=spec.ssc_method,
+                )
+            if rung == "packed":
+                # each lane compacts its own bucket block (no collective):
+                # S = n_data blocks of k_pad rows, shard-major on the wire
+                outs = pack_fetch_outputs(
+                    outs, spec, d2h_k_pad(buckets, spec, n_data), mesh=mesh, streams=sstreams,
+                )
+            fetches = []
+            for i, lane in enumerate(mesh.devices):
                 with lane_context(lane, sstreams[i]):
-                    ev0 = torch.cuda.Event(enable_timing=True)
-                    ev0.record()
-            spans.append(ev0)
-        t_pre = time.monotonic() - t0  # stack + pack, "dispatch"
-        args, dev_stats = _mesh_put(blocks, buckets, bucket_rows, chunk, sstreams, staging)
-        del blocks
-        t0b = time.monotonic() if dev_lanes_on else t0
-        t_pipe = time.monotonic()
-        outs = presharded_pipeline(args, spec, mesh, streams=sstreams)
-        del args
-        if tr is not None and first_call:
-            # the first call of a fresh class on this engine: host
-            # wall of an eager call that pays lazy CUDA module
-            # loading and allocator growth (nothing is compiled)
-            tr.event(
-                "jit_compile", chunk=chunk,
-                compile_s=round(time.monotonic() - t_pipe, 6),
-                cap=int(buckets[0].capacity), cycles=l_cyc,
-                method=spec.ssc_method,
-            )
-        if rung == "packed":
-            # each lane compacts its own bucket block (no collective):
-            # S = n_data blocks of k_pad rows, shard-major on the wire
-            outs = pack_fetch_outputs(
-                outs, spec, d2h_k_pad(buckets, spec, n_data), mesh=mesh, streams=sstreams,
-            )
-        fetches = []
-        for i, lane in enumerate(mesh.devices):
-            with lane_context(lane, sstreams[i]):
-                if rung == "packed":
-                    f = start_fetch(outs[i], keys=PACKED_FETCH_KEYS, staging=staging[i])
-                elif rung == "ids16":
-                    f = start_fetch(
-                        pack_ids_u16(outs[i], duplex), keys=IDS16_FETCH_KEYS,
-                        staging=staging[i], extra=fetch_extra,
-                    )
-                else:
-                    f = start_fetch(outs[i], staging=staging[i], extra=fetch_extra)
-                if spans[i] is not None:
-                    # ... and closes after its last D2H copy: the stream's
-                    # first-to-last op span, read by the drain as device time
-                    ev1 = torch.cuda.Event(enable_timing=True)
-                    ev1.record()
-                    f.span = (spans[i], ev1)
-            fetches.append(f)
-        del outs
+                    if rung == "packed":
+                        f = start_fetch(outs[i], keys=PACKED_FETCH_KEYS, staging=staging[i],
+                                        depth=ring_depth)
+                    elif rung == "ids16":
+                        f = start_fetch(
+                            pack_ids_u16(outs[i], duplex), keys=IDS16_FETCH_KEYS,
+                            staging=staging[i], extra=fetch_extra, depth=ring_depth,
+                        )
+                    else:
+                        f = start_fetch(outs[i], staging=staging[i], extra=fetch_extra,
+                                        depth=ring_depth)
+                    if spans[i] is not None:
+                        # ... and closes after its last D2H copy: the stream's
+                        # first-to-last op span, read by the drain as device time
+                        ev1 = torch.cuda.Event(enable_timing=True)
+                        ev1.record()
+                        f.span = (spans[i], ev1)
+                fetches.append(f)
+            del outs
         out = fetches[0] if mesh.size == 1 else MeshFetch(fetches, mesh)
         dt_post = time.monotonic() - t0b
         # dispatch busy time excludes the per-lane put loop on a 1-D

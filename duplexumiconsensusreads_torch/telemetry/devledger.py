@@ -178,11 +178,13 @@ def device_totals(records: list[dict], peak_flops: float | None = None) -> dict:
 
 def compile_stats(records: list[dict]) -> dict:
     """The first-call ledger view: one ``jit_compile`` event per first
-    pipeline call of each dispatch class, each carrying that call's
-    host wall seconds (the streaming executor runs the pipeline eagerly
-    and builds its kernels ahead of it, so the first call pays lazy
-    CUDA module loading and allocator growth, not a compile; the event
-    keeps its name so one schema reads captures of either engine).
+    pipeline call of each dispatch class and per capture of a class's
+    step graph on a lane, each carrying that call's host wall seconds
+    (the streaming executor builds its kernels ahead of the pipeline
+    and runs a class's first call eagerly, which pays lazy CUDA module
+    loading and allocator growth; a capture is the port's compile; the
+    event keeps its name so one schema reads captures of either
+    engine).
     Returns total count/seconds plus the per-class
     breakdown; {} when the capture has no compile events."""
     per: dict[str, dict] = {}

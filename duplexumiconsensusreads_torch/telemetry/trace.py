@@ -125,13 +125,15 @@ KNOWN_EVENTS = (
     # the first profiled chunk, in a service capture when a verdict is
     # persisted/reused for a job's input profile
     "jit_compile",  # device ledger: the FIRST pipeline call of a fresh
-    # dispatch class (a spec the executor had not dispatched before) —
-    # attrs: compile_s (the first-call seconds), cap/cycles/method (the
-    # class identity devstat groups by). Nothing is compiled on CUDA:
-    # the pipeline runs eagerly and the kernels are built ahead of it,
-    # so there compile_s is the first call's host wall, which pays lazy
-    # CUDA module loading, library handles and caching-allocator growth
-    # (the name and fields are kept so one schema reads both engines).
+    # dispatch class (a spec the executor had not dispatched before),
+    # and every call that captured its class's step into a CUDA graph
+    # on a lane (runtime/graphs.py, the counterpart of a jit compile) —
+    # attrs: compile_s (the call's host seconds), mode (how lane 0 ran:
+    # eager, captured or replayed), capture_s (the lanes' capture
+    # seconds), cap/cycles/method (the class identity devstat groups
+    # by). An eager first call pays lazy CUDA module loading, library
+    # handles and caching-allocator growth; the name and fields are
+    # kept so one schema reads both engines.
     "profile_written",  # --profile: the torch.profiler trace directory
     # was finalised (attrs: profile_dir) — the capture records that a
     # profiler trace exists alongside it

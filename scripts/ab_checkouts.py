@@ -2,17 +2,20 @@
 
     python scripts/ab_checkouts.py --other DIR
         [--reads 600000] [--chunk-reads 150000] [--reps 10] [--device cuda]
-        [--mesh] [--json OUT]
+        [--mesh] [--pairs 2] [--json OUT]
 
 DIR is the root of another checkout of the repository (an unpacked
 ``git archive`` of a parent commit, say). One config5 input (the
 simulator's duplex model at read_len 150, family size 4, umi_error
 0.01, seed 7; ``--reads`` reads) is simulated once by this checkout;
-then each checkout, in its own subprocess and in turns other, this,
-this, other, builds its kernels and on the device:
+then each checkout, in its own subprocess and in ``--pairs`` pairs of
+turns other, this, then this, other (and so on), builds its kernels and
+on the device:
 
 - runs the whole-file call (capacity 2048) and the streaming call
   (``--chunk-reads`` chunks) on the input, and hashes both outputs;
+  then the streaming call twice more, timing the third (the steady
+  state of a process that meets its classes again);
 - takes the largest dispatch class of the whole-file call and times,
   with CUDA events over ``--reps`` calls after a warm-up, the fused
   step, ``group_kernel``, and the grouping function each checkout's
@@ -27,12 +30,19 @@ lanes, the whole-file and streaming calls run at one lane and at all
 lanes (their bytes held to the default run's), and
 a class of up to ``MESH_STEP_BUCKETS`` buckets (the largest of the
 input) is put on the lanes once and its fused step timed at one lane
-and at all lanes, in turns, every card synchronized after the reps.
+and at all lanes, in turns, every card synchronized after the reps,
+with each lane's host enqueue (the lanes' ``presharded_pipeline`` call
+over the lane count); then that class staged at all lanes as the
+stream dispatches it, each part's host ms (staging and H2D, the step,
+the packed compaction and D2H start). Both warm up twice, since a
+checkout with CUDA graphs captures a class at its second sight. The
+streaming call runs traced, and each turn reports its wire floor
+(``telemetry/ledger.py:wire_floor``).
 
 Prints one JSON line per turn and, last, the summary: whether every
 turn's outputs are byte-identical to the first's, and each checkout's
-mean of its two turns. ``--device cpu`` checks the bytes only (no
-device times). A device measurement that finds no card fails.
+mean over its turns, with each turn's walls. ``--device cpu`` checks
+the bytes only (no device times). A device measurement that finds no card fails.
 """
 
 from __future__ import annotations
@@ -84,11 +94,30 @@ try:
 finally:
     pipeline.fused_pipeline = inner
 out["whole_file_sha256"] = digest(os.path.join(td, "whole.bam"))
+from duplexumiconsensusreads_torch.telemetry import ledger, report
 t0 = time.monotonic()
-stream_call_consensus(in_bam, os.path.join(td, "stream.bam"), gp, cp, capacity=2048,
-                      chunk_reads=chunk_reads, device=device)
+rep = stream_call_consensus(in_bam, os.path.join(td, "stream.bam"), gp, cp, capacity=2048,
+                            chunk_reads=chunk_reads, device=device,
+                            trace_path=os.path.join(td, "stream.jsonl"))
 out["stream_s"] = time.monotonic() - t0
+out["stream_dispatch_busy_s"] = rep.seconds["dispatch"]
 out["stream_sha256"] = digest(os.path.join(td, "stream.bam"))
+out["stream_wire_floor"] = ledger.wire_floor(
+    report.load_trace(os.path.join(td, "stream.jsonl")))["frac"]
+# the same stream twice more in this process: the third run is the
+# steady state of a process that meets its classes again (a serve
+# daemon's), where a checkout with CUDA graphs replays them
+for i in range(2):
+    t0 = time.monotonic()
+    rep = stream_call_consensus(in_bam, os.path.join(td, "stream_again.bam"), gp, cp,
+                                capacity=2048, chunk_reads=chunk_reads, device=device,
+                                trace_path=os.path.join(td, "stream_again.jsonl"))
+    out["stream_third_s"] = time.monotonic() - t0
+    out["stream_third_dispatch_busy_s"] = rep.seconds["dispatch"]
+if digest(os.path.join(td, "stream_again.bam")) != out["stream_sha256"]:
+    out["stream_sha256"] = "the repeated stream's output differs"
+out["stream_third_wire_floor"] = ledger.wire_floor(
+    report.load_trace(os.path.join(td, "stream_again.jsonl")))["frac"]
 
 if device == "cuda":
     args, kw = largest["args"], largest["kw"]
@@ -186,17 +215,61 @@ if os.environ.get("AB_MESH") == "1":
         stacked = stack_buckets(cb, multiple_of=m.n_data)
         ss = sharded.lane_streams(m)
         args = sharded.shard_stacked(stacked, m, spec, streams=ss)
-        step = lambda: sharded.presharded_pipeline(args, spec, m, streams=ss)
+        enq = []
+        def step():
+            t = time.perf_counter()
+            sharded.presharded_pipeline(args, spec, m, streams=ss)
+            enq.append(time.perf_counter() - t)
+        # a checkout with CUDA graphs captures the class at its second
+        # sight on a lane: both checkouts warm up twice
+        step()
         step()
         sync(m)
+        enq.clear()
         t0 = time.monotonic()
         for _ in range(reps):
             step()
         sync(m)
         out.setdefault(f"mesh_step_ms_{n}", []).append((time.monotonic() - t0) / reps * 1e3)
+        # each lane's host enqueue: the lanes' call over the lane count
+        out.setdefault(f"mesh_enqueue_ms_{n}", []).append(sum(enq) / len(enq) / n * 1e3)
         del args
     for n in (1, lanes):
-        out[f"mesh_step_ms_{n}"] = sum(out[f"mesh_step_ms_{n}"]) / 2
+        for k in ("step_ms", "enqueue_ms"):
+            out[f"mesh_{k}_{n}"] = sum(out[f"mesh_{k}_{n}"]) / 2
+    # the class staged at all lanes as the stream dispatches it, the host
+    # time of each part (ms, median of the dispatches after two warm-ups):
+    # staging and H2D, the step, the packed compaction and D2H start
+    import statistics
+    from duplexumiconsensusreads_torch.runtime.executor import (
+        PACKED_FETCH_KEYS, d2h_k_pad, fetch_outputs, pack_fetch_outputs, start_fetch)
+    m = mesh_mod.run_mesh(device, lanes)
+    ss = sharded.lane_streams(m)
+    stacked = stack_buckets(cb, multiple_of=m.n_data)
+    k_pad = d2h_k_pad(cb, spec, m.n_data)
+    split = {"staging": [], "pipeline": [], "fetch": []}
+    for rep in range(reps + 2):
+        staging = [[] for _ in range(m.size)]
+        t0 = time.perf_counter()
+        args = sharded.shard_stacked(stacked, m, spec, streams=ss, keep=staging)
+        t1 = time.perf_counter()
+        outs = sharded.presharded_pipeline(args, spec, m, streams=ss)
+        t2 = time.perf_counter()
+        packed = pack_fetch_outputs(outs, spec, k_pad, mesh=m, streams=ss)
+        fetches = []
+        for i, dev in enumerate(m.devices):
+            with sharded.lane_context(dev, ss[i]):
+                fetches.append(start_fetch(packed[i], keys=PACKED_FETCH_KEYS,
+                                           staging=staging[i]))
+        t3 = time.perf_counter()
+        for f in fetches:
+            fetch_outputs(f)
+        del args, outs, packed, fetches, staging
+        if rep >= 2:
+            for part, dt in zip(split, (t1 - t0, t2 - t1, t3 - t2)):
+                split[part].append(dt)
+    for part, v in split.items():
+        out[f"mesh_split_ms_{part}"] = statistics.median(v) * 1e3
 print(json.dumps(out), flush=True)
 """
 
@@ -236,6 +309,8 @@ def main(argv=None) -> int:
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     ap.add_argument("--mesh", action="store_true", help="also time one lane against all lanes")
+    ap.add_argument("--pairs", type=int, default=2,
+                    help="turn pairs: other, this, then this, other, and so on")
     ap.add_argument("--json", help="write the summary here too")
     a = ap.parse_args(argv)
     if a.device == "cuda":
@@ -255,7 +330,8 @@ def main(argv=None) -> int:
         in_bam = os.path.join(td, "in.bam")
         simulate(in_bam, a.reads)
         turns = []
-        for label, root in (("other", other), ("this", this), ("this", this), ("other", other)):
+        order = [(("other", other), ("this", this))[::1 - 2 * (i % 2)] for i in range(a.pairs)]
+        for label, root in (turn for pair in order for turn in pair):
             row = {"checkout": label,
                    **run_turn(root, in_bam, a.device, a.chunk_reads, a.reps, a.mesh)}
             print(json.dumps(row), flush=True)
@@ -267,16 +343,21 @@ def main(argv=None) -> int:
                                   if k.startswith("mesh_") and "_identical_" in k)
     summary = {"reads": a.reads, "chunk_reads": a.chunk_reads, "device": a.device,
                "outputs_identical": identical}
-    keys = ("step_ms", "group_kernel_ms", "cluster_ms", "whole_file_s", "stream_s")
+    keys = ("step_ms", "group_kernel_ms", "cluster_ms", "whole_file_s", "stream_s",
+            "stream_wire_floor", "stream_third_s", "stream_third_wire_floor",
+            "stream_dispatch_busy_s", "stream_third_dispatch_busy_s")
     if a.mesh:
         n = first["mesh_lanes"]
         summary["mesh_lanes"], summary["mesh_class"] = n, first["mesh_class"]
-        keys += tuple(f"mesh_{k}_{i}" for k in ("whole_s", "stream_s", "step_ms")
+        keys += tuple(f"mesh_{k}_{i}" for k in ("whole_s", "stream_s", "step_ms", "enqueue_ms")
                       for i in (1, n))
+        keys += tuple(f"mesh_split_ms_{p}" for p in ("staging", "pipeline", "fetch"))
     for label in ("other", "this"):
         rows = [t for t in turns if t["checkout"] == label]
         summary[label] = {k: sum(r[k] for r in rows) / len(rows) for k in keys if k in rows[0]}
         summary[label]["cluster_function"] = rows[0].get("cluster_function")
+        for k in ("whole_file_s", "stream_s", "stream_third_s"):
+            summary[label][f"{k}_turns"] = [r[k] for r in rows]
         if a.mesh:
             for k in ("whole_s", "stream_s", "step_ms"):
                 one, all_ = summary[label][f"mesh_{k}_1"], summary[label][f"mesh_{k}_{n}"]
