@@ -422,21 +422,24 @@ def path_launched(counts: dict) -> bool:
 
 
 def reset_launches() -> None:
-    from duplexumiconsensusreads_torch.runtime import graphs
+    from duplexumiconsensusreads_torch.runtime import graphs, pinned, stream
 
     for fn in kernel_wrappers().values():
         fn.launches = 0
         fn.stream_launches = {}
     graphs.reset_counts()
+    stream.reset_dispatch_stats()
+    _WRITES0[0] = pinned.stats()["writes"]
 
 
 def graph_modes(counts: dict) -> dict:
     """{kind: {mode: calls}} of a graphs.read_counts() result, with the
-    distinct step classes it met (``classes``)."""
+    distinct step classes it met (``classes``) and the lanes dropped to
+    keep the pools in their budget (``lanes_dropped``)."""
     from duplexumiconsensusreads_torch.runtime import graphs
 
     return {**{k: {m: counts[k][m] for m in graphs.MODES} for k in graphs.KINDS},
-            "classes": counts["classes"]}
+            "classes": counts["classes"], "lanes_dropped": counts["lanes_dropped"]}
 
 
 def add_graph_modes(path: str, modes: dict) -> None:
@@ -484,15 +487,41 @@ def note_child_graphs(path: str, counts_path: str) -> None:
     add_graph_modes(path, got)
 
 
+# each in-process path's streaming dispatches since reset_launches()
+# (runtime/stream.py:dispatch_stats): host ms a lane spent staging its
+# block, a dispatch spent waiting for its class's slot and a lane holding
+# it, the ms a dispatch's lanes waited for a graph lane's lock, and the
+# lane blocks written into pinned memory per lane dispatch (one: the
+# stage; on the packed rungs each 8 buckets are stacked into a host
+# temporary and packed from it into the pinned buffers)
+PATH_DISPATCH: dict = {}
+_WRITES0 = [0]
+
+
+def dispatch_split(stats: dict, lane_wait_s: float, writes: int) -> dict:
+    n, lanes = max(stats["dispatches"], 1), max(stats["lanes"], 1)
+    return {"dispatches": stats["dispatches"], "lanes": stats["lanes"],
+            "stage_ms_per_lane": round(stats["stage_s"] / lanes * 1e3, 3),
+            "slot_wait_ms_per_dispatch": round(stats["slot_wait_s"] / n * 1e3, 3),
+            "slot_held_ms_per_lane": round(stats["slot_held_s"] / lanes * 1e3, 3),
+            "lane_wait_ms_per_dispatch": round(lane_wait_s / n * 1e3, 3),
+            "pinned_writes_per_lane": round(writes / lanes, 3)}
+
+
 def read_launches(path: str) -> dict:
     """Each kernel's launches since reset_launches(); raises if the path
     launched one of PATH_KERNELS no time. The graph counts since then
-    are added to GRAPH_PATHS[path]."""
-    from duplexumiconsensusreads_torch.runtime import graphs
+    are added to GRAPH_PATHS[path], its streaming dispatches' split to
+    PATH_DISPATCH[path]."""
+    from duplexumiconsensusreads_torch.runtime import graphs, pinned, stream
 
     counts = graphs.read_counts()
     add_graph_modes(path, graph_modes(counts))
     check_pools(path, counts)
+    ds = stream.dispatch_stats()
+    if ds["dispatches"]:
+        PATH_DISPATCH[path] = dispatch_split(ds, counts["lane_wait_s"],
+                                             pinned.stats()["writes"] - _WRITES0[0])
     got = {name: fn.launches for name, fn in kernel_wrappers().items()}
     missing = [name for name in PATH_KERNELS if got[name] == 0]
     if missing:
@@ -1158,7 +1187,7 @@ def main(argv=None) -> int:
          pool_bytes=graphs.pool_bytes(), pinned_staging=pinned.stats(),
          pool_budget={"per_process_bytes": graphs.MAX_DEVICE_POOL_BYTES,
                       "card_free_share": graphs.CARD_FREE_SHARE},
-         path_pools=PATH_POOLS, nvidia_smi=smi)
+         path_pools=PATH_POOLS, dispatch=PATH_DISPATCH, nvidia_smi=smi)
 
     print(smi, flush=True)
     print(json.dumps({"kernels": [seg_row, cluster_row, fix_row]}), flush=True)
@@ -2610,9 +2639,14 @@ def mesh_phase(in_bam: str, step_bam: str, td: str, smi: str):
     buckets of ``step_bam`` resident on the lanes, one fused step at 1
     lane and at all lanes, in turns, with each lane's host enqueue (its
     ``fused_pipeline`` call) timed; then that class staged at all lanes,
-    each lane's host time split into staging, pipeline call and fetch
-    start. Returns the kernels' launches on
-    the lanes run and their launches per lane."""
+    each lane's host time split into staging (stack and pack into its
+    pinned buffers, as a dispatch does before it takes its class's
+    slot), and what a dispatch does holding the slot: the H2D issue,
+    the pipeline call and the fetch start; beside it the all-lane
+    stream's dispatches (PATH_DISPATCH["mesh"]: waits for the slot and
+    for a graph lane's lock, one host copy of a lane's block). Returns
+    the kernels' launches on the lanes run and their launches per
+    lane."""
     import numpy as np
     import torch
 
@@ -2621,18 +2655,18 @@ def mesh_phase(in_bam: str, step_bam: str, td: str, smi: str):
     from duplexumiconsensusreads_torch.kernels import cluster_fixpoint as cf
     from duplexumiconsensusreads_torch.kernels import grouping
     from duplexumiconsensusreads_torch.kernels import segment_gemm as sg
-    from duplexumiconsensusreads_torch.bucketing import build_buckets, stack_buckets
+    from duplexumiconsensusreads_torch.bucketing import build_buckets
     from duplexumiconsensusreads_torch.parallel.mesh import run_mesh
     from duplexumiconsensusreads_torch.interop import ARRAY_KEYS
     from duplexumiconsensusreads_torch.parallel.sharded import (
-        lane_blocks,
         lane_context,
         lane_specs,
         lane_streams,
         presharded_pipeline,
         put_lane,
+        put_lanes,
         release_streams,
-        shard_stacked,
+        stage_lanes,
     )
     from duplexumiconsensusreads_torch.runtime import graphs
     from duplexumiconsensusreads_torch.runtime.executor import (
@@ -2751,7 +2785,7 @@ def mesh_phase(in_bam: str, step_bam: str, td: str, smi: str):
         for n in (1, lanes, 1, lanes):
             m = run_mesh("cuda", n)
             ss = lane_streams(m)
-            args = shard_stacked(stack_buckets(cb, multiple_of=m.n_data), m, cspec, streams=ss)
+            args = put_lanes(stage_lanes(cb, m, cspec, streams=ss), m, cspec, streams=ss)
 
             def step():
                 presharded_pipeline(args, cspec, m, streams=ss)
@@ -2773,31 +2807,36 @@ def mesh_phase(in_bam: str, step_bam: str, td: str, smi: str):
                 [round(sum(enq[i::n]) / len(enq[i::n]) * 1e3, 3) for i in range(n)])
             del args
             release_streams(ss)
-        # the same class staged at all lanes, each lane issued in turn as
-        # the stream's dispatch issues it, and each lane's host time split:
-        # staging in the lane's pinned ring + H2D (into the step graph's
-        # static inputs once it exists), the step (eager, captured, then
-        # replayed), the packed compaction + D2H start (ms, the median of
-        # the dispatches)
+        # the same class staged at all lanes as the stream's dispatch
+        # stages it (stack and pack straight into each lane's pinned
+        # buffers, before the class's slot is taken; the lanes' share
+        # each), then each lane issued in turn, its host time split: the
+        # H2D (into the step graph's static inputs once it exists), the
+        # step (eager, captured, then replayed), the packed compaction +
+        # D2H start (ms, the median of the dispatches); "slot_held" is
+        # their sum, what a dispatch does holding its class's slot
         m = run_mesh("cuda", lanes)
         ss = lane_streams(m)
-        blocks = lane_blocks(stack_buckets(cb, multiple_of=m.n_data), m, cspec)
         specs, k_pad = lane_specs(cspec, m), d2h_k_pad(cb, cspec, m.n_data)
-        split = {part: [[] for _ in range(lanes)] for part in ("staging", "pipeline", "fetch")}
+        split = {part: [[] for _ in range(lanes)]
+                 for part in ("staging", "h2d", "pipeline", "fetch", "slot_held")}
         for _ in range(MESH_SPLIT_REPS):
             fetches = []
+            staging = [[] for _ in range(lanes)]
+            t0 = time.perf_counter()
+            blocks = stage_lanes(cb, m, cspec, streams=ss, keep=staging)
+            t_stage = (time.perf_counter() - t0) / lanes
             for i, dev in enumerate(m.devices):
                 with lane_context(dev, ss[i]):
-                    staging = []
                     t0 = time.perf_counter()
-                    a = put_lane(blocks[i], dev, specs[i], keep=staging)
+                    a = put_lane(blocks[i], dev, specs[i])
                     t1 = time.perf_counter()
                     o, _ = graphs.run_step(a, specs[i], ARRAY_KEYS)
                     t2 = time.perf_counter()
                     fetches.append(start_fetch(pack_fetch_outputs(o, cspec, k_pad),
-                                               keys=PACKED_FETCH_KEYS, staging=staging))
+                                               keys=PACKED_FETCH_KEYS, staging=staging[i]))
                     t3 = time.perf_counter()
-                for part, dt in zip(split, (t1 - t0, t2 - t1, t3 - t2)):
+                for part, dt in zip(split, (t_stage, t1 - t0, t2 - t1, t3 - t2, t3 - t0)):
                     split[part][i].append(dt)
             for f in fetches:
                 fetch_outputs(f)
@@ -2805,6 +2844,9 @@ def mesh_phase(in_bam: str, step_bam: str, td: str, smi: str):
                  for part, per in split.items()}
         del blocks, fetches
         release_streams(ss)
+    if PATH_DISPATCH["mesh"]["pinned_writes_per_lane"] != 1:
+        raise AssertionError(f"mesh: a lane's block written into pinned memory "
+                             f"{PATH_DISPATCH['mesh']} times a lane dispatch (want once)")
     one = res["1"]
     if not all(np.array_equal(a, b) for a, b in zip(one, res[str(lanes)])):
         raise AssertionError("mesh: call_batch on the data lanes differs from one lane")
@@ -2831,6 +2873,7 @@ def mesh_phase(in_bam: str, step_bam: str, td: str, smi: str):
          whole_file_cycle_quals_moved=int(dq.sum()),
          compute_class=[len(cb), CAPACITY], compute_step_ms=step_ms,
          compute_enqueue_ms=enqueue_ms, staged_lane_split_ms=split,
+         stream_dispatch=PATH_DISPATCH["mesh"],
          compute_scaling=round(sum(step_ms["1"]) / sum(step_ms[str(lanes)]), 3))
     return launches, lane_launches
 

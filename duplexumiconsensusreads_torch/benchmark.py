@@ -205,20 +205,19 @@ def device_classes(buckets, gp, cp, ssc_method, dev) -> list:
 
 def mesh_classes(buckets, gp, cp, ssc_method, mesh, streams) -> list:
     """[(class buckets, spec, per-lane device tensor dicts)]: the
-    dispatch classes as the executors make them, each stacked to a
+    dispatch classes as the executors make them, each staged to a
     multiple of the mesh's data lanes and put on its lanes once
-    (parallel/sharded.py:shard_stacked), so a timed loop of
+    (parallel/sharded.py:stage_lanes, put_lanes), so a timed loop of
     ``presharded_pipeline`` measures compute, not the H2D of its
     inputs. ``ssc_method`` None: the lanes' default."""
-    from duplexumiconsensusreads_torch.bucketing import stack_buckets
-    from duplexumiconsensusreads_torch.parallel.sharded import shard_stacked
+    from duplexumiconsensusreads_torch.parallel.sharded import put_lanes, stage_lanes
     from duplexumiconsensusreads_torch.runtime.executor import partition_buckets
 
     classes = []
     for cbuckets, cspec in partition_buckets(buckets, gp, cp, ssc_method,
                                              device=mesh.devices[0]):
-        stacked = stack_buckets(cbuckets, multiple_of=mesh.n_data)
-        classes.append((cbuckets, cspec, shard_stacked(stacked, mesh, cspec, streams=streams)))
+        blocks = stage_lanes(cbuckets, mesh, cspec, streams=streams)
+        classes.append((cbuckets, cspec, put_lanes(blocks, mesh, cspec, streams=streams)))
     _sync(mesh)
     return classes
 

@@ -475,25 +475,28 @@ def build_buckets(
     return out
 
 
-def stack_buckets(buckets: list[Bucket], multiple_of: int = 1) -> dict:
-    """Stack buckets into (B, R, ...) arrays, padding the bucket count up
-    to a multiple (for even mesh sharding)."""
+def pad_buckets(buckets: list[Bucket], multiple_of: int = 1) -> list[Bucket]:
+    """``buckets`` followed by empty ones up to a multiple of
+    ``multiple_of`` buckets (the mesh pad)."""
     if not buckets:
         raise ValueError("no buckets to stack")
     r = buckets[0].capacity
     l = buckets[0].bases.shape[1]
     b = buckets[0].umi.shape[1]
-    n = len(buckets)
-    n_pad = (-n) % multiple_of
-    padded = buckets + [_empty_bucket(r, l, b) for _ in range(n_pad)]
-    return {
-        "pos": np.stack([x.pos for x in padded]),
-        "umi": np.stack([x.umi for x in padded]),
-        "strand_ab": np.stack([x.strand_ab for x in padded]),
-        "frag_end": np.stack([x.frag_end for x in padded]),
-        "valid": np.stack([x.valid for x in padded]),
-        "bases": np.stack([x.bases for x in padded]),
-        "quals": np.stack([x.quals for x in padded]),
-        "read_index": np.stack([x.read_index for x in padded]),
-        "n_real_buckets": n,
-    }
+    return buckets + [_empty_bucket(r, l, b) for _ in range((-len(buckets)) % multiple_of)]
+
+
+# the arrays stack_buckets stacks, in its order
+STACKED_KEYS = ("pos", "umi", "strand_ab", "frag_end", "valid", "bases", "quals", "read_index")
+
+
+def stack_buckets(buckets: list[Bucket], multiple_of: int = 1, out: dict | None = None) -> dict:
+    """Stack buckets into (B, R, ...) arrays, padding the bucket count up
+    to a multiple (for even mesh sharding). ``out`` (arrays of the
+    stacked shapes and dtypes, by key, for some of STACKED_KEYS) receives
+    those keys' stacks in place of new arrays."""
+    padded = pad_buckets(buckets, multiple_of)
+    out = out or {}
+    res = {k: np.stack([getattr(x, k) for x in padded], out=out.get(k)) for k in STACKED_KEYS}
+    res["n_real_buckets"] = len(buckets)
+    return res

@@ -26,9 +26,9 @@ import time
 
 import numpy as np
 
-from duplexumiconsensusreads_torch.bucketing import build_buckets, stack_buckets
+from duplexumiconsensusreads_torch.bucketing import build_buckets, pad_buckets, stack_buckets
 from duplexumiconsensusreads_torch.interop import ARRAY_KEYS, stacked_from_numpy
-from duplexumiconsensusreads_torch.ops.pipeline import PipelineSpec, fused_pipeline, pack_stacked
+from duplexumiconsensusreads_torch.ops.pipeline import PipelineSpec, fused_pipeline
 from duplexumiconsensusreads_torch.simulate import SimConfig, simulate_batch
 from duplexumiconsensusreads_torch.types import ConsensusParams, GroupingParams
 
@@ -87,8 +87,8 @@ def dryrun_multichip(n_devices: int, device="cuda") -> dict:
     pool = mesh_mod.device_pool(device)
     assert len(pool) >= n_devices, f"need {n_devices} devices, have {len(pool)}"
 
-    def run(stacked, spec, mesh):
-        return gather_outputs(sharded_pipeline(stacked, spec, mesh), mesh)
+    def run(buckets, spec, mesh):
+        return gather_outputs(sharded_pipeline(buckets, spec, mesh), mesh)
 
     batch, _ = simulate_batch(SimConfig(
         n_molecules=8 * n_devices, n_positions=4 * n_devices, duplex=True, paired_reads=True,
@@ -96,17 +96,15 @@ def dryrun_multichip(n_devices: int, device="cuda") -> dict:
     ))
     buckets = _uniform_buckets(batch, 64)
     assert buckets, "dry-run sim produced only jumbo buckets"
-    stacked = stack_buckets(buckets, multiple_of=n_devices)
     mesh = mesh_mod.make_mesh(n_devices, devices=pool)
-    out = run(stacked, SPEC, mesh)
+    out = run(buckets, SPEC, mesh)
     n_called = int(out["cons_valid"].sum())
     assert n_called > 0, "dry run produced no consensus calls"
 
     # the packed transfer path (the streaming executor's production
     # mode), decoded on the device: the identical call set
-    umi_len = int(stacked["umi"].shape[2])
-    out_pk = run(pack_stacked(dict(stacked)),
-                 dataclasses.replace(SPEC, packed_io=True, umi_len=umi_len), mesh)
+    umi_len = int(buckets[0].umi.shape[1])
+    out_pk = run(buckets, dataclasses.replace(SPEC, packed_io=True, umi_len=umi_len), mesh)
     for key in ("cons_valid", "family_id", "cons_base"):
         assert np.array_equal(out_pk[key], out[key]), f"packed-io run changed {key}"
 
@@ -114,7 +112,7 @@ def dryrun_multichip(n_devices: int, device="cuda") -> dict:
         # the (data, cycle) mesh: each data block's read length split
         # over two lanes
         mesh2 = mesh_mod.make_mesh(n_devices, cycle_shards=2, devices=pool)
-        out2 = run(stack_buckets(buckets, multiple_of=n_devices // 2), SPEC, mesh2)
+        out2 = run(buckets, SPEC, mesh2)
         assert int(out2["cons_valid"].sum()) == n_called, "cycle-sharded run changed the call set"
 
     # the streaming executor end to end at n lanes and at 1 lane: the
@@ -153,15 +151,12 @@ def dryrun_multichip(n_devices: int, device="cuda") -> dict:
     # per-lane balance: whole padded buckets per lane, so every lane
     # has the same bucket count; record each lane's valid reads and
     # step time
-    n_stack = stacked["pos"].shape[0]
-    per = n_stack // n_devices
-    assert per * n_devices == n_stack, "stacked batch not evenly sharded"
+    padded = pad_buckets(buckets, n_devices)
+    per = len(padded) // n_devices
     shard_reads, shard_step_s = [], []
     for di, dev in enumerate(mesh.devices[:n_devices]):
-        sub = {k: (np.asarray(v)[di * per:(di + 1) * per]
-                   if np.ndim(v) >= 1 and np.shape(v)[0] == n_stack else v)
-               for k, v in stacked.items()}
-        shard_reads.append(int(sub["valid"].sum()))
+        sub = padded[di * per:(di + 1) * per]
+        shard_reads.append(sum(int(b.valid.sum()) for b in sub))
         m1 = mesh_mod.make_mesh(1, devices=[dev])
         run(sub, SPEC, m1)  # untimed warm-up
         reps = 3

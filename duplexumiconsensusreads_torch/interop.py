@@ -19,46 +19,29 @@ from duplexumiconsensusreads_torch.types import ConsensusParams, GroupingParams
 ARRAY_KEYS = ("pos", "umi", "strand_ab", "frag_end", "valid", "bases", "quals")
 
 
-def stacked_from_numpy(
-    stacked: dict, device, pin: bool = False, keep: list | None = None,
-    out: dict | None = None, depth: int | None = None,
-) -> dict:
+def stacked_from_numpy(stacked: dict, device, out: dict | None = None) -> dict:
     """numpy stacked bucket arrays -> tensors on ``device`` (ARRAY_KEYS
     only; read_index and n_real_buckets stay on the host). u16 lanes
     (the packed pos) cross as their int16 bit pattern, which the
-    pipeline's decode widens back. ``pin=True`` stages each array in a
-    pinned host buffer of the current stream's ring
-    (runtime/pinned.py: reused once the fetch that closes its copies
-    has fired; ``depth`` free buffers a ring keeps) and copies without
-    blocking, on the current stream; ``keep`` collects the staging
-    buffers, for a caller that fences them with that event and holds
-    them until it has fired. ``out`` (a dict of device tensors of the
+    pipeline's decode widens back. A value that is already a tensor (a
+    lane's pinned staging buffer, parallel/sharded.py:stage_lanes, whose
+    caller keeps and fences it) is copied as it is, without blocking,
+    on the current stream. ``out`` (a dict of device tensors of the
     arrays' shapes and dtypes: a step graph's static inputs,
     runtime/graphs.py:bound_inputs) receives the copies instead of new
     tensors."""
     device = torch.device(device)
-    staged = pin and device.type == "cuda"
-    lane = None
-    if staged:
-        from duplexumiconsensusreads_torch.runtime import pinned
-
-        lane = pinned.lane_of(device)
     res = {}
     for k in ARRAY_KEYS:
         a = stacked[k]
-        if a.dtype == np.uint16:
-            a = a.view(np.int16)
-        if staged:
-            t = pinned.take(a.shape, TORCH_DTYPES[a.dtype], lane, depth)
-            t.copy_(torch.from_numpy(a))
-            if keep is not None:
-                keep.append(t)
-        else:
-            t = torch.from_numpy(np.ascontiguousarray(a))
+        staged = isinstance(a, torch.Tensor) and device.type == "cuda"
+        if not isinstance(a, torch.Tensor):
+            a = torch.from_numpy(np.ascontiguousarray(a.view(np.int16) if a.dtype == np.uint16
+                                                      else a))
         if out is not None:
-            res[k] = out[k].copy_(t, non_blocking=staged)
+            res[k] = out[k].copy_(a, non_blocking=staged)
         else:
-            res[k] = t.to(device, non_blocking=staged)
+            res[k] = a.to(device, non_blocking=staged)
     return res
 
 
@@ -67,6 +50,9 @@ def host_shapes(stacked: dict) -> tuple:
     ``stacked`` (without making them), in ARRAY_KEYS order."""
     out = []
     for k in ARRAY_KEYS:
+        if isinstance(stacked[k], torch.Tensor):
+            out.append((tuple(stacked[k].shape), stacked[k].dtype))
+            continue
         dt = np.dtype(stacked[k].dtype)
         out.append((tuple(stacked[k].shape),
                     TORCH_DTYPES[np.dtype(np.int16) if dt == np.uint16 else dt]))

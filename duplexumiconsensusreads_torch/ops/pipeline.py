@@ -158,12 +158,13 @@ def pack_base_qual(bases: np.ndarray, quals: np.ndarray) -> np.ndarray:
     real = bases < 4
     return np.where(
         real,
-        bases | (np.minimum(quals, PACKED_QUAL_MAX).astype(np.uint8) << 2),
+        bases | (np.minimum(quals, PACKED_QUAL_MAX).astype(np.uint8, copy=False) << 2),
         np.uint8(PACKED_NONE),
-    ).astype(np.uint8)
+    ).astype(np.uint8, copy=False)
 
 
-def pack_stacked(stacked: dict, spec: PipelineSpec | None = None) -> dict:
+def pack_stacked(stacked: dict, spec: PipelineSpec | None = None,
+                 out: dict | None = None) -> dict:
     """Apply the packed-io convention to a stacked bucket dict IN PLACE
     (the host side of spec.packed_io — fused_pipeline decodes):
 
@@ -177,7 +178,9 @@ def pack_stacked(stacked: dict, spec: PipelineSpec | None = None) -> dict:
       quals/frag_end/valid  zero-width dummies
 
     ``spec=None`` is the byte rung. The layout is the JAX package's,
-    byte for byte."""
+    byte for byte. ``out`` (arrays of the packed shapes and dtypes, by
+    key, for some of the keys above; the packed pos u16) receives those
+    keys' packed arrays, which the dict then holds."""
     if spec is not None and spec.packed_qbits:
         qbits = spec.packed_qbits
         lut = np.asarray(spec.qual_lut, np.uint8)
@@ -185,13 +188,20 @@ def pack_stacked(stacked: dict, spec: PipelineSpec | None = None) -> dict:
         bases = np.asarray(stacked["bases"])
         # invalid rows' cycles pack as NONE too: the kernels mask them
         real = (bases < 4) & np.asarray(stacked["valid"], bool)[:, :, None]
+        quals = np.asarray(stacked["quals"])
+        # each qual's dictionary index (searchsorted in the dictionary),
+        # read for u8 quals from the index of every u8 value
         qidx = np.minimum(
-            np.searchsorted(lut, np.asarray(stacked["quals"])), len(lut) - 1
+            np.searchsorted(lut, np.arange(256) if quals.dtype == np.uint8 else quals),
+            len(lut) - 1,
         ).astype(np.uint8)
+        if quals.dtype == np.uint8:
+            qidx = qidx[quals]
         code = np.where(real, (qidx << 2) | bases, none_code)
         stacked["bases"] = np.concatenate(
             [
-                np.packbits((code >> b) & 1, axis=-1, bitorder="little")
+                # packbits packs each nonzero element as a one bit
+                np.packbits(code & np.uint8(1 << b), axis=-1, bitorder="little")
                 for b in range(2 + qbits)
             ],
             axis=-1,
@@ -219,6 +229,9 @@ def pack_stacked(stacked: dict, spec: PipelineSpec | None = None) -> dict:
     )
     stacked["frag_end"] = np.zeros((b_, 0), np.uint8)
     stacked["valid"] = np.zeros((b_, 0), np.uint8)
+    for k, dst in (out or {}).items():
+        dst[...] = stacked[k]
+        stacked[k] = dst
     return stacked
 
 

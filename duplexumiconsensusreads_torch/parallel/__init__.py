@@ -17,6 +17,7 @@ from duplexumiconsensusreads_torch.parallel.distributed import (  # noqa: F401
 from duplexumiconsensusreads_torch.parallel.mesh import make_mesh  # noqa: F401
 from duplexumiconsensusreads_torch.parallel.sharded import (  # noqa: F401
     presharded_pipeline,
-    shard_stacked,
+    put_lanes,
     sharded_pipeline,
+    stage_lanes,
 )

@@ -6,9 +6,9 @@ mesh and lets GSPMD (or a shard_map) partition the vmapped pipeline.
 The port has neither, and needs neither: buckets are independent, so
 the per-lane loop below *is* the partition. Its decisions:
 
-- **Data lanes.** ``stack_buckets(..., multiple_of=n_data)`` pads a
-  class to a multiple of the data-axis size with empty buckets (the
-  mesh pad); lane d takes buckets ``[d*per, (d+1)*per)``. Each lane
+- **Data lanes.** :func:`stage_lanes` pads a class to a multiple of
+  the data-axis size with empty buckets (the mesh pad); lane d takes
+  buckets ``[d*per, (d+1)*per)``. Each lane
   runs :func:`fused_pipeline` on its block alone, on its device, on
   its own CUDA stream. No collective exists, so no lane's work ever
   waits on another lane's (the JAX shard_map form is collective-free
@@ -107,21 +107,93 @@ def _cycle_slice(stacked: dict, spec, l0: int, l1: int) -> dict:
     return out
 
 
-def lane_blocks(stacked: dict, mesh, spec=None) -> list[dict]:
-    """Host-side split of a stacked class (bucket count a multiple of
-    ``mesh.n_data``) into one numpy dict per lane, in lane order: data
-    lane d's contiguous bucket block, restricted to cycle lane c's
-    cycles. ``spec`` is needed on a cycle mesh for the sub-byte rung."""
-    n = int(stacked["pos"].shape[0])
-    if n % mesh.n_data:
-        raise ValueError(f"{n} stacked buckets do not divide over {mesh.n_data} data lanes")
-    per = n // mesh.n_data
-    bounds = cycle_bounds(_cycles_of(stacked, spec), mesh.n_cycle)
+# buckets a lane's block is stacked and packed by at a time on the
+# packed rungs: a block's unpacked arrays (bases and quals of a few MB)
+# stay in the cache on their way into the staging buffers
+STAGE_BLOCK = 8
+
+
+def _staging_buffer(dev, shape, dtype, depth, keep) -> tuple:
+    """(numpy view, tensor or None) of a buffer for one staged array:
+    from the current stream's pinned ring on the card (appended to
+    ``keep``), a new numpy array on the CPU."""
+    if dev.type != "cuda":
+        return np.empty(shape, dtype), None
+    from duplexumiconsensusreads_torch.interop import TORCH_DTYPES
+    from duplexumiconsensusreads_torch.runtime import pinned
+
+    # u16 (the packed pos) crosses as its int16 bit pattern
+    wire = np.dtype(np.int16) if dtype == np.uint16 else np.dtype(dtype)
+    t = pinned.take(shape, TORCH_DTYPES[wire], pinned.lane_of(dev), depth)
+    keep.append(t)
+    return t.numpy().view(dtype), t
+
+
+def stage_lanes(buckets: list, mesh, spec=None, streams=None, keep=None,
+                depth: int | None = None) -> list[dict]:
+    """Each lane's block of a class, in lane order: the buckets stacked
+    to a multiple of ``mesh.n_data`` (the mesh pad last) and packed when
+    ``spec.packed_io``, data lane d's contiguous bucket block restricted
+    to cycle lane c's cycles (``spec`` is needed on a cycle mesh for the
+    sub-byte rung). Each block is written once, straight into the
+    buffers it crosses the wire from: on the card the lane's pinned
+    staging buffers, from its stream's ring (runtime/pinned.py, ``depth``
+    free buffers kept), which are appended to ``keep[i]`` for the caller
+    to fence; on the CPU new numpy arrays. A cycle mesh stages each data
+    block once and copies each cycle lane's slice into that lane's
+    buffers. Returns one dict per lane of ARRAY_KEYS: pinned tensors on
+    the card (the u16 pos as its int16 bit pattern), numpy arrays on the
+    CPU; :func:`put_lanes` sends them."""
+    from duplexumiconsensusreads_torch.bucketing import pad_buckets, stack_buckets
+    from duplexumiconsensusreads_torch.ops.pipeline import pack_stacked
+    from duplexumiconsensusreads_torch.runtime import pinned
+
+    streams = streams or [None] * mesh.size
+    keep = keep or [[] for _ in range(mesh.size)]
+    packed = spec is not None and spec.packed_io
+    padded = pad_buckets(buckets, mesh.n_data)
+    per = len(padded) // mesh.n_data
+    # each array's shape and dtype past the bucket axis, from one bucket
+    probe = stack_buckets(buckets[:1])
+    if packed:
+        pack_stacked(probe, spec)
+    layout = {k: (probe[k].shape[1:], probe[k].dtype) for k in _ARRAY_KEYS}
+
+    def fill(sub, dst):
+        if not packed:
+            stack_buckets(sub, out=dst)
+            return
+        for j in range(0, len(sub), STAGE_BLOCK):
+            pack_stacked(stack_buckets(sub[j : j + STAGE_BLOCK]), spec,
+                         out={k: v[j : j + STAGE_BLOCK] for k, v in dst.items()})
+
     out = []
+
+    def write(i, shapes, fn):
+        """Lane i's buffers of ``shapes``, filled by ``fn(views)``."""
+        dev = mesh.devices[i]
+        with lane_context(dev, streams[i]):
+            made = {k: _staging_buffer(dev, shape, dt, depth, keep[i])
+                    for k, (shape, dt) in shapes.items()}
+        fn({k: v for k, (v, _) in made.items()})
+        if dev.type == "cuda":
+            pinned.count_write()
+            out.append({k: t for k, (_, t) in made.items()})
+        else:
+            out.append({k: v for k, (v, _) in made.items()})
+
     for d in range(mesh.n_data):
-        block = {k: stacked[k][d * per : (d + 1) * per] for k in _ARRAY_KEYS}
-        for l0, l1 in bounds:
-            out.append(block if mesh.n_cycle == 1 else _cycle_slice(block, spec, l0, l1))
+        sub = padded[d * per : (d + 1) * per]
+        shapes = {k: ((per, *tail), dt) for k, (tail, dt) in layout.items()}
+        if mesh.n_cycle == 1:
+            write(d, shapes, lambda views: fill(sub, views))
+            continue
+        block = {k: np.empty(shape, dt) for k, (shape, dt) in shapes.items()}
+        fill(sub, block)
+        for c, (l0, l1) in enumerate(cycle_bounds(_cycles_of(block, spec), mesh.n_cycle)):
+            part = _cycle_slice(block, spec, l0, l1)
+            write(d * mesh.n_cycle + c, {k: (v.shape, v.dtype) for k, v in part.items()},
+                  lambda views: [np.copyto(v, part[k]) for k, v in views.items()])
     return out
 
 
@@ -205,38 +277,34 @@ def lane_context(device, stream=None):
                 yield
 
 
-def shard_stacked(stacked: dict, mesh, spec=None, streams=None, keep=None) -> list[dict]:
-    """Put each lane's block on its device (see :func:`lane_blocks`),
-    on the lane's stream; returns the per-lane tensor dicts. On the
-    card the copies are staged in the lane's reused pinned buffers
-    (runtime/pinned.py) and do not block, and a lane whose step graph
-    for this class exists copies straight into the graph's static
-    inputs (runtime/graphs.py:bound_inputs); the staging buffers are
-    appended to ``keep[i]`` (a list per lane) for a caller that holds
-    them until its copies are known done."""
+def put_lanes(blocks: list[dict], mesh, spec=None, streams=None) -> list[dict]:
+    """Put each lane's block (from :func:`stage_lanes`) on its device, on
+    the lane's stream; returns the per-lane tensor dicts. On the card
+    the copies leave the lane's pinned staging buffers without blocking,
+    and a lane whose step graph for this class exists copies straight
+    into the graph's static inputs (runtime/graphs.py:bound_inputs)."""
     streams = streams or [None] * mesh.size
     specs = lane_specs(spec, mesh)
     out = []
-    for i, (dev, block) in enumerate(zip(mesh.devices, lane_blocks(stacked, mesh, spec))):
+    for i, (dev, block) in enumerate(zip(mesh.devices, blocks)):
         with lane_context(dev, streams[i]):
-            out.append(put_lane(block, dev, specs[i], keep=None if keep is None else keep[i]))
+            out.append(put_lane(block, dev, specs[i]))
     return out
 
 
-def put_lane(block: dict, dev, spec, keep: list | None = None, depth: int | None = None) -> dict:
-    """One lane's H2D, on the current stream (see :func:`shard_stacked`;
-    ``depth``: the free buffers its staging ring keeps)."""
+def put_lane(block: dict, dev, spec) -> dict:
+    """One lane's H2D, on the current stream (see :func:`put_lanes`)."""
     from duplexumiconsensusreads_torch.interop import host_shapes, stacked_from_numpy
     from duplexumiconsensusreads_torch.runtime import graphs
 
-    pin = dev.type == "cuda"
-    static = graphs.bound_inputs(spec, host_shapes(block), _ARRAY_KEYS, dev) if pin else None
-    return stacked_from_numpy(block, dev, pin=pin, keep=keep, out=static, depth=depth)
+    static = (graphs.bound_inputs(spec, host_shapes(block), _ARRAY_KEYS, dev)
+              if dev.type == "cuda" else None)
+    return stacked_from_numpy(block, dev, out=static)
 
 
 def presharded_pipeline(args: list, spec, mesh, streams=None, modes: list | None = None) -> list[dict]:
     """Run :func:`fused_pipeline` on each lane's device-resident block
-    (from :func:`shard_stacked`), on the lane's device and stream; the
+    (from :func:`put_lanes`), on the lane's device and stream; the
     pure-compute path benchmarks time. On the card each lane's step goes
     through the lane's graph cache (runtime/graphs.py: eager at a
     class's first sight on the lane, captured at the second, replayed
@@ -258,13 +326,13 @@ def presharded_pipeline(args: list, spec, mesh, streams=None, modes: list | None
     return outs
 
 
-def sharded_pipeline(stacked: dict, spec, mesh, streams=None) -> list[dict]:
-    """All buckets of a stacked class across the mesh: per-lane outputs
+def sharded_pipeline(buckets: list, spec, mesh, streams=None) -> list[dict]:
+    """All buckets of a class across the mesh: per-lane outputs
     (:func:`gather_outputs` joins them on the host)."""
     streams = streams or lane_streams(mesh)
-    return presharded_pipeline(
-        shard_stacked(stacked, mesh, spec, streams=streams), spec, mesh, streams=streams
-    )
+    blocks = stage_lanes(buckets, mesh, spec, streams=streams)
+    return presharded_pipeline(put_lanes(blocks, mesh, spec, streams=streams), spec, mesh,
+                               streams=streams)
 
 
 def _min_positive(a: np.ndarray, b: np.ndarray) -> np.ndarray:

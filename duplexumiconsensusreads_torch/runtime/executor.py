@@ -4,7 +4,8 @@ The host runtime around the device pipeline, the counterpart of the JAX
 package's runtime/executor.py (call_batch_tpu / call_consensus_file):
 
   native BAM parse (io.load_input) -> build_buckets ->
-  partition_buckets (byte-rung packed H2D) -> stack_buckets -> ONE
+  partition_buckets (byte-rung packed H2D) -> stage_lanes (stack and
+  pack into pinned staging) -> ONE
   batched fused_pipeline call per dispatch class -> non-blocking D2H
   into pinned host buffers -> a wait on the event recorded after them
   -> scatter_bucket_outputs -> sort_consensus_outputs ->
@@ -949,16 +950,15 @@ def call_batch(
     every lane runs its block on its own stream
     (parallel/sharded.py); the result does not depend on the mesh.
     """
-    from duplexumiconsensusreads_torch.bucketing import build_buckets, stack_buckets
-    from duplexumiconsensusreads_torch.ops.pipeline import pack_stacked
+    from duplexumiconsensusreads_torch.bucketing import build_buckets
     from duplexumiconsensusreads_torch.parallel.mesh import run_mesh
     from duplexumiconsensusreads_torch.parallel.sharded import (
-        lane_blocks,
         lane_context,
         lane_streams,
         presharded_pipeline,
+        put_lanes,
         release_streams,
-        shard_stacked,
+        stage_lanes,
     )
 
     mesh = run_mesh(device, n_devices, devices, cycle_shards)
@@ -993,17 +993,14 @@ def call_batch(
     pending = []
     for cbuckets, cspec in part:
         t0 = time.monotonic()
-        stacked = stack_buckets(cbuckets, multiple_of=mesh.n_data)
-        if cspec.packed_io:
-            pack_stacked(stacked)
-        rep.bytes_h2d += sum(
-            int(v.nbytes) for blk in lane_blocks(stacked, mesh, cspec) for v in blk.values()
-        )
-        rep.n_mesh_pad_buckets += int(stacked["pos"].shape[0]) - len(cbuckets)
+        staging = [[] for _ in range(mesh.size)]
+        blocks = stage_lanes(cbuckets, mesh, cspec, streams=streams, keep=staging)
+        rep.bytes_h2d += sum(int(v.nbytes) for blk in blocks for v in blk.values())
+        rep.n_mesh_pad_buckets += (-len(cbuckets)) % mesh.n_data
         t1 = time.monotonic()
         _add(rep, "stack_pack", t1 - t0)
-        staging = [[] for _ in range(mesh.size)]
-        args = shard_stacked(stacked, mesh, cspec, streams=streams, keep=staging)
+        args = put_lanes(blocks, mesh, cspec, streams=streams)
+        del blocks
         outs = presharded_pipeline(args, cspec, mesh, streams=streams)
         del args
         fetches = []

@@ -55,9 +55,11 @@ every dispatch. Here a class that recurs on a lane is one replay.
   lane that captured it held 8.05 GB (its step's intermediates, the
   1.72 GB (280, 2048, 751) f32 evidence block twice among them, at the
   caching allocator's rounding). So a process's lanes on one device
-  hold at most ``MAX_DEVICE_POOL_BYTES`` (20 GiB, a quarter of an 80
-  GB card) in their pools together, counted as each capture's growth
-  of the card's reservation, and less when the card runs short: the
+  hold at most ``MAX_DEVICE_POOL_BYTES`` (40 GiB, half of an 80 GB
+  card: the main class's pool on each of the streaming executor's four
+  slot lanes and on the whole-file lane) in their pools together,
+  counted as each capture's growth of the card's reservation, and less
+  when the card runs short: the
   budget is cut to what leaves ``CARD_FREE_SHARE`` (a quarter) of the
   card free, as ``torch.cuda.mem_get_info`` counts it, every process on
   the card included.
@@ -103,8 +105,11 @@ MAX_GRAPHS = 16
 MAX_LANE_STATIC_BYTES = 3 << 29
 MAX_EPILOGUES = 4
 # the bytes the lanes' pools of one device may hold together: past it a
-# capture drops the least recently used idle lanes of that device
-MAX_DEVICE_POOL_BYTES = 20 << 30
+# capture drops the least recently used idle lanes of that device. Each
+# slot lane of a streaming run keeps its classes' pool (7.5-8 GB for
+# the main class on an H100), so at 20 GiB a run whose large classes
+# met three slots dropped a lane every run and lost its replays
+MAX_DEVICE_POOL_BYTES = 40 << 30
 # the share of the card's memory that captures leave free for every
 # process on it: past it a process's budget shrinks to what it holds
 CARD_FREE_SHARE = 0.25
@@ -127,6 +132,7 @@ _LANES: dict = {}
 _SIDE: dict = {}
 _CAPTURE_LOCK = threading.Lock()
 _DROPPED = [0]  # lanes dropped to keep a device's pools in the budget
+_LANE_WAIT = [0.0]  # seconds threads waited for a lane's lock
 _COUNTS = {k: dict.fromkeys(MODES, 0) for k in KINDS}
 _CAPTURE_S = {k: 0.0 for k in KINDS}
 # the distinct (spec, input signature) step classes met, the most the
@@ -162,8 +168,9 @@ class _Graph:
 class _Lane:
     """One (device, stream): its pool and the bytes the captures grew
     it by, its step graphs (LRU order), the sightings of its step keys,
-    and a lock its thread holds while it runs the lane (another
-    thread's capture drops an idle lane only)."""
+    a lock held over its tables, a replay and a capture, and the eager
+    steps running on it outside that lock (another thread's capture
+    drops an idle lane only: its lock free and no eager step running)."""
 
     def __init__(self, key, device, stream, pool):
         self.key, self.device, self.stream, self.pool = key, device, stream, pool
@@ -172,6 +179,7 @@ class _Lane:
         self.pool_bytes = 0
         self.used = 0
         self.lock = threading.Lock()
+        self.eager = 0
 
 
 class CudaBackend:
@@ -292,6 +300,7 @@ def reset_counts() -> None:
             _COUNTS[k] = dict.fromkeys(MODES, 0)
             _CAPTURE_S[k] = 0.0
         _DROPPED[0] = 0
+        _LANE_WAIT[0] = 0.0
         _CLASSES.clear()
         _POOL_PEAK[0] = 0
         _CARD_FREE_MIN[0] = 1.0
@@ -300,11 +309,13 @@ def reset_counts() -> None:
 def read_counts() -> dict:
     """{kind: {mode: calls}} since :func:`reset_counts`, with each kind's
     capture seconds, the distinct step classes met (``classes``), the
-    pools' peak and the card's least free share after a capture, and
-    the graphs each lane holds."""
+    pools' peak and the card's least free share after a capture, the
+    seconds threads waited for a lane's lock (``lane_wait_s``), and the
+    graphs each lane holds."""
     with _LOCK:
         out = {k: {**_COUNTS[k], "capture_s": round(_CAPTURE_S[k], 6)} for k in KINDS}
         out["lanes_dropped"] = _DROPPED[0]
+        out["lane_wait_s"] = round(_LANE_WAIT[0], 6)
         out["classes"] = len(_CLASSES)
         out["pool_peak_bytes"] = _POOL_PEAK[0]
         out["card_free_min"] = round(_CARD_FREE_MIN[0], 4)
@@ -396,6 +407,24 @@ def _budget(backend, device) -> int:
     return min(MAX_DEVICE_POOL_BYTES, held + free - int(CARD_FREE_SHARE * total))
 
 
+def _idle(lane: _Lane) -> bool:
+    """Take the lane's lock if no thread holds it and no eager step runs
+    on it (an eager step counts itself in holding the lock)."""
+    if not lane.lock.acquire(blocking=False):
+        return False
+    if lane.eager:
+        lane.lock.release()
+        return False
+    return True
+
+
+def _eager_running(lane: _Lane, n: int) -> None:
+    """Count (``n`` 1, holding the lane's lock) or uncount (-1) an eager
+    step running on the lane outside its lock."""
+    with _LOCK:
+        lane.eager += n
+
+
 def _trim_device(backend, keep: _Lane, budget: int) -> None:
     """Drop the least recently used idle lanes of ``keep``'s device
     (never ``keep``) while their pools hold more than ``budget``
@@ -407,8 +436,7 @@ def _trim_device(backend, keep: _Lane, budget: int) -> None:
             over = sum(ln.pool_bytes for ln in lanes) > budget
             victims = sorted((ln for ln in lanes if ln is not keep and ln.pool_bytes),
                              key=lambda ln: ln.used)
-        victim = next((v for v in victims if v.lock.acquire(blocking=False)), None) if over \
-            else None
+        victim = next((v for v in victims if _idle(v)), None) if over else None
         if victim is None:
             break
         try:
@@ -418,6 +446,20 @@ def _trim_device(backend, keep: _Lane, budget: int) -> None:
             victim.lock.release()
     if dropped:
         backend.release(keep.device)
+
+
+@contextlib.contextmanager
+def _holding(lane: _Lane):
+    """Hold the lane's lock, counting the time spent waiting for it."""
+    if not lane.lock.acquire(blocking=False):
+        t0 = time.perf_counter()
+        lane.lock.acquire()
+        with _LOCK:
+            _LANE_WAIT[0] += time.perf_counter() - t0
+    try:
+        yield
+    finally:
+        lane.lock.release()
 
 
 def _count(kind: str, mode: str, capture_s: float = 0.0) -> None:
@@ -515,8 +557,11 @@ def _evict(backend, lane: _Lane, table: collections.OrderedDict, cap: int,
 def run_step(args: dict, spec, keys: tuple) -> tuple:
     """``fused_pipeline(*(args[k] for k in keys), spec)`` on the current
     lane (the tensors' device, its current stream): eagerly, or through
-    the lane's graph of this class. Returns (outputs, (mode, capture
-    seconds))."""
+    the lane's graph of this class. The lane's lock covers its graph
+    table and sightings, a replay and a capture; an eager step needs
+    none of them and runs without it, so threads that share a lane
+    enqueue their eager steps side by side. Returns (outputs, (mode,
+    capture seconds))."""
     from duplexumiconsensusreads_torch.ops.pipeline import fused_pipeline
 
     def step(inputs):
@@ -531,7 +576,7 @@ def run_step(args: dict, spec, keys: tuple) -> tuple:
     with _LOCK:
         if len(_CLASSES) < MAX_CLASSES:
             _CLASSES.add(key)
-    with lane.lock:
+    with _holding(lane):
         g = lane.graphs.get(key)
         if g is not None:
             lane.graphs.move_to_end(key)
@@ -539,14 +584,21 @@ def run_step(args: dict, spec, keys: tuple) -> tuple:
             _replayed(backend, g)
             _count("step", "replayed")
             return g.outputs, ("replayed", 0.0)
-        if _sighted(lane.seen, key) == 1:
-            _count("step", "eager")
+        eager = _sighted(lane.seen, key) == 1
+        if eager:
+            _eager_running(lane, 1)
+        else:
+            static = {k: args[k].clone() for k in keys}
+            g, dt = _capture(backend, lane, step, static)
+            lane.graphs[key] = g
+            _evict(backend, lane, lane.graphs, MAX_GRAPHS, MAX_LANE_STATIC_BYTES)
+            _count("step", "captured", dt)
+    if eager:
+        _count("step", "eager")
+        try:
             return step(args), ("eager", 0.0)
-        static = {k: args[k].clone() for k in keys}
-        g, dt = _capture(backend, lane, step, static)
-        lane.graphs[key] = g
-        _evict(backend, lane, lane.graphs, MAX_GRAPHS, MAX_LANE_STATIC_BYTES)
-        _count("step", "captured", dt)
+        finally:
+            _eager_running(lane, -1)
     _after_capture(backend, lane)
     return g.outputs, ("captured", dt)
 
@@ -564,20 +616,27 @@ def run_epilogue(out: dict, fn, key: tuple) -> dict:
     if backend is None or backend.lane(owner.lane.device) != owner.lane.key:
         return fn(out)
     lane = owner.lane
-    with lane.lock:
+    with _holding(lane):
         g = owner.epilogues.get(key)
         if g is not None:
             owner.epilogues.move_to_end(key)
             _replayed(backend, g)
             _count("epilogue", "replayed")
             return g.outputs
-        if _sighted(owner.epilogue_seen, key) == 1:
-            _count("epilogue", "eager")
+        eager = _sighted(owner.epilogue_seen, key) == 1
+        if eager:
+            _eager_running(lane, 1)
+        else:
+            g, dt = _capture(backend, lane, fn, out)
+            owner.epilogues[key] = g
+            _evict(backend, lane, owner.epilogues, MAX_EPILOGUES)
+            _count("epilogue", "captured", dt)
+    if eager:
+        _count("epilogue", "eager")
+        try:
             return fn(out)
-        g, dt = _capture(backend, lane, fn, out)
-        owner.epilogues[key] = g
-        _evict(backend, lane, owner.epilogues, MAX_EPILOGUES)
-        _count("epilogue", "captured", dt)
+        finally:
+            _eager_running(lane, -1)
     _after_capture(backend, lane)
     return g.outputs
 

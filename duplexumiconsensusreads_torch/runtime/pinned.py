@@ -1,5 +1,5 @@
 """Pinned host staging buffers reused per lane: the H2D sources of a
-dispatch (interop.py:stacked_from_numpy) and the D2H targets of its
+dispatch (parallel/sharded.py:stage_lanes) and the D2H targets of its
 fetch (runtime/executor.py:start_fetch).
 
 A dispatch used to pin new host memory for every array it sent and
@@ -45,7 +45,7 @@ _FREE: dict = {}  # key -> free storages, keys in the order they were last freed
 _FREE_BYTES = [0]
 # handed-out buffers: (key, storage, fence, ring depth)
 _OUT: list = []
-_STATS = {"taken": 0, "reused": 0, "dropped": 0}
+_STATS = {"taken": 0, "reused": 0, "dropped": 0, "writes": 0}
 
 
 class _Fence:
@@ -137,10 +137,18 @@ def fence(tensors, event) -> None:
             f.event = event
 
 
+def count_write() -> None:
+    """Count one lane block written into pinned buffers (``writes`` in
+    :func:`stats`)."""
+    with _LOCK:
+        _STATS["writes"] += 1
+
+
 def stats() -> dict:
-    """{taken, reused, dropped}: buffers handed out, of them reused from
-    a ring, and buffers given up to the host allocator; with the free
-    buffers the rings hold and those still out."""
+    """{taken, reused, dropped, writes}: buffers handed out, of them
+    reused from a ring, buffers given up to the host allocator, and lane
+    blocks written into pinned buffers (parallel/sharded.py:stage_lanes);
+    with the free buffers the rings hold and those still out."""
     with _LOCK:
         return {**_STATS, "free": sum(len(v) for v in _FREE.values()),
                 "free_bytes": _FREE_BYTES[0], "out": len(_OUT)}

@@ -78,7 +78,6 @@ from duplexumiconsensusreads_torch.io.durable import (
 from duplexumiconsensusreads_torch.ops.pipeline import (
     SUBBYTE_QBITS,
     analytic_flops,
-    pack_stacked,
     qual_alphabet,
 )
 from duplexumiconsensusreads_torch.runtime.executor import (
@@ -107,7 +106,6 @@ from duplexumiconsensusreads_torch.runtime.executor import (
     write_bam_index,
 )
 from duplexumiconsensusreads_torch.parallel.sharded import (
-    lane_blocks,
     lane_context,
     lane_streams,
     presharded_pipeline,
@@ -872,6 +870,42 @@ def class_slot(key) -> int:
     return ticket
 
 
+def run_slots(mesh, on_cuda: bool) -> list:
+    """A streaming run's stream slots: XFER_WORKERS of (lock, one CUDA
+    stream per mesh lane) on the card, in the order of their streams'
+    handles (a run that takes the streams an earlier run handed back
+    gives each class the same ones again); none on the CPU."""
+    slots = []
+    if on_cuda:
+        for _ in range(XFER_WORKERS):
+            ss = lane_streams(mesh, fresh=True)
+            slots.append((threading.Lock(), ss))
+        slots.sort(key=lambda slot: [st.cuda_stream for st in slot[1]])
+    return slots
+
+
+# host seconds of the streaming dispatches since reset_dispatch_stats(),
+# summed over the threads that dispatch: staging each lane's block,
+# waiting for the class's slot, and holding it; with the dispatches and
+# the lanes they ran on
+_DISPATCH_STATS: dict = {}
+_DISPATCH_LOCK = threading.Lock()
+
+
+def reset_dispatch_stats() -> None:
+    with _DISPATCH_LOCK:
+        _DISPATCH_STATS.update(dispatches=0, lanes=0, stage_s=0.0, slot_wait_s=0.0,
+                               slot_held_s=0.0)
+
+
+def dispatch_stats() -> dict:
+    with _DISPATCH_LOCK:
+        return dict(_DISPATCH_STATS)
+
+
+reset_dispatch_stats()
+
+
 def stream_call_consensus(
     in_path: str,
     out_path: str,
@@ -1076,9 +1110,14 @@ def _stream_call(
     write_index=True writes the .bai (or .csi past 2^29) after the
     atomic rename, inside the finalise stage."""
     from duplexumiconsensusreads_torch import tuning
-    from duplexumiconsensusreads_torch.bucketing import build_buckets, stack_buckets
+    from duplexumiconsensusreads_torch.bucketing import build_buckets
     from duplexumiconsensusreads_torch.io.bam import serialize_bam
-    from duplexumiconsensusreads_torch.parallel.sharded import lane_specs, put_lane, stacked_nbytes
+    from duplexumiconsensusreads_torch.parallel.sharded import (
+        lane_specs,
+        put_lane,
+        stacked_nbytes,
+        stage_lanes,
+    )
     from duplexumiconsensusreads_torch.runtime.executor import resolve_mate_aware
 
     if chunk_reads < 1:
@@ -1225,10 +1264,11 @@ def _stream_call(
     # ladders instead of grinding through backoff the shutdown waits on
     aborting = threading.Event()
     # the run's CUDA streams: XFER_WORKERS slots, each one stream per
-    # mesh lane and a lock. A dispatch takes its class's slot (spec,
-    # stacked bucket count, capacity: class_slot) and holds it from its
-    # first H2D copy to its last D2H start, whichever thread dispatches
-    # it (transfer workers, and drain workers on the retry path): a
+    # mesh lane and a lock. A dispatch stages its class on the host
+    # first, then takes its class's slot (spec, stacked bucket count,
+    # capacity: class_slot) and holds it from its first H2D copy to its
+    # last D2H start, whichever thread dispatches it (transfer workers,
+    # and drain workers on the retry path): a
     # class meets the same streams chunk after chunk, so the graph its
     # lanes captured replays there (runtime/graphs.py keys graphs by
     # stream), and two dispatches on one stream queue one after the
@@ -1239,19 +1279,11 @@ def _stream_call(
     # get two streams. The streams come from the pool the main thread's
     # earlier runs handed back (parallel/sharded.py), and go back to it
     # when the run's workers have finished
-    slots = []
-    run_streams: list = []
-    if on_cuda:
-        for _ in range(XFER_WORKERS):
-            ss = lane_streams(mesh, fresh=True)
-            run_streams.extend(ss)
-            slots.append((threading.Lock(), ss))
-        # in handle order: a run that takes the streams an earlier run
-        # handed back gives each class the same ones again
-        slots.sort(key=lambda slot: [st.cuda_stream for st in slot[1]])
+    slots = run_slots(mesh, on_cuda)
+    run_streams = [st for _, ss in slots for st in ss]
 
     def _class_streams(key):
-        if not on_cuda:
+        if not slots:
             return contextlib.nullcontext(), [None] * mesh.size
         return slots[class_slot(key) % len(slots)]
 
@@ -1315,9 +1347,9 @@ def _stream_call(
     # dispatches a run keeps in flight
     ring_depth = prefetch_depth + drain_workers
 
-    def _mesh_put(blocks, buckets, bucket_rows, chunk, sstreams, staging, spec):
+    def _mesh_put(blocks, buckets, bucket_rows, chunk, sstreams, spec):
         """Per-lane H2D of one dispatch: each lane's block goes to its
-        device on its stream (pinned staging reused per lane,
+        device on its stream (from its pinned staging buffers,
         non-blocking; into the lane's step graph's static inputs when
         the class has one), timed per lane.
         On a 1-D multi-lane mesh each lane's window is a ``mesh_h2d``
@@ -1332,8 +1364,7 @@ def _stream_call(
         for i, lane in enumerate(mesh.devices):
             td = time.monotonic()
             with lane_context(lane, sstreams[i]):
-                args.append(put_lane(blocks[i], lane, specs[i], keep=staging[i],
-                                     depth=ring_depth))
+                args.append(put_lane(blocks[i], lane, specs[i]))
             dtd = time.monotonic() - td
             if not dev_lanes_on:
                 continue
@@ -1353,23 +1384,28 @@ def _stream_call(
 
     def dispatch(buckets, spec, chunk=None):
         """Stack + pack one class on the host (to a multiple of the data
-        lanes), then on each lane's device and stream: H2D, the fused
-        pipeline, the packed-D2H compaction and the D2H copies into
-        pinned buffers. Returns the Fetch (a MeshFetch of one per lane
-        on a multi-lane mesh) whose events close the class's device
+        lanes) straight into each lane's staging buffers, then, holding
+        the class's slot, on each lane's device and stream: H2D, the
+        fused pipeline, the packed-D2H compaction and the D2H copies
+        into pinned buffers. Returns the Fetch (a MeshFetch of one per
+        lane on a multi-lane mesh) whose events close the class's device
         work."""
         t0 = time.monotonic()
         fault_point("dispatch.device_put")
-        stacked = stack_buckets(buckets, multiple_of=n_data)
-        logical = stacked_nbytes(stacked) if tr is not None else 0
+        n_stacked = len(buckets) + (-len(buckets)) % n_data
+        # the class's slot, known without taking it: its streams key the
+        # lanes' staging rings, so the host work below runs before the
+        # slot is taken and another class's dispatch can hold it meanwhile
+        slot_lock, sstreams = _class_streams((spec, n_stacked, buckets[0].capacity))
+        logical = n_stacked * stacked_nbytes(vars(buckets[0])) if tr is not None else 0
         fault_point("dispatch.pack")
-        if spec.packed_io:
-            pack_stacked(stacked, spec)
-        blocks = lane_blocks(stacked, mesh, spec)
+        staging = [[] for _ in range(mesh.size)]
+        blocks = stage_lanes(buckets, mesh, spec, streams=sstreams, keep=staging,
+                             depth=ring_depth)
+        t_stage = time.monotonic() - t0
         # the bytes that cross the wire: every lane's block (a cycle
         # mesh ships each data block's non-cycle arrays to every lane)
         h2d = sum(v.nbytes for blk in blocks for v in blk.values())
-        n_stacked = int(stacked["pos"].shape[0])
         rows_pad = n_stacked * buckets[0].capacity
         bucket_rows = [int(bk.valid.sum()) for bk in buckets]
         rows_real = sum(bucket_rows)
@@ -1395,9 +1431,9 @@ def _stream_call(
         # the class's streams, held from its first H2D copy to its last
         # D2H start: a class always meets the same streams, and so its
         # graphs (runtime/graphs.py), whichever thread dispatches it
-        slot_lock, sstreams = _class_streams((spec, n_stacked, buckets[0].capacity))
+        t_wait = time.monotonic()
         with slot_lock:
-            staging = [[] for _ in range(mesh.size)]
+            t_held = time.monotonic()
             spans = []
             for i, lane in enumerate(mesh.devices):
                 ev0 = None
@@ -1407,9 +1443,8 @@ def _stream_call(
                         ev0 = torch.cuda.Event(enable_timing=True)
                         ev0.record()
                 spans.append(ev0)
-            t_pre = time.monotonic() - t0  # stack + pack, "dispatch"
-            args, dev_stats = _mesh_put(blocks, buckets, bucket_rows, chunk, sstreams, staging,
-                                        spec)
+            t_pre = time.monotonic() - t0  # stack + pack + slot wait, "dispatch"
+            args, dev_stats = _mesh_put(blocks, buckets, bucket_rows, chunk, sstreams, spec)
             del blocks
             t0b = time.monotonic() if dev_lanes_on else t0
             t_pipe = time.monotonic()
@@ -1460,7 +1495,14 @@ def _stream_call(
                         f.span = (spans[i], ev1)
                 fetches.append(f)
             del outs
+            t_free = time.monotonic()
         out = fetches[0] if mesh.size == 1 else MeshFetch(fetches, mesh)
+        with _DISPATCH_LOCK:
+            _DISPATCH_STATS["dispatches"] += 1
+            _DISPATCH_STATS["lanes"] += mesh.size
+            _DISPATCH_STATS["stage_s"] += t_stage
+            _DISPATCH_STATS["slot_wait_s"] += t_held - t_wait
+            _DISPATCH_STATS["slot_held_s"] += t_free - t_held
         dt_post = time.monotonic() - t0b
         # dispatch busy time excludes the per-lane put loop on a 1-D
         # multi-lane mesh: the "mesh_h2d" stage owns it there

@@ -378,12 +378,12 @@ def race_ssc_methods(
     blockseg_t, step_s, reads_per_sec}}, "winner", "winner_method"}``."""
     import torch
 
-    from duplexumiconsensusreads_torch.bucketing import stack_buckets
     from duplexumiconsensusreads_torch.parallel.mesh import run_mesh
     from duplexumiconsensusreads_torch.parallel.sharded import (
         lane_streams,
         presharded_pipeline,
-        shard_stacked,
+        put_lanes,
+        stage_lanes,
     )
     from duplexumiconsensusreads_torch.runtime.executor import (
         partition_buckets,
@@ -416,8 +416,8 @@ def race_ssc_methods(
             part = partition_buckets(buckets, gp, cp, method, blockseg_t=t,
                                      device=mesh.devices[0])
             classes = [
-                (cspec, shard_stacked(stack_buckets(cb, multiple_of=mesh.n_data), mesh,
-                                      cspec, streams=streams))
+                (cspec, put_lanes(stage_lanes(cb, mesh, cspec, streams=streams), mesh, cspec,
+                                  streams=streams))
                 for cb, cspec in part
             ]
 

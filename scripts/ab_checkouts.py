@@ -26,15 +26,17 @@ on the device:
 With ``--mesh`` each turn also runs the mesh: every card a data lane
 (two lanes on two streams of cuda:0 on a one-card machine; two CPU
 lanes with ``--device cpu``). After one untimed whole-file call on all
-lanes, the whole-file and streaming calls run at one lane and at all
-lanes (their bytes held to the default run's), and
+lanes, the whole-file call and three streaming calls (the first and
+the third timed) run at one lane and at all lanes (their bytes held to
+the default run's; the summary adds each turn's one-lane over all-lane
+ratio), and
 a class of up to ``MESH_STEP_BUCKETS`` buckets (the largest of the
 input) is put on the lanes once and its fused step timed at one lane
 and at all lanes, in turns, every card synchronized after the reps,
 with each lane's host enqueue (the lanes' ``presharded_pipeline`` call
 over the lane count); then that class staged at all lanes as the
-stream dispatches it, each part's host ms (staging and H2D, the step,
-the packed compaction and D2H start). Both warm up twice, since a
+stream dispatches it, each part's host ms (stack, pack, staging and
+H2D; the step; the packed compaction and D2H start). Both warm up twice, since a
 checkout with CUDA graphs captures a class at its second sight. The
 streaming call runs traced, and each turn reports its wire floor
 (``telemetry/ledger.py:wire_floor``).
@@ -193,12 +195,19 @@ if os.environ.get("AB_MESH") == "1":
         call_consensus_file(in_bam, path, gp, cp, capacity=2048, device=device, n_devices=n)
         out[f"mesh_whole_s_{n}"] = time.monotonic() - t0
         out[f"mesh_whole_identical_{n}"] = digest(path) == out["whole_file_sha256"]
-        path = os.path.join(td, f"stream{n}.bam")
-        t0 = time.monotonic()
-        stream_call_consensus(in_bam, path, gp, cp, capacity=2048, chunk_reads=chunk_reads,
-                              device=device, n_devices=n)
-        out[f"mesh_stream_s_{n}"] = time.monotonic() - t0
-        out[f"mesh_stream_identical_{n}"] = digest(path) == out["stream_sha256"]
+        # three runs at this lane count, the first and the third timed
+        # (the lanes' classes are new at the first, replayed at the third)
+        same = True
+        for r in range(3):
+            path = os.path.join(td, f"stream{n}_{r}.bam")
+            t0 = time.monotonic()
+            stream_call_consensus(in_bam, path, gp, cp, capacity=2048,
+                                  chunk_reads=chunk_reads, device=device, n_devices=n)
+            dt = time.monotonic() - t0
+            if r != 1:
+                out[f"mesh_stream{'_third' if r else ''}_s_{n}"] = dt
+            same = same and digest(path) == out["stream_sha256"]
+        out[f"mesh_stream_identical_{n}"] = same
     _, batch, _ = load_input(in_bam, duplex=True)
     buckets = build_buckets(batch, capacity=2048, grouping=gp)
     cb, spec = max(partition_buckets(buckets, gp, cp, device=device), key=lambda p: len(p[0]))
@@ -210,11 +219,21 @@ if os.environ.get("AB_MESH") == "1":
             if d.type == "cuda":
                 torch.cuda.synchronize(d)
 
+    def put_class(m, ss, keep=None):
+        # the class on the mesh's lanes, as the checkout's dispatch puts
+        # it: staged straight into the lanes' pinned buffers where it can
+        if hasattr(sharded, "stage_lanes"):
+            blocks = sharded.stage_lanes(cb, m, spec, streams=ss, keep=keep)
+            return sharded.put_lanes(blocks, m, spec, streams=ss)
+        stacked = stack_buckets(cb, multiple_of=m.n_data)
+        if spec.packed_io:
+            pipeline.pack_stacked(stacked, spec)
+        return sharded.shard_stacked(stacked, m, spec, streams=ss, keep=keep)
+
     for n in (1, lanes, 1, lanes):
         m = mesh_mod.run_mesh(device, n)
-        stacked = stack_buckets(cb, multiple_of=m.n_data)
         ss = sharded.lane_streams(m)
-        args = sharded.shard_stacked(stacked, m, spec, streams=ss)
+        args = put_class(m, ss)
         enq = []
         def step():
             t = time.perf_counter()
@@ -239,19 +258,19 @@ if os.environ.get("AB_MESH") == "1":
             out[f"mesh_{k}_{n}"] = sum(out[f"mesh_{k}_{n}"]) / 2
     # the class staged at all lanes as the stream dispatches it, the host
     # time of each part (ms, median of the dispatches after two warm-ups):
-    # staging and H2D, the step, the packed compaction and D2H start
+    # stack, pack, staging and H2D, the step, the packed compaction and
+    # D2H start
     import statistics
     from duplexumiconsensusreads_torch.runtime.executor import (
         PACKED_FETCH_KEYS, d2h_k_pad, fetch_outputs, pack_fetch_outputs, start_fetch)
     m = mesh_mod.run_mesh(device, lanes)
     ss = sharded.lane_streams(m)
-    stacked = stack_buckets(cb, multiple_of=m.n_data)
     k_pad = d2h_k_pad(cb, spec, m.n_data)
     split = {"staging": [], "pipeline": [], "fetch": []}
     for rep in range(reps + 2):
         staging = [[] for _ in range(m.size)]
         t0 = time.perf_counter()
-        args = sharded.shard_stacked(stacked, m, spec, streams=ss, keep=staging)
+        args = put_class(m, ss, keep=staging)
         t1 = time.perf_counter()
         outs = sharded.presharded_pipeline(args, spec, m, streams=ss)
         t2 = time.perf_counter()
@@ -349,7 +368,8 @@ def main(argv=None) -> int:
     if a.mesh:
         n = first["mesh_lanes"]
         summary["mesh_lanes"], summary["mesh_class"] = n, first["mesh_class"]
-        keys += tuple(f"mesh_{k}_{i}" for k in ("whole_s", "stream_s", "step_ms", "enqueue_ms")
+        keys += tuple(f"mesh_{k}_{i}" for k in ("whole_s", "stream_s", "stream_third_s",
+                                                 "step_ms", "enqueue_ms")
                       for i in (1, n))
         keys += tuple(f"mesh_split_ms_{p}" for p in ("staging", "pipeline", "fetch"))
     for label in ("other", "this"):
@@ -359,9 +379,12 @@ def main(argv=None) -> int:
         for k in ("whole_file_s", "stream_s", "stream_third_s"):
             summary[label][f"{k}_turns"] = [r[k] for r in rows]
         if a.mesh:
-            for k in ("whole_s", "stream_s", "step_ms"):
+            for k in ("whole_s", "stream_s", "stream_third_s", "step_ms"):
                 one, all_ = summary[label][f"mesh_{k}_1"], summary[label][f"mesh_{k}_{n}"]
                 summary[label][f"mesh_{k}_scaling"] = one / all_
+                # each turn's own one-lane over all-lane ratio
+                summary[label][f"mesh_{k}_scaling_turns"] = [
+                    r[f"mesh_{k}_1"] / r[f"mesh_{k}_{n}"] for r in rows]
     if a.device == "cuda":
         summary["device_name"] = first["device"]
         summary["class_shape"] = first["class_shape"]

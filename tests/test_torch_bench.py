@@ -1,7 +1,10 @@
 """The torch port's bench against the JAX package's: ``run_bucket``,
 the tuner leg, ``benchhist`` and its gate, the ``bench_history`` and
-``profile_phases --report`` tools, the profile tools' ablations, and
-the tiny bench's stdout contract in a subprocess on the CPU.
+``profile_phases --report`` tools and the profile tools' ablations.
+The slow runs of the bench and its tools on the CPU have files of their
+own, so that test workers share them: ``test_torch_bench_tiny.py``,
+``test_torch_bench_legs.py``, ``test_torch_profile_tools.py`` and
+``test_torch_ab_checkouts.py``.
 
 Tolerances are the parity bar's: integer outputs bit-identical, bases
 identical except at counted evidence ties (under 1 in 10,000 cycles),
@@ -16,7 +19,6 @@ import dataclasses
 import json
 import os
 import shutil
-import subprocess
 import sys
 
 import numpy as np
@@ -361,144 +363,3 @@ def test_profile_phase_variants_are_the_jax_tools():
     for (_, g, c), (_, wg, wc) in zip(got, want):
         assert dataclasses.asdict(g) == dataclasses.asdict(wg)
         assert dataclasses.asdict(c) == dataclasses.asdict(wc)
-
-
-@pytest.mark.parametrize("tool, labels", [
-    ("profile_components", ["full", "no_errmodel", "exact_group", "ss_mode"]),
-    ("profile_phases", ["full config5 (adj+cycle)", "no error model (adj)",
-                        "exact grouping + cycle", "exact, no error model"]),
-])
-def test_profile_tools_run_on_the_cpu_when_asked(monkeypatch, capsys, tool, labels):
-    import importlib
-
-    mod = importlib.import_module(f"duplexumiconsensusreads_torch.tools.{tool}")
-    monkeypatch.setenv("DUT_PROF_READS", "1200")
-    monkeypatch.setenv("DUT_PROF_REPS", "1")
-    assert mod.main(["--device", "cpu"]) == 0
-    lines = capsys.readouterr().out.splitlines()
-    res = json.loads(lines[-1])
-    assert res["tool"] == tool and res["device"] == "cpu" and res["ssc_method"] == "blockseg"
-    assert list(res["rows"]) == labels
-    assert all(r["step_s"] > 0 and r["reads_per_sec"] > 0 for r in res["rows"].values())
-    for label in labels:
-        assert any(ln.startswith(label) for ln in lines), label
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        mod.main([])
-
-
-# ---- the bench itself on the CPU
-
-
-TINY = dict(DUT_BENCH_READS="2500", DUT_BENCH_CPU_SAMPLE="150", DUT_BENCH_REPS="1",
-            DUT_BENCH_VEC_REPS="1", DUT_BENCH_VEC_SAMPLE="2000", DUT_BENCH_PER_CONFIG="0",
-            DUT_BENCH_E2E_READS="0")
-
-
-def test_tiny_bench_final_stdout_line_is_compact_json(tmp_path):
-    """The JAX bench's stdout contract (tests/test_bench_history.py),
-    through the port's CLI on the CPU: the last line parses, carries
-    the headline and fits the tail window; the full result rides the
-    line above and is mirrored beside the cache."""
-    env = dict(os.environ, **TINY, DUT_BENCH_CACHE=str(tmp_path / "cache"),
-               PYTHONPATH=os.pathsep.join(p for p in (REPO, os.environ.get("PYTHONPATH")) if p))
-    r = subprocess.run(
-        [sys.executable, "-m", "duplexumiconsensusreads_torch", "bench", "--device", "cpu"],
-        capture_output=True, text=True, env=env, cwd=str(tmp_path), timeout=400,
-    )
-    assert r.returncode == 0, r.stderr[-2000:]
-    lines = [ln for ln in r.stdout.splitlines() if ln.strip()]
-    assert len(lines) >= 2
-    compact = json.loads(lines[-1])
-    assert compact["metric"] == "reads_per_sec_duplex_consensus"
-    assert compact["value"] > 0 and compact["unit"] == "reads/s"
-    assert len(lines[-1]) < 1400
-    full = json.loads(lines[-2])
-    assert full["value"] == compact["value"] and "vs_baseline" in full
-    assert compact.get("full") and os.path.exists(compact["full"])
-    assert json.load(open(compact["full"])) == full
-    # no card: the MFU is scored against the table's named default
-    assert full["peak_entry"] == "default-h100-sxm-f32" and full["device"] == "cpu"
-    assert full["ssc_method"] == full["vec_cpu_ssc_method"] == "blockseg"
-    # the e2e legs are off here, the mesh A/B with them (as in the JAX
-    # bench); no leg is reported as skipped for want of a port
-    assert not [k for k in full if k.startswith("e2e_mesh")]
-    assert not [k for k in full if k.endswith("_skipped") and k != "wire_probe_skipped"]
-    assert not [k for k in full if k.startswith("serve_") and k.endswith("_skipped")]
-    # the serve and live legs ride the e2e phase, which TINY turns off
-    assert "live_follow_skipped" not in full and "serve_n_jobs_skipped" not in full
-    assert "live_follow_reads" not in full and "serve_n_jobs" not in full
-    assert "e2e_reads_per_sec" not in full and "tuner_ladder" in full
-    assert "consensus_error_rate=" in r.stderr
-
-
-def test_bench_legs_on_the_cpu(tmp_path, monkeypatch, capsys):
-    """The per-config, e2e, A/B, serve, live and CPU-denominator legs at a
-    tiny size: every key the card's run reports, and no wire probe
-    without a wire."""
-    from duplexumiconsensusreads_torch import benchmark
-
-    for k, v in dict(TINY, DUT_BENCH_PER_CONFIG="1", DUT_BENCH_CONFIG_READS="800",
-                     DUT_BENCH_CONFIG_REPS="1", DUT_BENCH_TUNER="0",
-                     DUT_BENCH_E2E_READS="2400", DUT_BENCH_E2E_AB="1600",
-                     DUT_BENCH_CPU_E2E_READS="1600", DUT_BENCH_CPU_E2E_REPS="1",
-                     DUT_BENCH_SERVE_JOBS="2", DUT_BENCH_SERVE_READS="1600",
-                     DUT_BENCH_LIVE_READS="1600", DUT_BENCH_LIVE_SLAB_S="0.01",
-                     DUT_BENCH_GATE="0", DUT_BENCH_CACHE=str(tmp_path / "c")).items():
-        monkeypatch.setenv(k, v)
-    monkeypatch.chdir(tmp_path)
-    benchmark.main(device="cpu")
-    out = capsys.readouterr().out.splitlines()
-    full = json.loads(out[-2])
-    assert sorted(full["per_config"]) == [f"config{i}" for i in range(1, 6)]
-    assert full["per_config"]["config4"]["capacity"] == 4096
-    for key in ("e2e_reads_per_sec", "e2e_wire_floor_frac_measured", "e2e_bytes_per_read",
-                "e2e_packed_speedup", "e2e_d2h_packed_speedup", "e2e_ingest_overlap",
-                "cpu_e2e_reads_per_sec", "e2e_vs_cpu_e2e", "e2e_mfu", "e2e_h2d_bits_per_cycle"):
-        assert key in full, key
-    # the CPU denominator streams the A/B legs' input, with the same params
-    # and the CPU's own fastest reduction, as every leg on the CPU does
-    assert full["cpu_e2e_reads"] == full["e2e_unpacked_reads"] < full["e2e_reads"]
-    assert full["e2e_ssc_method"] == full["cpu_e2e_ssc_method"] == "blockseg"
-    assert full["e2e_device"] == "cpu"
-    assert "wire_before_e2e" not in full and full["wire_probe_skipped"]
-    assert not any(k.endswith("_error") for k in full)
-    # serve_n_jobs and live_follow: the JAX legs' keys
-    assert full["serve_n_jobs"] == 2 and len(full["serve_job_walls_s"]) == 2
-    assert full["serve_compile_hit_rate"] == 0.5 and full["serve_amortised_speedup"] > 0
-    assert full["serve_oneshot_cold_wall_s"] > 0
-    assert full["live_follow_reads"] == full["cpu_e2e_reads"]
-    assert full["live_snapshots_published"] == full["live_follow_chunks"] >= 1
-    assert full["live_first_snapshot_latency_s"] > 0
-    for key in ("live_steady_lag_chunks", "live_poll_s", "live_wait_s", "live_trace",
-                "serve_wall_s", "serve_trace"):
-        assert key in full, key
-
-
-
-def test_ab_checkouts_compares_two_checkouts_bytes_on_the_cpu(tmp_path, capsys):
-    """scripts/ab_checkouts.py on the CPU, this checkout against a copy of
-    its port: four turns, identical whole-file and stream bytes (the @PG
-    command line included), and no device times; without a card the
-    device mode refuses."""
-    import importlib.util
-
-    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    spec = importlib.util.spec_from_file_location(
-        "ab_checkouts", os.path.join(repo, "scripts", "ab_checkouts.py"))
-    ab_checkouts = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(ab_checkouts)
-    shutil.copytree(os.path.join(repo, "duplexumiconsensusreads_torch"),
-                    tmp_path / "duplexumiconsensusreads_torch",
-                    ignore=shutil.ignore_patterns("_build", "__pycache__"))
-    out = tmp_path / "ab.json"
-    rc = ab_checkouts.main(["--other", str(tmp_path), "--reads", "4000", "--chunk-reads", "1500",
-                            "--device", "cpu", "--json", str(out)])
-    assert rc == 0
-    lines = [json.loads(x) for x in capsys.readouterr().out.splitlines()]
-    assert [x["checkout"] for x in lines[:4]] == ["other", "this", "this", "other"]
-    summary = json.load(open(out))["summary"]
-    assert summary == lines[-1] and summary["outputs_identical"]
-    assert "group_kernel_ms" not in summary["this"]
-    if not torch.cuda.is_available():
-        assert ab_checkouts.main(["--other", str(tmp_path)]) == 2

@@ -449,7 +449,7 @@ def test_static_inputs_take_the_h2d_directly(stand_in):
     _same({k: v.clone() for k, v in out.items()}, _eager(st, spec))
     # the mesh's H2D looks the graph up for each lane
     mesh = make_mesh(1, devices=[cpu])
-    (lane_args,) = sharded.shard_stacked(st, mesh, spec)
+    (lane_args,) = sharded.put_lanes(sharded.stage_lanes(cb, mesh, spec), mesh, spec)
     assert lane_args["pos"] is not static["pos"]  # the CPU stages nothing
 
 

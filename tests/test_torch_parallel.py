@@ -40,10 +40,9 @@ from duplexumiconsensusreads_tpu.runtime import executor as jax_executor
 from duplexumiconsensusreads_tpu.simulate import SimConfig, simulate_batch
 from duplexumiconsensusreads_tpu.types import ConsensusParams as JC
 from duplexumiconsensusreads_tpu.types import GroupingParams as JG
-from duplexumiconsensusreads_torch.bucketing import build_buckets, stack_buckets
+from duplexumiconsensusreads_torch.bucketing import build_buckets, pad_buckets, stack_buckets
 from duplexumiconsensusreads_torch.ops.pipeline import (
     _decode_packed,
-    pack_stacked,
     qual_alphabet,
     spec_for_buckets,
     subbyte_qbits_for,
@@ -51,14 +50,14 @@ from duplexumiconsensusreads_torch.ops.pipeline import (
 from duplexumiconsensusreads_torch.parallel import (
     make_mesh,
     presharded_pipeline,
-    shard_stacked,
+    put_lanes,
     sharded_pipeline,
+    stage_lanes,
 )
 from duplexumiconsensusreads_torch.parallel.mesh import CPU_LANES, device_pool
 from duplexumiconsensusreads_torch.parallel.sharded import (
     cycle_bounds,
     gather_outputs,
-    lane_blocks,
     lane_specs,
 )
 from duplexumiconsensusreads_torch.runtime import executor
@@ -85,8 +84,7 @@ def work():
 
 
 def _run(buckets, spec, mesh):
-    stacked = stack_buckets(buckets, multiple_of=mesh.n_data)
-    return gather_outputs(sharded_pipeline(stacked, spec, mesh), mesh)
+    return gather_outputs(sharded_pipeline(buckets, spec, mesh), mesh)
 
 
 def _assert_identical(ref, out, n):
@@ -177,10 +175,9 @@ def test_packed_cycle_lanes_decode_to_the_cycle_slices(rung):
     assert (qbits is not None) == (rung == "subbyte")
     spec = spec_for_buckets(buckets, GP, CP, packed_io=True, packed_qbits=qbits, qual_lut=lut)
     plain = stack_buckets(buckets, multiple_of=2)
-    packed = pack_stacked(stack_buckets(buckets, multiple_of=2), spec)
     mesh = make_mesh(4, cycle_shards=2, devices=[CPU] * 4)
     bounds = cycle_bounds(150, 2)
-    for i, (blk, lspec) in enumerate(zip(lane_blocks(packed, mesh, spec), lane_specs(spec, mesh))):
+    for i, (blk, lspec) in enumerate(zip(stage_lanes(buckets, mesh, spec), lane_specs(spec, mesh))):
         d, (l0, l1) = divmod(i, 2)[0], bounds[i % 2]
         per = plain["pos"].shape[0] // 2
         t = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in blk.items()}
@@ -206,9 +203,8 @@ def test_subbyte_cycle_mesh_pipeline_identical():
 
 
 def _run_packed(buckets, spec, mesh):
-    stacked = pack_stacked(stack_buckets(buckets, multiple_of=mesh.n_data), spec)
-    return gather_outputs(presharded_pipeline(shard_stacked(stacked, mesh, spec), spec, mesh),
-                          mesh)
+    args = put_lanes(stage_lanes(buckets, mesh, spec), mesh, spec)
+    return gather_outputs(presharded_pipeline(args, spec, mesh), mesh)
 
 
 def _jax_workload():
@@ -273,9 +269,8 @@ def packed_case(work):
     _, _, buckets, spec = work
     spec = dataclasses.replace(spec, consensus=ConsensusParams(mode="duplex"))
     mesh = make_mesh(2, devices=[CPU] * 2)
-    stacked = stack_buckets(buckets, multiple_of=2)
-    lanes = sharded_pipeline(stacked, spec, mesh)
-    whole = sharded_pipeline(stacked, spec, make_mesh(1, devices=[CPU]))[0]
+    lanes = sharded_pipeline(buckets, spec, mesh)
+    whole = sharded_pipeline(pad_buckets(buckets, 2), spec, make_mesh(1, devices=[CPU]))[0]
     k_pad = executor.d2h_k_pad(buckets, spec, 2)
     return buckets, spec, mesh, lanes, whole, k_pad
 
