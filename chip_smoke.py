@@ -64,17 +64,15 @@ line:
           tolerance 0 (seed, mid_of_slot, n_mol): at the stages rerun's
           slot table and on synthetic tables (position groups, groups
           within Hamming 1, chains up and down, one group past the
-          kernel's list, unsorted positions, two-word UMIs, count
-          ratio 0, u 16384 with the table in global memory);
+          kernel's list at u 512 and 2048, unsorted positions, two-,
+          three- and four-word UMIs, count ratio 0, u 16384 with the
+          table in global memory, and groups of exactly 31, 32, 33 and
+          512 slots at the main class's 280 buckets of 512); the main
+          table's group sizes and in-group pairs a bucket, and the
+          kernel's occupancy (blocks an SM, one wave, or it fails);
           group_kernel's peak device memory above its inputs, kernel
           and plain, against one (N, U, U) bool grid; the kernel, plain
           and bound ms
-  fixpoint  the fixpoint kernel alone (off the main path) vs its plain
-          version at tolerance 0: at the edges the plain edge build
-          gives the stages rerun's table and on synthetic worst cases
-          at u 2048 (chains through all slots both ways, empty,
-          all-invalid, dense past the kernel's list, unsorted
-          positions); the kernel, plain and bound ms
   kernel  each kernel vs its plain version on random inputs and on the
           main path's real inputs (those of the stages rerun, whose ids
           must equal the e2e run's), and at the per-base shape (the
@@ -293,8 +291,7 @@ capture left. A kernel wrapper called inside a capture is kept by the
 phases' keepers as an eager call is (see :func:`capturing`), so the
 kernels are held at the shapes the graphs run them at. Then the nvidia-smi line, the ``kernels``
 JSON line (one row per kernel with its launches per path and its
-mesh path's launches per lane, the fixpoint kernel's row too, with its
-count of 0 on every path; under
+mesh path's launches per lane; under
 segment_gemm a ``rung_shapes`` sub-row with the kernel, plain,
 library and bound ms at each explicit ladder rung's largest launch,
 a ``bench_shapes`` sub-row with the same at the bench phase's
@@ -382,8 +379,7 @@ def emit(phase: str, **fields) -> None:
 
 
 # the kernels every main path must launch: the ssc reduction and
-# grouping's directional cluster. Grouping no longer calls the fixpoint
-# kernel alone; it stays in kernel_wrappers, held in its own phase
+# grouping's directional cluster
 PATH_KERNELS = ("segment_gemm", "directional_cluster")
 
 
@@ -412,8 +408,7 @@ def kernel_wrappers() -> dict:
     from duplexumiconsensusreads_torch.kernels import cluster_fixpoint, segment_gemm
 
     return {"segment_gemm": segment_gemm.segment_gemm,
-            "directional_cluster": cluster_fixpoint.directional_cluster,
-            "cluster_fixpoint": cluster_fixpoint.propagate_min}
+            "directional_cluster": cluster_fixpoint.directional_cluster}
 
 
 def path_launched(counts: dict) -> bool:
@@ -556,14 +551,24 @@ def read_bytes(path: str) -> bytes:
         return f.read()
 
 
-def cuda_ms(fn, reps: int) -> float:
+def cuda_ms(fn, reps: int, queue_ahead: bool = False) -> float:
     """Mean device time of ``fn`` over ``reps`` calls (CUDA events,
-    after one warm-up call)."""
+    after one warm-up call). With ``queue_ahead`` the card first spins
+    (``torch.cuda._sleep``) for ten times the host time of the calls,
+    so the host has queued them all before the first one runs: a call
+    whose host work outlasts its kernel is then timed by the device
+    alone."""
     import torch
 
     fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    if queue_ahead:
+        t0 = time.perf_counter()
+        fn()
+        host_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        torch.cuda._sleep(int(10 * reps * host_s * 2e9))  # cycles, at up to 2 GHz
     start.record()
     for _ in range(reps):
         fn()
@@ -831,7 +836,7 @@ def mesh_only(smi: str) -> int:
            "replaces": "duplexumiconsensusreads_tpu/kernels/grouping.py:160", "max_abs_err": 0,
            "launches": {"mesh": launches[name], "dryrun": dry[name]},
            "mesh_lane_launches": lanes[name]}
-          for name in ("directional_cluster", "cluster_fixpoint")),
+          for name in ("directional_cluster",)),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
@@ -861,7 +866,6 @@ def main(argv=None) -> int:
     from duplexumiconsensusreads_torch.cli.main import params_for
     from duplexumiconsensusreads_torch.io import bgzf, native_reader, read_bam, simulated_bam
     from duplexumiconsensusreads_torch.kernels import build, consensus, grouping
-    from duplexumiconsensusreads_torch.kernels import cluster_fixpoint as cf
     from duplexumiconsensusreads_torch.kernels import segment_gemm as sg
     from duplexumiconsensusreads_torch.ops import pipeline
     from duplexumiconsensusreads_torch.runtime.executor import call_consensus_file
@@ -1022,12 +1026,7 @@ def main(argv=None) -> int:
     graphs_phase(full, spec, smi)
     # ---- cluster: the directional cluster kernel vs its plain version
     cluster_row = cluster_phase(cluster_args, group_args, smi)
-    del group_args
-    # ---- fixpoint: the fixpoint kernel vs its plain version, on the
-    # edge grid and start keys the plain edge build gives that table
-    edge, s0 = cf.cluster_edges_plain(*cluster_args)
-    fix_row = fixpoint_phase(edge, s0, cluster_args[1], smi)
-    del cluster_args, edge, s0
+    del group_args, cluster_args
 
     # ---- kernel: segment_gemm vs its plain version
     kernel_rows = []
@@ -1173,8 +1172,7 @@ def main(argv=None) -> int:
     paths = ("whole_file", "stream", "per_base", "workflow", "operators", "live", "serve",
              "shard", "multihost", "mesh", "ladder", "race", "bench", "fleet", "fit_counts",
              "chaos", "entry", "dryrun", "features")
-    for row, name in ((seg_row, "segment_gemm"), (cluster_row, "directional_cluster"),
-                      (fix_row, "cluster_fixpoint")):
+    for row, name in ((seg_row, "segment_gemm"), (cluster_row, "directional_cluster")):
         row["launches"] = {k: launches[k][name] for k in paths}
         # the mesh path's launches on each lane
         row["mesh_lane_launches"] = launches["mesh_lanes"][name]
@@ -1190,7 +1188,7 @@ def main(argv=None) -> int:
          path_pools=PATH_POOLS, dispatch=PATH_DISPATCH, nvidia_smi=smi)
 
     print(smi, flush=True)
-    print(json.dumps({"kernels": [seg_row, cluster_row, fix_row]}), flush=True)
+    print(json.dumps({"kernels": [seg_row, cluster_row]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)
@@ -1302,130 +1300,33 @@ def kernel_times(sg, big, fid, f_max: int, plain_reps: int, lib_reps: int) -> di
 
 
 I32_MAX = 2**31 - 1
-# synthetic fixpoint graphs (fixpoint_case) held at the widest table
-FIXPOINT_KINDS = ("groups", "chain_up", "chain_down", "empty", "all_invalid", "dense",
-                  "unsorted")
-FIXPOINT_U, FIXPOINT_N = 2048, 4
-
-
-def fixpoint_case(kind: str, n: int, u: int, rng):
-    """(edge, s0, u_pos) numpy for n buckets of u slots: position groups
-    in ascending slot order (shuffled for "unsorted"), invalid slots at
-    the tail, edges only within a group, s0 = rank * u + slot. The
-    chains run through all u slots of one group, starting at their least
-    key: slot 0 climbing ("chain_up"), or the last slot walking down one
-    slot per ascending sweep ("chain_down", u sweeps); "dense" joins
-    every pair of one u-slot group (more edges than the kernel's list
-    holds)."""
-    import numpy as np
-
-    edge = np.zeros((n, u, u), bool)
-    u_pos = np.full((n, u), I32_MAX, np.int32)
-    rank = np.full((n, u), u, np.int64)
-    for b in range(n):
-        n_valid = 0 if kind == "all_invalid" else int(rng.integers(u // 2, u + 1))
-        if kind in ("chain_up", "chain_down", "dense"):
-            n_valid, sizes = u, [u]
-        else:
-            sizes = []
-            while sum(sizes) < n_valid:
-                sizes.append(int(min(rng.integers(1, 65), n_valid - sum(sizes))))
-        pos = np.repeat(np.arange(len(sizes), dtype=np.int32) * 3, sizes)
-        if kind == "unsorted":
-            pos = rng.permutation(pos)
-        u_pos[b, :n_valid] = pos
-        rank[b, :n_valid] = rng.permutation(n_valid)
-        same = u_pos[b, :, None] == u_pos[b, None, :]
-        if kind in ("groups", "unsorted"):
-            edge[b] = same & (rng.random((u, u)) < 0.05)
-        elif kind == "dense":
-            edge[b] = same
-        elif kind in ("chain_up", "chain_down"):
-            k = np.arange(u - 1)
-            up = kind == "chain_up"
-            edge[b, k + (0 if up else 1), k + (1 if up else 0)] = True
-            rank[b] = np.arange(u) if up else np.arange(u)[::-1]
-        valid = u_pos[b] != I32_MAX
-        edge[b] &= ~np.eye(u, dtype=bool) & valid[:, None] & valid[None, :]
-    s0 = (rank * u + np.arange(u)).astype(np.int32)
-    return edge, s0, u_pos
-
-
-def fixpoint_phase(edge, s0, u_pos, smi: str) -> dict:
-    """The fixpoint kernel (propagate_min, off the main path since grouping
-    calls directional_cluster) against its plain version (tolerance 0)
-    at the edge grid and start keys that the plain edge build gives the
-    main path's table (the largest class of the stages rerun) and on the
-    synthetic worst cases at u = FIXPOINT_U ("dense" has more edges than
-    the kernel's list holds, so it takes the edge-grid sweeps); then the
-    kernel's, the plain version's and the bound's times at the main
-    path's edges. Returns the kernels line's row (launches filled in
-    later: its count on every path, 0)."""
-    import numpy as np
-    import torch
-
-    from duplexumiconsensusreads_torch.kernels import cluster_fixpoint as cf
-
-    cases = []
-
-    def hold(name, e, s, p):
-        t0 = time.monotonic()
-        got = cf.propagate_min(e, s, p)
-        torch.cuda.synchronize()
-        k_s = time.monotonic() - t0
-        want = cf.propagate_min_plain(e, s, p)
-        err = (got.long() - want.long()).abs().max().item()
-        if not torch.equal(got, want):
-            raise AssertionError(f"cluster_fixpoint {name}: max abs err {err} (tolerance 0)")
-        cases.append({"case": name, "shape": list(e.shape), "edges": int(e.sum()),
-                      "max_abs_err": err, "tolerance": 0, "kernel_wall_s": round(k_s, 6)})
-
-    hold("main_path_table", edge, s0, u_pos)
-    rng = np.random.default_rng(0)
-    for kind in FIXPOINT_KINDS:
-        e, s, p = (torch.from_numpy(a).cuda() for a in
-                   fixpoint_case(kind, FIXPOINT_N, FIXPOINT_U, rng))
-        hold(f"synthetic_{kind}_u{FIXPOINT_U}", e, s, p)
-        del e, s, p
-    # the bound counts what these inputs need: every in-group entry of
-    # edge among valid slots once, s0 and u_pos in, s out
-    valid = u_pos != I32_MAX
-    in_group = int(((u_pos[:, :, None] == u_pos[:, None, :]) & valid[:, :, None]).sum())
-    need_bytes = in_group + 3 * s0.numel() * 4
-    bytes_ms = need_bytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = in_group / F32_FLOPS * 1e3
-    k_ms = cuda_ms(lambda: cf.propagate_min(edge, s0, u_pos), reps=20)
-    plain_ms = cuda_ms(lambda: cf.propagate_min_plain(edge, s0, u_pos), reps=3)
-    times = {"kernel_ms": k_ms, "plain_ms": plain_ms,
-             "bound_ms": max(bytes_ms, ops_ms), "bytes_bound_ms": bytes_ms,
-             "ops_bound_ms": ops_ms, "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-             "bound_fraction": max(bytes_ms, ops_ms) / k_ms, "in_group_entries": in_group,
-             "edges": int(edge.sum()), "grid_entries": edge.numel(), "bytes_needed": need_bytes}
-    emit("fixpoint", name="cluster_fixpoint", shape=list(edge.shape), cases=cases, **times,
-         library_call=None, nvidia_smi=smi)
-    return {"name": "cluster_fixpoint", "route": "cuda",
-            "source": "duplexumiconsensusreads_torch/csrc/cluster_fixpoint.cu",
-            "replaces": "duplexumiconsensusreads_tpu/kernels/grouping.py:160",
-            "note": "no Pallas kernel: the port's counterpart of the lax.while_loop there; "
-                    "off the main path since grouping calls directional_cluster",
-            "on_main_path": False,
-            "max_abs_err": max(c["max_abs_err"] for c in cases), "ms": k_ms,
-            "plain_ms": plain_ms, "bound_ms": times["bound_ms"], "bound_by": times["bound_by"],
-            "library_ms": None, "shape": list(edge.shape)}
-
-
 # synthetic slot tables (cluster_case) held by the cluster phase:
-# (kind, buckets, u, UMI length, max_hamming, count_ratio)
+# (cluster_case kind[:what the case adds], buckets, u, UMI length,
+# max_hamming, count_ratio). The sizeN kinds are position groups of
+# exactly N slots, at the main class's 280 buckets of 512: a warp's
+# 32 candidates and one past (31-33), and one group of all 512 slots;
+# "dense" at u 512 overflows the list and sweeps over the kept edge
+# masks, at u 2048 over the edge test (its masks do not fit either);
+# "unsorted" and "reversed" are not strictly sorted by (pos, words), so
+# their ids take the kernel's pair passes
 CLUSTER_CASES = (
     ("groups", 4, 2048, 12, 1, 2),
     ("hamming1_groups", 4, 2048, 12, 1, 2),
     ("chain_up", 4, 2048, 12, 1, 1),
     ("chain_down", 4, 2048, 18, 1, 1),
+    ("dense", 4, 512, 12, 12, 0),
     ("dense", 2, 2048, 12, 12, 0),
     ("unsorted", 4, 2048, 12, 1, 2),
-    ("groups_w2", 4, 2048, 18, 2, 2),
-    ("groups_ratio0", 4, 2048, 12, 1, 0),
-    ("groups_global_table", 2, 16384, 12, 1, 2),
+    ("reversed", 4, 2048, 12, 1, 2),
+    ("groups:w2", 4, 2048, 18, 2, 2),
+    ("groups:w3", 4, 2048, 36, 2, 2),
+    ("groups:w4", 2, 512, 48, 3, 2),
+    ("groups:ratio0", 4, 2048, 12, 1, 0),
+    ("groups:global_table", 2, 16384, 12, 1, 2),
+    ("size31", 280, 512, 12, 1, 2),
+    ("size32", 280, 512, 12, 1, 2),
+    ("size33", 280, 512, 12, 1, 2),
+    ("size512", 280, 512, 12, 1, 2),
 )
 # an int32 operation's rate on the H100 SXM outside the tensor cores:
 # 64 INT32 lanes a SM x 132 SMs x 1.98 GHz boost (the Hopper white
@@ -1462,15 +1363,21 @@ def cluster_case(kind: str, n: int, u: int, umi_len: int, rng):
     apart) with counts falling two a link, so with count_ratio 1 each
     link points one way, the seed at a group's first slot or, down, its
     last; "dense": one group of every slot; "unsorted": "groups" with
-    all u slots shuffled."""
+    all u slots shuffled; "reversed": "groups" with each group in
+    falling word order (positions sorted, words not); "sizeN": "groups" of exactly N slots each (a
+    few more true UMIs the larger N), int(0.85 u) // N of them, or one
+    of all u slots where N > 0.85 u."""
     import numpy as np
     import torch
 
     from duplexumiconsensusreads_torch.kernels.encoding import pack_umi_words
 
+    fixed = int(kind[4:]) if kind.startswith("size") else 0
     out = []
     for _ in range(n):
         n_valid = max(1, int(u * 0.85)) if kind != "dense" else u
+        if fixed:
+            n_valid = min(u, max(fixed, n_valid // fixed * fixed))
         codes, cnts, poss = [], [], []
         g = 0
         while len(codes) < n_valid:
@@ -1491,8 +1398,8 @@ def cluster_case(kind: str, n: int, u: int, umi_len: int, rng):
                 if kind == "chain_down":
                     c = c[::-1]
             else:
-                size = int(min(rng.integers(1, 41), room))
-                true = rng.integers(0, 4, (int(rng.integers(1, 4)), umi_len))
+                size = int(min(fixed or rng.integers(1, 41), room))
+                true = rng.integers(0, 4, (int(rng.integers(1, 4)) + fixed // 32, umi_len))
                 seen = {tuple(t): int(rng.integers(5, 40)) for t in true}
                 while len(seen) < size:
                     t = true[int(rng.integers(0, len(true)))].copy()
@@ -1510,6 +1417,9 @@ def cluster_case(kind: str, n: int, u: int, umi_len: int, rng):
         cnt = np.asarray(cnts, np.int32)
         if kind in ("chain_up", "chain_down"):  # each chain in its own order
             order = np.argsort(pos, kind="stable")
+        elif kind == "reversed":  # each group in falling word order
+            order = np.lexsort(tuple(-words[:, i] for i in range(words.shape[1] - 1, -1, -1))
+                               + (pos,))
         else:
             order = np.lexsort(tuple(words[:, i] for i in range(words.shape[1] - 1, -1, -1))
                                + (pos,))
@@ -1544,21 +1454,31 @@ def cluster_bound(u_words, u_pos, seed, n_edges: int) -> dict:
     a group's slots share their position."""
     import torch
 
+    import statistics
+
     n, u, w = u_words.shape
     pairs = mol_pairs = n_valid = 0
+    sizes, bucket_pairs = [], []
     for b in range(n):
         valid = u_pos[b] != I32_MAX
         p, s = u_pos[b][valid], seed[b][valid]
         n_valid += int(valid.sum())
         _, size = torch.unique(p, return_counts=True)
-        pairs += int((size.long() * (size.long() - 1) // 2).sum())
+        sizes += size.tolist()
+        bucket_pairs.append(int((size.long() * (size.long() - 1) // 2).sum()))
+        pairs += bucket_pairs[-1]
         _, m = torch.unique(torch.unique(torch.stack([p, s]), dim=1)[0], return_counts=True)
         mol_pairs += int((m.long() * (m.long() - 1) // 2).sum())
     need_bytes = n * u * (w + 2) * 4 + 2 * n * u * 4 + n * 4
     ops = pairs * (6 * w + 4) + mol_pairs * (w + 1) + n_edges + 3 * n_valid
     bytes_ms = need_bytes / HBM_BYTES_PER_S * 1e3
     ops_ms = ops / I32_OPS * 1e3
-    return {"in_group_pairs": pairs, "molecule_pairs": mol_pairs, "edges": n_edges,
+    return {"in_group_pairs": pairs,
+            "group_size": {"max": max(sizes, default=0),
+                           "median": statistics.median(sizes or [0]), "groups": len(sizes)},
+            "in_group_pairs_per_bucket": {"max": max(bucket_pairs, default=0),
+                                          "median": statistics.median(bucket_pairs or [0])},
+            "molecule_pairs": mol_pairs, "edges": n_edges,
             "valid_slots": n_valid, "bytes_needed": need_bytes, "operations": ops,
             "bytes_bound_ms": bytes_ms, "ops_bound_ms": ops_ms,
             "bound_ms": max(bytes_ms, ops_ms),
@@ -1620,9 +1540,9 @@ def cluster_phase(table, group_args, smi: str) -> dict:
         if not all(torch.equal(a, b) for a, b in zip(got, want)):
             raise AssertionError(f"directional_cluster {name}: max abs err {err} (tolerance 0)")
         n, u, w = tab[0].shape
-        in_smem, cap = cf.cluster_plan(u, w)
+        in_smem, scratch = cf.cluster_plan(u, w)
         cases.append({"case": name, "shape": [n, u, w], "max_hamming": tab[4],
-                      "count_ratio": tab[5], "table_in_smem": in_smem, "list_cap": cap,
+                      "count_ratio": tab[5], "table_in_smem": in_smem, "scratch_bytes": scratch,
                       "n_mol": want[2].tolist()[:4], "max_abs_err": err, "tolerance": 0,
                       "kernel_wall_s": round(k_s, 6)})
         del got, want
@@ -1631,9 +1551,9 @@ def cluster_phase(table, group_args, smi: str) -> dict:
     hold("real_main_path", table)
     rng = np.random.default_rng(0)
     for kind, n, u, umi_len, h, r in CLUSTER_CASES:
-        base = kind.split("_w2")[0].split("_ratio0")[0].split("_global")[0]
-        arrays = (torch.from_numpy(a).cuda() for a in cluster_case(base, n, u, umi_len, rng)[1:])
-        hold(f"synthetic_{kind}_u{u}", (*arrays, umi_len, h, r))
+        arrays = (torch.from_numpy(a).cuda()
+                  for a in cluster_case(kind.split(":")[0], n, u, umi_len, rng)[1:])
+        hold(f"synthetic_{kind.replace(':', '_')}_u{u}", (*arrays, umi_len, h, r))
     # group_kernel's largest tensor and device memory above its inputs,
     # kernel and plain
     args, kw = group_args
@@ -1659,11 +1579,28 @@ def cluster_phase(table, group_args, smi: str) -> dict:
     n_edges = int(edge.sum())
     del edge
     bound = cluster_bound(table[0], table[1], cf.directional_cluster_plain(*table)[0], n_edges)
-    k_ms = cuda_ms(lambda: cf.directional_cluster(*table), reps=20)
+    # the kernel's device time (the launches queued ahead: the wrapper's
+    # host work outlasts the kernel), and back to back as a caller sees
+    # it outside a CUDA graph
+    k_ms = cuda_ms(lambda: cf.directional_cluster(*table), reps=20, queue_ahead=True)
+    call_ms = cuda_ms(lambda: cf.directional_cluster(*table), reps=20)
     plain_ms = cuda_ms(lambda: cf.directional_cluster_plain(*table), reps=3)
-    times = {"kernel_ms": k_ms, "plain_ms": plain_ms, **bound,
+    times = {"kernel_ms": k_ms, "call_ms": call_ms, "plain_ms": plain_ms, **bound,
              "bound_fraction": bound["bound_ms"] / k_ms}
+    # every bucket of the class resident at once: blocks an SM (CUDA's
+    # occupancy query) times SMs against the class's buckets
+    w = table[0].shape[2]
+    per_sm = cf.cluster_blocks_per_sm(u, w)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    in_smem, scratch = cf.cluster_plan(u, w)
+    occupancy = {"threads_per_block": cf.THREADS, "blocks_per_sm": per_sm, "sms": sms,
+                 "buckets": n, "waves": -(-n // max(1, per_sm * sms)),
+                 "shared_memory_bytes": cf.cluster_smem_bytes(u, w, in_smem, scratch)}
+    if occupancy["waves"] != 1:
+        raise AssertionError(f"directional_cluster takes {occupancy['waves']} waves at the "
+                             f"main class: {occupancy}")
     emit("cluster", name="directional_cluster", shape=list(table[0].shape),
+         occupancy=occupancy,
          umi_len=table[3], max_hamming=table[4], count_ratio=table[5], cases=cases, **times,
          group_kernel_peak_bytes_above_inputs=peak, nuu_elements=n * u * u,
          group_kernel_largest_tensor={k: {"elements": v[0], "shape": v[1]}
@@ -1676,7 +1613,8 @@ def cluster_phase(table, group_args, smi: str) -> dict:
                     "and group_kernel's molecule-rank block (:173), in one launch",
             "max_abs_err": max(c["max_abs_err"] for c in cases), "ms": k_ms,
             "plain_ms": plain_ms, "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
-            "library_ms": None, "shape": list(table[0].shape)}
+            "library_ms": None, "shape": list(table[0].shape),
+            "bound_fraction": times["bound_fraction"]}
 
 
 def sync_debug_phase(group_args, full, spec, smi: str) -> None:
@@ -2891,8 +2829,7 @@ from duplexumiconsensusreads_torch.serve import daemon
 rc = daemon.main(sys.argv[2:])
 with open(sys.argv[1], "w") as f:
     json.dump({{"segment_gemm": segment_gemm.segment_gemm.launches,
-               "directional_cluster": cluster_fixpoint.directional_cluster.launches,
-               "cluster_fixpoint": cluster_fixpoint.propagate_min.launches}}, f)
+               "directional_cluster": cluster_fixpoint.directional_cluster.launches}}, f)
 with open(sys.argv[1] + ".graphs", "w") as f:
     c = graphs.read_counts()
     json.dump({{**{{k: {{m: c[k][m] for m in graphs.MODES}} for k in graphs.KINDS}},
@@ -3821,7 +3758,6 @@ rc = main(sys.argv[2:])
 with open(sys.argv[1], "w") as f:
     json.dump({{"segment_gemm": segment_gemm.segment_gemm.launches,
                "directional_cluster": cluster_fixpoint.directional_cluster.launches,
-               "cluster_fixpoint": cluster_fixpoint.propagate_min.launches,
                "wall_s": time.monotonic() - t0, "barriers": barriers}}, f)
 with open(sys.argv[1] + ".graphs", "w") as f:
     c = graphs.read_counts()

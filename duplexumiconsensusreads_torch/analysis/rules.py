@@ -2231,7 +2231,7 @@ _DEVICE_CALLS = {
     "materialize", "materialise", "fetch_outputs",
     # the port's own dispatch seams and hand-written kernel wrappers
     "fused_pipeline", "pack_fetch_outputs", "_mesh_put",
-    "segment_gemm", "propagate_min", "directional_cluster",
+    "segment_gemm", "directional_cluster",
 }
 # a callee under this prefix touches the card (synchronize, streams,
 # events, the allocator): the port's counterpart of ``jax.*``

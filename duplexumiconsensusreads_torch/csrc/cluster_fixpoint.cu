@@ -1,168 +1,131 @@
-// Directional clustering for Hopper (sm_90a): grouping's min-ancestor
-// fixpoint, and the whole directional-cluster step around it.
+// Directional clustering for Hopper (sm_90a): grouping's whole
+// directional-cluster step -- the UMI-tools edges, the count ranks, the
+// min-ancestor fixpoint and the molecule ids -- in one launch.
 //
 // It replaces no Pallas kernel. It is the port's counterpart of
 // _directional_cluster in duplexumiconsensusreads_tpu/kernels/grouping.py
 // (the lax.while_loop at :160, which sweeps s <- min(s, min over
 // in-edges) on the device until no slot changes, at most U sweeps) and of
-// the molecule-rank block of group_kernel there (:173). Two entry points:
+// the molecule-rank block of group_kernel there (:173):
 //
-//   cluster_fixpoint_i32    (kernels/cluster_fixpoint.py:propagate_min)
-//       s[b, j] = min(s0[b, j], min of s0[b, i] over every slot i that
-//                 reaches j along the directed edges edge[b, i, j])
-//       over a given (N, U, U) bool edge grid.
 //   directional_cluster_i32 (kernels/cluster_fixpoint.py:directional_cluster)
 //       the unique-UMI slot table (words, pos, count) -> each slot's seed,
 //       its molecule id and the bucket's molecule count, with the edges,
 //       the ranks and the ids built in shared memory: no (N, U, U) grid
-//       is ever written. This is what grouping runs on the card.
+//       is ever written.
 //
-// Both run every bucket of a dispatch class in ONE launch, one block per
-// bucket, and read nothing back to the host.
+// Every bucket of a dispatch class runs in ONE launch, one block per
+// bucket, and nothing is read back to the host.
 //
-// Why the fixpoint is bit-identical to the plain Jacobi loop: it is
-// unique (each slot ends at the least start key among the slots that
-// reach it, itself included), every update only lowers a key to the key
-// of a slot that reaches it, and a sweep in which no slot changed read
-// nothing but the keys it started from, so it stopped at that fixpoint.
-// So the block updates s in place (Gauss-Seidel: a sweep sees the
-// updates made earlier in it), in any order, and needs no more sweeps
-// than the Jacobi loop; the cap of U sweeps (JAX's `i < u`) therefore
-// never stops it early either.
-//
-// Where the edges live: an edge joins two slots of ONE position (the
-// edge test includes pos[i] == pos[j]), and the slots are numbered in
-// sorted (pos, UMI) order with invalid slots (position I32_MAX) at the
-// tail, so a slot's in-neighbours lie in the contiguous slot range of its
-// position group: a few percent of the U x U square on the main path.
-// Each block checks that pos is non-decreasing (one __syncthreads_and);
-// if it is, a valid slot's range [lo, hi) comes from two binary searches
-// of pos, else it is [0, U) (the full scan, exact on any input). An
-// invalid slot's range is empty.
-//
-// The shared device code (one list build, one sweep), templated on the
-// edge test:
-//   1. count each slot's in-edges over its range, thread per slot,
-//      UNROLL tests at a time so their loads overlap; one block scan
-//      turns the counts into CSR offsets.
-//   2. if the list fits its shared memory, write each slot's
-//      in-neighbours into it (i16 slot numbers) and sweep over the list:
-//      each thread owns a contiguous run of slots and visits them in
-//      ascending order, so a chain that climbs through its run settles
-//      in one sweep. Otherwise each sweep runs the edge test again over
-//      the ranges, thread per slot.
-//   3. stop when __syncthreads_or says no slot changed, or after U
-//      sweeps.
-// For cluster_fixpoint_i32 the edge test reads the grid (a warp reads 32
-// neighbouring bytes of one edge row: coalesced). For
-// directional_cluster_i32 it is the UMI-tools edge of
-// grouping.py:_directional_cluster,
+// The edge (grouping.py:_directional_cluster):
 //     i -> j  iff  i != j, pos_i == pos_j, cnt_i >= count_ratio*cnt_j - 1
 //                  and ham(i, j) <= max_hamming,
 // with ham from the 2-bit packed words (15 codes a word, the pad codes 0
 // on both sides): x = a ^ b, popc((x | x >> 1) & 0x15555555) over the W
-// words.
+// words. An edge joins two slots of ONE position, and the slots are
+// numbered in sorted (pos, UMI) order with empty slots (position
+// I32_MAX) at the tail, so a slot's in-neighbours lie in the contiguous
+// slot range [lo, hi) of its position group: about 100 slots of a
+// bucket's 512 on the main path.
 //
-// directional_cluster_i32, one block per bucket:
-//   a. load the slot table (W words, pos, count: 4 (W + 2) bytes a slot)
-//      into shared memory; where it does not fit beside the keys, the
-//      offsets and a list of MIN_LIST entries, it is read from global
-//      memory instead (L2-resident: a block reads its own 4 (W + 2) U
-//      bytes, at most 384 KB at U 16384).
-//   b. rank: rank_i = the number of valid slots j of i's range whose key
-//      (-cnt_j, words_j) is less than slot i's (grouping.py:104-106), and
-//      s0_i = rank_i * U + i; an invalid slot starts at U * U + i. The
-//      plain version ranks over the whole table, this over i's range
-//      (its position group when sorted). Both count keys strictly below
-//      key_i among a set holding every slot that can reach i, so they
-//      order any two slots of one group alike, ties included, and the
-//      least (rank, slot) over a slot's ancestors -- its seed -- is the
-//      same slot.
-//   c. the fixpoint (1-3 above); seed_i = s_i % U.
-//   d. molecule ids (group_kernel's key (pos_i, words[seed_i])):
-//      firstk_i = no earlier slot of i's range has i's key; fv_i =
-//      firstk_i for a valid slot. One block scan of fv gives its exclusive
-//      prefix P, and n_mol = P[U]. With sorted positions every slot before
-//      i's group holds a smaller key and every slot after it a larger one,
-//      so mid_i = P[lo_i] + #{j in [lo_i, hi_i): fv_j, words[seed_j] <
-//      words[seed_i]}; the full scan counts fv_j with key_j < key_i over
-//      all slots. An invalid slot's mid is I32_MAX.
+// What bounds it: the table in and seed, mid and n_mol out are a few MB
+// a class; the in-group pair tests are ~60 M int32 operations at the
+// main class (chip_smoke.py:cluster_bound), so the bound is the
+// operations at the card's int32 rate, a few microseconds. What kept the
+// first version of this kernel at 1.5 % of it was latency, not work: 256
+// threads a block each walked its two slots' groups serially five times
+// (rank, in-degree, list, first key, id), each walk behind two binary
+// searches for the group's bounds, with ~17 warps an SM to hide the
+// dependent shared-memory loads. This design:
 //
-// What bounds it (kernels/cluster_fixpoint.py, chip_smoke.py's cluster
-// phase): the table in and seed, mid and n_mol out, a few MB per class,
-// against the in-group pair tests -- integer operations -- over the
-// card's int32 rate.
+//   1. group bounds once: each slot's [lo, hi) from one pass that marks
+//      the slots starting a position group and one block scan (forward
+//      max of the starts, backward min), kept in shared memory. Unsorted
+//      positions give every valid slot [0, U) (the full scan, exact on
+//      any input); an empty slot gets an empty range.
+//   2. a warp per target slot on every pair pass: the 32 lanes test 32
+//      candidates of the slot's range at once, so a slot's serial chain
+//      is ceil(group / 32) steps, not the group's size:
+//        rank_j  = sum popc(ballot(key_i < key_j)), key (-cnt, words)
+//                  (grouping.py:104-106), over the valid slots of j's range;
+//        in-degree = sum popc(ballot(edge i -> j)), one pass with the rank;
+//        the ballots are kept as bitmasks (U x ceil(largest group / 32)
+//        words) where the block's scratch holds them, and each thread
+//        writes its slots' list entries from them, in ascending i: each
+//        pair's edge is tested once. Where the masks do not fit beside
+//        the list, a warp per slot tests the edges again and writes
+//        entry i at off[j] + popc(ballot & lanes below);
+//        first key: __any_sync over the earlier slots of j's range with
+//                  j's (pos, words[seed]);
+//        mid_j   = P[lo] + sum popc(ballot(first_i && (pos_i, words[seed_i])
+//                  < (pos_j, words[seed_j]))) over j's range, P the block's
+//                  exclusive prefix of the first-key flags (with sorted
+//                  positions every slot before j's group holds a smaller
+//                  key and every slot after it a larger one; the full
+//                  scan has lo = 0).
+//      Where the table is strictly sorted by (pos, words) -- as
+//      group_kernel builds it; the bounds pass checks it -- no pair pass
+//      is needed for the ids: a seed is a slot of its slot's group and its
+//      own seed, so the distinct keys are the self-seeded slots, in slot
+//      order, and mid_j = P[seed_j] with P the exclusive prefix of the
+//      self-seed flags.
+//   3. every bucket of the main class resident in one wave: 512 threads
+//      a block and launch bounds of four blocks an SM, with
+//      kernels/cluster_fixpoint.py:cluster_plan keeping a block's shared
+//      memory at a quarter of an SM's where the table allows: 4 x 132 =
+//      528 blocks at once, against 280 buckets.
+//   4. the fixpoint, unchanged in what it computes: start keys s0_i =
+//      rank_i * U + i (an empty slot U * U + i), then sweeps in place over
+//      the CSR in-neighbour list (i16 slot numbers), a thread per slot
+//      (only the slot's owner writes it), Gauss-Seidel, until
+//      __syncthreads_or reports no change, capped at U sweeps; seed_i =
+//      s_i % U. A bucket whose list overflows the scratch (a dense group)
+//      sweeps with a warp per slot over the kept masks, or over the edge
+//      test where the masks do not fit either.
+//
+// Why the result is bit-identical to the plain version: the fixpoint is
+// unique (each slot ends at the least start key among the slots that
+// reach it, itself included), every update only lowers a key to the key
+// of a slot that reaches it, and a sweep in which no slot changed read
+// nothing but the keys it started from, so it stopped at that fixpoint;
+// so any in-place order gives the plain Jacobi loop's keys, in no more
+// sweeps, and the cap of U sweeps (JAX's `i < u`) never stops it early.
+// The ranks over a slot's range (the plain version ranks over the whole
+// table) order any two slots of one group alike, ties included, since
+// both count keys strictly below among a set holding every slot that can
+// reach the slot, so the least (rank, slot) over a slot's ancestors -- its
+// seed -- is the same slot.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+// per-phase clock stamps of each block (scripts/cluster_phases.py): a
+// build with -DDUT_CLUSTER_PHASES has thread 0 of each block stamp
+// clock64() at the end of every phase; the default build has none
+#ifdef DUT_CLUSTER_PHASES
+constexpr int N_STAMPS = 16;  // a block's stamp row, in u64
+#define STAMP(k, v) \
+  do { if (stamps && threadIdx.x == 0) stamps[blockIdx.x * N_STAMPS + (k)] = (v); } while (0)
+#else
+#define STAMP(k, v) do { } while (0)
+#endif
+#define CLOCK_STAMP(k) STAMP(k, (unsigned long long)clock64())
+
 namespace {
 
-constexpr int THREADS = 256;
+constexpr int THREADS = 512;
 constexpr int WARPS = THREADS / 32;
-constexpr int UNROLL = 8;  // independent edge tests in flight per thread
+// the blocks an SM keeps registers for: four blocks of 512 threads fill
+// an SM's 2048, 32 registers a thread
+constexpr int MIN_BLOCKS = 4;
 constexpr int INVALID_POS = 0x7fffffff;  // u_pos of an empty table slot
-
-__device__ __forceinline__ int lower_bound(const int* a, int n, int v) {
-  int lo = 0, hi = n;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (a[mid] < v) lo = mid + 1; else hi = mid;
-  }
-  return lo;
-}
-
-__device__ __forceinline__ int upper_bound(const int* a, int n, int v) {
-  int lo = 0, hi = n;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (a[mid] <= v) lo = mid + 1; else hi = mid;
-  }
-  return lo;
-}
-
-// the slot range that can hold j's in-neighbours: none for an invalid
-// slot (position I32_MAX), else its position group's when the positions
-// are sorted, else every slot
-struct SlotRange {
-  const int* pos;
-  int u;
-  bool grouped;
-  __device__ __forceinline__ void operator()(int j, int& lo, int& hi) const {
-    const int p = pos[j];
-    if (p == INVALID_POS) {
-      lo = hi = 0;
-    } else if (grouped) {
-      lo = lower_bound(pos, u, p);
-      hi = upper_bound(pos, u, p);
-    } else {
-      lo = 0;
-      hi = u;
-    }
-  }
-};
-
-// whether pos[0, u) is non-decreasing; every thread of the block calls it
-__device__ __forceinline__ bool block_sorted(const int* pos, int u) {
-  bool ok = true;
-  for (int j = threadIdx.x + 1; j < u; j += THREADS) ok &= pos[j - 1] <= pos[j];
-  return __syncthreads_and(ok);
-}
-
-// edge(i, j) for i in [lo, hi), UNROLL tests at a time, each handed to
-// f(i, edge)
-template <typename E, typename F>
-__device__ __forceinline__ void scan_in(const E& edge, int j, int lo, int hi, F f) {
-  int i = lo;
-  for (; i + UNROLL <= hi; i += UNROLL) {
-    bool e[UNROLL];
-#pragma unroll
-    for (int k = 0; k < UNROLL; ++k) e[k] = edge(i + k, j);
-#pragma unroll
-    for (int k = 0; k < UNROLL; ++k) f(i + k, e[k]);
-  }
-  for (; i < hi; ++i) f(i, edge(i, j));
-}
+constexpr unsigned FULL = 0xffffffffu;
+// the most dynamic shared memory a launch may ask for
+// (kernels/cluster_fixpoint.py:SMEM_LIMIT). It is the kernel's limit on
+// every launch, whatever the launch asks: threads launching tables of
+// other sizes at once would otherwise race on the function's attribute,
+// and a launch could find it lowered below what it asks (cudaError 1)
+constexpr int SMEM_LIMIT = 231424;
 
 // exclusive scan of a[0, n) in place, the total into a[n]; every thread
 // of the block calls it
@@ -175,7 +138,7 @@ __device__ void block_exclusive_scan(int* a, int n, int* wsum) {
   int x = sum;
 #pragma unroll
   for (int o = 1; o < 32; o <<= 1) {
-    const int y = __shfl_up_sync(0xffffffffu, x, o);
+    const int y = __shfl_up_sync(FULL, x, o);
     if (lane >= o) x += y;
   }
   if (lane == 31) wsum[w] = x;
@@ -184,7 +147,7 @@ __device__ void block_exclusive_scan(int* a, int n, int* wsum) {
     int v = lane < WARPS ? wsum[lane] : 0;
 #pragma unroll
     for (int o = 1; o < 32; o <<= 1) {
-      const int y = __shfl_up_sync(0xffffffffu, v, o);
+      const int y = __shfl_up_sync(FULL, v, o);
       if (lane >= o) v += y;
     }
     if (lane < WARPS) wsum[lane] = v;
@@ -200,47 +163,352 @@ __device__ void block_exclusive_scan(int* a, int n, int* wsum) {
   __syncthreads();
 }
 
-// 1-2: each slot's in-degree over its range into CSR offsets off[0, u],
-// then, if they fit list_cap entries, the in-neighbour list. Returns
-// whether the list was written.
-template <typename E>
-__device__ bool build_in_lists(const E& edge, const SlotRange& range, int* off, uint16_t* list,
-                               int u, int list_cap, int* wsum) {
-  for (int j = threadIdx.x; j < u; j += THREADS) {
-    int lo, hi;
-    range(j, lo, hi);
-    int d = 0;
-    scan_in(edge, j, lo, hi, [&](int, bool e) { d += e; });
-    off[j] = d;
+// the slot table a block reads (shared or global memory); WC > 0 fixes
+// the UMI's word count at compile time
+template <int WC>
+struct Table {
+  const int* words;  // (U, W)
+  const int* pos;
+  const int* cnt;
+  int w_rt;
+  __device__ __forceinline__ int w() const { return WC > 0 ? WC : w_rt; }
+  __device__ __forceinline__ const int* row(int i) const { return words + i * w(); }
+};
+
+// the words a pass compares its candidates against: in registers where
+// W is fixed at compile time, else read from the row
+template <int WC>
+struct Row {
+  int v[WC > 0 ? WC : 1];
+  const int* p;
+  __device__ __forceinline__ Row(const int* row) : p(row) {
+#pragma unroll
+    for (int k = 0; k < (WC > 0 ? WC : 1); ++k) v[k] = WC > 0 ? row[k] : 0;
   }
+  __device__ __forceinline__ int operator[](int k) const { return WC > 0 ? v[k] : p[k]; }
+};
+
+// a < b and a == b, lexicographic over the words (signed, as the plain
+// compare), and the packed Hamming distance; no branches
+template <int WC>
+__device__ __forceinline__ void compare_rows(const int* a, const Row<WC>& b, int w, bool& lt,
+                                             bool& eq, int& ham) {
+  const int n = WC > 0 ? WC : w;
+  lt = false;
+  eq = true;
+  ham = 0;
+#pragma unroll
+  for (int k = 0; k < n; ++k) {
+    const int x = a[k], y = b[k];
+    lt |= eq & (x < y);
+    eq &= x == y;
+    const unsigned d = (unsigned)(x ^ y);
+    ham += __popc((d | d >> 1) & 0x15555555u);
+  }
+}
+
+__device__ __forceinline__ void range_of(const int* lohi, int j, int& lo, int& hi) {
+  const int r = lohi[j];
+  lo = r & 0xffff;
+  hi = r >> 16;
+}
+
+// the in-edge ballot of target slot j over the candidates base + lane
+// (the edge test again, where the masks were not kept)
+template <int WC>
+__device__ __forceinline__ unsigned edge_ballot(const Table<WC>& tb, int j, int base, int hi,
+                                                int max_hamming, int count_ratio) {
+  const int i = base + (threadIdx.x & 31);
+  const bool in = i < hi;
+  const int c = in ? i : j;
+  const Row<WC> wj(tb.row(j));
+  bool lt, eq;
+  int ham;
+  compare_rows(tb.row(c), wj, tb.w(), lt, eq, ham);
+  const int thresh = (int)((unsigned)count_ratio * (unsigned)tb.cnt[j] - 1u);
+  return __ballot_sync(FULL, in & (i != j) & (tb.pos[c] == tb.pos[j]) &
+                                 (tb.cnt[c] >= thresh) & (ham <= max_hamming));
+}
+
+// 2. a warp per target slot j over its range: the rank and the in-edges,
+// 32 candidates a step, the edge ballots kept where they fit. A lane past
+// the range reads slot j instead and counts nothing. SORTED: the range is
+// j's position group, every slot of it valid and at j's position.
+template <bool SORTED, int WC>
+__device__ __forceinline__ void rank_and_indegree(const Table<WC>& tb, const int* lohi, int u,
+                                                  int max_hamming, int count_ratio, int* s,
+                                                  int* off, uint32_t* masks, int mask_words,
+                                                  bool keep_masks) {
+  const int lane = threadIdx.x & 31;
+  for (int j = threadIdx.x >> 5; j < u; j += WARPS) {
+    int lo, hi;
+    range_of(lohi, j, lo, hi);
+    int rank = 0, deg = 0;
+    if (lo != hi) {
+      const int cj = tb.cnt[j], pj = tb.pos[j];
+      // count_ratio * cnt_j - 1 in i32, wrapping as the plain version's does
+      const int thresh = (int)((unsigned)count_ratio * (unsigned)cj - 1u);
+      const Row<WC> wj(tb.row(j));
+      for (int base = lo, k = 0; base < hi; base += 32, ++k) {
+        const int i = base + lane;
+        const bool in = i < hi;
+        const int c = in ? i : j;
+        const int ci = tb.cnt[c];
+        const int pi = SORTED ? pj : tb.pos[c];
+        bool lt, eq;
+        int ham;
+        compare_rows(tb.row(c), wj, tb.w(), lt, eq, ham);
+        const bool less = in & (pi != INVALID_POS) & ((ci > cj) | ((ci == cj) & lt));
+        const unsigned em = __ballot_sync(FULL, in & (i != j) & (pi == pj) & (ci >= thresh) &
+                                                    (ham <= max_hamming));
+        rank += __popc(__ballot_sync(FULL, less));
+        deg += __popc(em);
+        if (keep_masks && lane == 0) masks[j * mask_words + k] = em;
+      }
+    }
+    if (lane == 0) {
+      s[j] = lo != hi ? rank * u + j : u * u + j;
+      off[j] = deg;
+    }
+  }
+}
+
+// 5a. first occurrences of each key (pos_j, words[seed_j]) over j's
+// range, a warp per slot: into first[j]
+template <bool SORTED, int WC>
+__device__ __forceinline__ void first_keys(const Table<WC>& tb, const int* s, const int* lohi,
+                                           int u, int* first) {
+  const int lane = threadIdx.x & 31;
+  for (int j = threadIdx.x >> 5; j < u; j += WARPS) {
+    int lo, hi;
+    range_of(lohi, j, lo, hi);
+    bool first_key = lo != hi;
+    if (first_key) {
+      const int pj = tb.pos[j];
+      const Row<WC> kj(tb.row(s[j]));
+      for (int base = lo; base < j && first_key; base += 32) {
+        const int i = base + lane;
+        const bool in = i < j;
+        const int c = in ? i : j;
+        bool lt, eq;
+        int ham;
+        compare_rows(tb.row(s[c]), kj, tb.w(), lt, eq, ham);
+        first_key = !__any_sync(FULL, in & (SORTED || tb.pos[c] == pj) & eq);
+      }
+    }
+    if (lane == 0) first[j] = first_key;
+  }
+}
+
+// 5b. each slot's molecule id, a warp per slot: the first keys before its
+// range (prefix P) plus the smaller first keys in it
+template <bool SORTED, int WC>
+__device__ __forceinline__ void molecule_ids(const Table<WC>& tb, const int* s, const int* lohi,
+                                             int u, const int* prefix, int* mid_out) {
+  const int lane = threadIdx.x & 31;
+  for (int j = threadIdx.x >> 5; j < u; j += WARPS) {
+    int lo, hi;
+    range_of(lohi, j, lo, hi);
+    int mid = INVALID_POS;
+    if (lo != hi) {
+      const int pj = tb.pos[j];
+      const Row<WC> kj(tb.row(s[j]));
+      mid = prefix[lo];
+      for (int base = lo; base < hi; base += 32) {
+        const int i = base + lane;
+        const bool in = i < hi;
+        const int c = in ? i : j;
+        const int pi = SORTED ? pj : tb.pos[c];
+        bool lt, eq;
+        int ham;
+        compare_rows(tb.row(s[c]), kj, tb.w(), lt, eq, ham);
+        mid += __popc(__ballot_sync(FULL, in & (prefix[c + 1] != prefix[c]) &
+                                              (pi == pj ? lt : pi < pj)));
+      }
+    }
+    if (lane == 0) mid_out[j] = mid;
+  }
+}
+
+template <int WC, bool IN_SMEM>
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
+directional_cluster_kernel(const int* __restrict__ words_g, const int* __restrict__ pos_g,
+                           const int* __restrict__ cnt_g, int* __restrict__ seed_out,
+                           int* __restrict__ mid_out, int* __restrict__ nmol_out, int u,
+                           int w_rt, int scratch_bytes, int max_hamming, int count_ratio,
+                           unsigned long long* stamps) {
+  extern __shared__ int4 smem_raw[];
+  __shared__ int wsum[WARPS];
+  __shared__ int wlast[WARPS], wfirst[WARPS];
+  __shared__ int max_group;
+  const int w = WC > 0 ? WC : w_rt;
+  int* s = reinterpret_cast<int*>(smem_raw);  // keys, then seeds
+  int* off = s + u;                           // CSR offsets, then first keys' prefix
+  int* lohi = off + u + 1;                    // each slot's range: lo | hi << 16
+  int* tab = lohi + u;
+
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int64_t b = blockIdx.x;
+  const int* pos_in = pos_g + b * u;
+  const int* words_in = words_g + b * (int64_t)u * w;
+  const int* cnt_in = cnt_g + b * u;
+#ifdef DUT_CLUSTER_PHASES
+  if (stamps && t == 0) {
+    unsigned smid;
+    unsigned long long gt;
+    asm volatile("mov.u32 %0, %%smid;" : "=r"(smid));
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(gt));
+    stamps[b * N_STAMPS + 11] = smid;
+    stamps[b * N_STAMPS + 12] = gt;
+  }
+#endif
+  CLOCK_STAMP(0);
+
+  // 1. the slot table into shared memory (where planned) and, from the
+  // positions in global memory meanwhile, each thread's run of slots:
+  // whether it is sorted, its last and first group starts
+  if (t == 0) max_group = 0;
+  Table<WC> tb{words_in, pos_in, cnt_in, w_rt};
+  char* scratch = reinterpret_cast<char*>(tab);
+  if (IN_SMEM) {
+    int* sw = tab;
+    int* sp = sw + u * w;
+    int* sc = sp + u;
+    for (int k = t; k < u * w; k += THREADS) sw[k] = words_in[k];
+    for (int j = t; j < u; j += THREADS) {
+      sp[j] = pos_in[j];
+      sc[j] = cnt_in[j];
+    }
+    tb = Table<WC>{sw, sp, sc, w_rt};
+    scratch = reinterpret_cast<char*>(sc + u);
+  }
+  const int chunk = (u + THREADS - 1) / THREADS;
+  const int j0 = min(u, t * chunk), j1 = min(u, j0 + chunk);
+  bool ok = true, unique = true;
+  int last = -1, first = u;
+  for (int j = j0; j < j1; ++j) {
+    const int p = pos_in[j];
+    const int q = j > 0 ? pos_in[j - 1] : p;
+    ok &= q <= p;
+    if (j == 0 || q != p) {
+      last = j;
+      first = min(first, j);
+    } else if (p != INVALID_POS) {  // words strictly rising within a group
+      bool lt = false, eq = true;
+      for (int k = 0; k < w; ++k) {
+        const int x = words_in[(j - 1) * w + k], y = words_in[j * w + k];
+        lt |= eq & (x < y);
+        eq &= x == y;
+      }
+      unique &= lt;
+    }
+  }
+  // forward max of the last starts, backward min of the first starts:
+  // within the warp by shuffles, across warps through shared memory
+  int fwd = last, bwd = first;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(FULL, fwd, o);
+    const int z = __shfl_down_sync(FULL, bwd, o);
+    if (lane >= o) fwd = max(fwd, y);
+    if (lane + o < 32) bwd = min(bwd, z);
+  }
+  if (lane == 31) wlast[warp] = fwd;
+  if (lane == 0) wfirst[warp] = bwd;
+  const bool grouped = __syncthreads_and(ok);
+  int lo_in = __shfl_up_sync(FULL, fwd, 1);
+  int hi_in = __shfl_down_sync(FULL, bwd, 1);
+  if (lane == 0) lo_in = -1;
+  if (lane == 31) hi_in = u;
+  for (int k = 0; k < warp; ++k) lo_in = max(lo_in, wlast[k]);
+  for (int k = warp + 1; k < WARPS; ++k) hi_in = min(hi_in, wfirst[k]);
+  // each slot's range: its group's [lo, hi) when sorted, else [0, U);
+  // none for an empty slot. The largest group sizes the masks.
+  int big = 0;
+  for (int j = j1 - 1; j >= j0; --j) {  // hi: the next start after j
+    lohi[j] = hi_in;
+    if (j == 0 || tb.pos[j - 1] != tb.pos[j]) hi_in = j;
+  }
+  for (int j = j0; j < j1; ++j) {  // lo: the last start up to j
+    const int p = tb.pos[j];
+    if (j == 0 || tb.pos[j - 1] != p) lo_in = j;
+    int lo = lo_in, hi = lohi[j];
+    if (!grouped) {
+      lo = 0;
+      hi = u;
+    }
+    if (p == INVALID_POS) lo = hi = 0;
+    big = max(big, hi - lo);
+    lohi[j] = lo | hi << 16;
+  }
+  big = __reduce_max_sync(FULL, big);
+  if (lane == 0) atomicMax(&max_group, big);
+  // sorted by (pos, words) with no key twice, as group_kernel builds the
+  // table: a group's key order is its slot order (step 5)
+  const bool strict = __syncthreads_and(unique) && grouped;
+  CLOCK_STAMP(1);
+
+  // 2. the ranks and in-edges (rank_and_indegree)
+  const int mask_words = (max_group + 31) / 32;
+  const int mask_bytes = u * mask_words * 4;
+  const bool keep_masks = mask_bytes <= scratch_bytes;
+  uint32_t* masks = reinterpret_cast<uint32_t*>(scratch);
+  if (grouped)
+    rank_and_indegree<true>(tb, lohi, u, max_hamming, count_ratio, s, off, masks, mask_words,
+                            keep_masks);
+  else
+    rank_and_indegree<false>(tb, lohi, u, max_hamming, count_ratio, s, off, masks, mask_words,
+                             keep_masks);
   __syncthreads();
+  CLOCK_STAMP(2);
   block_exclusive_scan(off, u, wsum);
-  const bool use_list = off[u] <= list_cap;
-  if (use_list) {
-    for (int j = threadIdx.x; j < u; j += THREADS) {
+  CLOCK_STAMP(3);
+
+  // 3. the in-neighbour list: after the masks, where both fit, each
+  // thread writing its own slots' entries from their masks (no pair is
+  // tested again); else over the whole scratch, a warp per slot testing
+  // the edges again; else none (the sweeps below read the masks or test
+  // the edges)
+  const int n_edges = off[u];
+  const bool from_masks = keep_masks && 2 * n_edges <= scratch_bytes - mask_bytes;
+  const bool use_list = from_masks || 2 * n_edges <= scratch_bytes;
+  uint16_t* list = reinterpret_cast<uint16_t*>(scratch + (from_masks ? mask_bytes : 0));
+  STAMP(14, use_list | keep_masks << 1 | from_masks << 2 | strict << 3);
+  STAMP(15, n_edges);
+  if (from_masks) {
+    for (int j = j0; j < j1; ++j) {
       int lo, hi;
-      range(j, lo, hi);
-      int w = off[j];
-      scan_in(edge, j, lo, hi, [&](int i, bool e) {
-        if (e) list[w++] = (uint16_t)i;
-      });
+      range_of(lohi, j, lo, hi);
+      int at = off[j];
+      for (int base = lo, k = 0; base < hi; base += 32, ++k) {
+        for (unsigned m = masks[j * mask_words + k]; m; m &= m - 1)
+          list[at++] = (uint16_t)(base + __ffs(m) - 1);
+      }
+    }
+    __syncthreads();
+  } else if (use_list) {
+    const unsigned below = (1u << lane) - 1;
+    for (int j = warp; j < u; j += WARPS) {
+      int lo, hi;
+      range_of(lohi, j, lo, hi);
+      int at = off[j];
+      for (int base = lo; base < hi; base += 32) {
+        const unsigned em = edge_ballot(tb, j, base, hi, max_hamming, count_ratio);
+        if (em >> lane & 1) list[at + __popc(em & below)] = (uint16_t)(base + lane);
+        at += __popc(em);
+      }
     }
     __syncthreads();
   }
-  return use_list;
-}
+  CLOCK_STAMP(4);
 
-// 3: sweeps to the fixpoint, in place. Slot j is written only by the
-// thread that owns it in the sweep; other threads may read its old or
-// its new key, both of which are keys of slots that reach j.
-template <typename E>
-__device__ void sweep_to_fixpoint(const E& edge, const SlotRange& range, int* s, const int* off,
-                                  const uint16_t* list, bool use_list, int u) {
+  // 4. sweeps to the fixpoint, in place: slot j is written only by its
+  // owner (a thread over the list, a warp's lane 0 otherwise); others
+  // may read its old or its new key, both keys of slots that reach j
   volatile int* vs = s;
-  const int t = threadIdx.x;
-  const int chunk = (u + THREADS - 1) / THREADS;
-  const int j0 = min(u, t * chunk), j1 = min(u, j0 + chunk);
-  for (int sweep = 0; sweep < u; ++sweep) {
+  int sweeps = 0;
+  while (sweeps < u) {
+    ++sweeps;
     int changed = 0;
     if (use_list) {
       for (int j = j0; j < j1; ++j) {
@@ -254,15 +522,18 @@ __device__ void sweep_to_fixpoint(const E& edge, const SlotRange& range, int* s,
         }
       }
     } else {
-      for (int j = t; j < u; j += THREADS) {
+      for (int j = warp; j < u; j += WARPS) {
         int lo, hi;
-        range(j, lo, hi);
-        const int start = vs[j];
-        int m = start;
-        scan_in(edge, j, lo, hi, [&](int i, bool e) {
-          if (e) m = min(m, vs[i]);
-        });
-        if (m < start) {
+        range_of(lohi, j, lo, hi);
+        int m = 0x7fffffff;
+        for (int base = lo, k = 0; base < hi; base += 32, ++k) {
+          const unsigned em = keep_masks
+                                  ? masks[j * mask_words + k]
+                                  : edge_ballot(tb, j, base, hi, max_hamming, count_ratio);
+          if (em >> lane & 1) m = min(m, vs[base + lane]);
+        }
+        m = __reduce_min_sync(FULL, m);
+        if (lane == 0 && m < vs[j]) {
           vs[j] = m;
           changed = 1;
         }
@@ -270,221 +541,151 @@ __device__ void sweep_to_fixpoint(const E& edge, const SlotRange& range, int* s,
     }
     if (!__syncthreads_or(changed)) break;
   }
-}
-
-// ---------------------------------------------------------------- the grid
-
-// the edge test of propagate_min: one byte of the bucket's (U, U) grid
-struct GridEdges {
-  const uint8_t* __restrict__ e;
-  int u;
-  __device__ __forceinline__ bool operator()(int i, int j) const {
-    return e[(int64_t)i * u + j] != 0;
-  }
-};
-
-__global__ void __launch_bounds__(THREADS)
-cluster_fixpoint_kernel(const uint8_t* __restrict__ edge, const int* __restrict__ s0,
-                        const int* __restrict__ u_pos, int* __restrict__ out, int u,
-                        int list_cap) {
-  extern __shared__ int4 smem_raw[];
-  __shared__ int wsum[WARPS];
-  int* s = reinterpret_cast<int*>(smem_raw);
-  int* pos = s + u;
-  int* off = pos + u;
-  uint16_t* list = reinterpret_cast<uint16_t*>(off + u + 1);
-
-  const int64_t b = blockIdx.x;
-  for (int j = threadIdx.x; j < u; j += THREADS) {
-    s[j] = s0[b * u + j];
-    pos[j] = u_pos[b * u + j];
-  }
-  __syncthreads();
-  const SlotRange range{pos, u, block_sorted(pos, u)};
-  const GridEdges e{edge + b * (int64_t)u * u, u};
-  const bool use_list = build_in_lists(e, range, off, list, u, list_cap, wsum);
-  sweep_to_fixpoint(e, range, s, off, list, use_list, u);
-  for (int j = threadIdx.x; j < u; j += THREADS) out[b * u + j] = s[j];
-}
-
-// --------------------------------------------------------- the slot table
-
-// the UMI-tools directional edge of _directional_cluster, from the table
-struct TableEdges {
-  const int* __restrict__ words;  // (U, W)
-  const int* __restrict__ pos;
-  const int* __restrict__ cnt;
-  int w, max_hamming, count_ratio;
-  __device__ __forceinline__ bool operator()(int i, int j) const {
-    if (i == j || pos[i] != pos[j]) return false;
-    // count_ratio * cnt_j - 1 in i32, wrapping as the plain version's does
-    if (cnt[i] < (int)((unsigned)count_ratio * (unsigned)cnt[j] - 1u)) return false;
-    int d = 0;
-    for (int k = 0; k < w; ++k) {
-      const unsigned x = (unsigned)(words[i * w + k] ^ words[j * w + k]);
-      d += __popc((x | x >> 1) & 0x15555555u);
-    }
-    return d <= max_hamming;
-  }
-};
-
-// lexicographic compare of the word rows of slots a and b: <0, 0, >0
-__device__ __forceinline__ int cmp_words(const int* words, int w, int a, int b) {
-  for (int k = 0; k < w; ++k) {
-    const int x = words[a * w + k], y = words[b * w + k];
-    if (x != y) return x < y ? -1 : 1;
-  }
-  return 0;
-}
-
-__global__ void __launch_bounds__(THREADS)
-directional_cluster_kernel(const int* __restrict__ words_g, const int* __restrict__ pos_g,
-                           const int* __restrict__ cnt_g, int* __restrict__ seed_out,
-                           int* __restrict__ mid_out, int* __restrict__ nmol_out, int u, int w,
-                           int list_cap, int table_in_smem, int max_hamming, int count_ratio) {
-  extern __shared__ int4 smem_raw[];
-  __shared__ int wsum[WARPS];
-  int* s = reinterpret_cast<int*>(smem_raw);
-  int* off = s + u;
-  int* tab = off + u + 1;
-
-  const int t = threadIdx.x;
-  const int64_t b = blockIdx.x;
-  const int* words = words_g + b * (int64_t)u * w;
-  const int* pos = pos_g + b * u;
-  const int* cnt = cnt_g + b * u;
-  uint16_t* list = reinterpret_cast<uint16_t*>(tab);
-  // a. the slot table
-  if (table_in_smem) {
-    int* sw = tab;
-    int* sp = sw + u * w;
-    int* sc = sp + u;
-    for (int k = t; k < u * w; k += THREADS) sw[k] = words[k];
-    for (int j = t; j < u; j += THREADS) {
-      sp[j] = pos[j];
-      sc[j] = cnt[j];
-    }
-    words = sw;
-    pos = sp;
-    cnt = sc;
-    list = reinterpret_cast<uint16_t*>(sc + u);
-  }
-  __syncthreads();
-  const SlotRange range{pos, u, block_sorted(pos, u)};
-
-  // b. ranks by (-count, words) over each slot's range -> start keys
-  for (int i = t; i < u; i += THREADS) {
-    if (pos[i] == INVALID_POS) {
-      s[i] = u * u + i;
-      continue;
-    }
-    int lo, hi;
-    range(i, lo, hi);
-    const int ci = cnt[i];
-    int rank = 0;
-    for (int j = lo; j < hi; ++j) {
-      if (pos[j] == INVALID_POS) continue;
-      const int cj = cnt[j];
-      rank += cj > ci || (cj == ci && cmp_words(words, w, j, i) < 0);
-    }
-    s[i] = rank * u + i;
-  }
-  __syncthreads();
-
-  // c. the fixpoint over the table's edges, then the seeds
-  const TableEdges e{words, pos, cnt, w, max_hamming, count_ratio};
-  const bool use_list = build_in_lists(e, range, off, list, u, list_cap, wsum);
-  sweep_to_fixpoint(e, range, s, off, list, use_list, u);
+  STAMP(10, sweeps);
+  CLOCK_STAMP(5);
   for (int j = t; j < u; j += THREADS) {
     const int seed = s[j] % u;
     s[j] = seed;
     seed_out[b * u + j] = seed;
   }
   __syncthreads();
+  CLOCK_STAMP(6);
 
-  // d. molecule ids: first occurrences of each (pos, words[seed]) key
-  // into off, their exclusive prefix, then each slot's count of smaller
-  // first keys
-  for (int j = t; j < u; j += THREADS) {
-    int fv = 0;
-    if (pos[j] != INVALID_POS) {
-      int lo, hi;
-      range(j, lo, hi);
-      fv = 1;
-      for (int i = lo; i < j && i < hi; ++i) {
-        if (pos[i] == pos[j] && cmp_words(words, w, s[i], s[j]) == 0) {
-          fv = 0;
-          break;
-        }
-      }
-    }
-    off[j] = fv;
-  }
-  __syncthreads();
-  block_exclusive_scan(off, u, wsum);
-  for (int j = t; j < u; j += THREADS) {
-    int mid = INVALID_POS;
-    if (pos[j] != INVALID_POS) {
-      int lo, hi;
-      range(j, lo, hi);
-      mid = range.grouped ? off[lo] : 0;
-      for (int i = lo; i < hi; ++i) {
-        if (off[i + 1] == off[i]) continue;  // not a first key
-        if (range.grouped || pos[i] == pos[j]) {
-          mid += cmp_words(words, w, s[i], s[j]) < 0;
-        } else {
-          mid += pos[i] < pos[j];
-        }
-      }
-    }
-    mid_out[b * u + j] = mid;
+  // 5. molecule ids, group_kernel's key (pos_j, words[seed_j]), each
+  // distinct key counted once, ids by key order
+  if (strict) {
+    // a slot's seed is a slot of its group, and a seed is its own seed:
+    // the distinct keys are the valid self-seeded slots, in slot order,
+    // so mid_j is the count of self-seeded slots below seed_j
+    for (int j = t; j < u; j += THREADS) off[j] = tb.pos[j] != INVALID_POS && s[j] == j;
+    __syncthreads();
+    CLOCK_STAMP(7);
+    block_exclusive_scan(off, u, wsum);
+    CLOCK_STAMP(8);
+    for (int j = t; j < u; j += THREADS)
+      mid_out[b * u + j] = tb.pos[j] != INVALID_POS ? off[s[j]] : INVALID_POS;
+  } else {
+    // first occurrences over each slot's range into off, their exclusive
+    // prefix, then each slot's count of smaller first keys in its range
+    if (grouped)
+      first_keys<true>(tb, s, lohi, u, off);
+    else
+      first_keys<false>(tb, s, lohi, u, off);
+    __syncthreads();
+    CLOCK_STAMP(7);
+    block_exclusive_scan(off, u, wsum);
+    CLOCK_STAMP(8);
+    if (grouped)
+      molecule_ids<true>(tb, s, lohi, u, off, mid_out + b * u);
+    else
+      molecule_ids<false>(tb, s, lohi, u, off, mid_out + b * u);
   }
   if (t == 0) nmol_out[b] = off[u];
+#ifdef DUT_CLUSTER_PHASES
+  __syncthreads();
+  CLOCK_STAMP(9);
+  if (stamps && t == 0) {
+    unsigned long long gt;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(gt));
+    stamps[b * N_STAMPS + 13] = gt;
+  }
+#endif
+}
+
+size_t cluster_smem(int u, int w, int scratch_bytes, int table_in_smem) {
+  return 4 * (3 * (size_t)u + 1) + (table_in_smem ? 4 * (size_t)u * (w + 2) : 0) +
+         (size_t)scratch_bytes;
+}
+
+// the kernel for w words (fixed at 1-3) and the table's place
+template <int WC, bool IN_SMEM>
+auto kernel_for() {
+  return directional_cluster_kernel<WC, IN_SMEM>;
+}
+
+using KernelFn = void (*)(const int*, const int*, const int*, int*, int*, int*, int, int, int,
+                          int, int, unsigned long long*);
+
+KernelFn pick(int w, int table_in_smem) {
+  switch (w) {
+    case 1: return table_in_smem ? kernel_for<1, true>() : kernel_for<1, false>();
+    case 2: return table_in_smem ? kernel_for<2, true>() : kernel_for<2, false>();
+    case 3: return table_in_smem ? kernel_for<3, true>() : kernel_for<3, false>();
+    default: return table_in_smem ? kernel_for<0, true>() : kernel_for<0, false>();
+  }
+}
+
+int launch_cluster(const int* words, const int* u_pos, const int* u_cnt, int* seed, int* mid,
+                   int* n_mol, int n_buckets, int u, int w, int scratch_bytes, int table_in_smem,
+                   int max_hamming, int count_ratio, unsigned long long* stamps, void* stream) {
+  if (n_buckets <= 0 || u <= 0 || u > 16384 || w <= 0 || scratch_bytes < 0)
+    return (int)cudaErrorInvalidValue;
+  const KernelFn kern = pick(w, table_in_smem);
+  const size_t smem = cluster_smem(u, w, scratch_bytes, table_in_smem);
+  if (smem > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
+  const cudaError_t e =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_LIMIT);
+  if (e != cudaSuccess) return (int)e;
+  kern<<<n_buckets, THREADS, smem, (cudaStream_t)stream>>>(
+      words, u_pos, u_cnt, seed, mid, n_mol, u, w, scratch_bytes, max_hamming, count_ratio,
+      stamps);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
-
-// edge (n_buckets, u, u) bool as bytes, s0 and u_pos (n_buckets, u) i32,
-// out (n_buckets, u) i32 -- all contiguous on the device. list_cap is
-// the in-neighbour list's length in i16 entries (0: sweep over the edge
-// grid). Launches on `stream` and returns the launch's cudaError_t
-// (0 = ok).
-extern "C" int cluster_fixpoint_i32(const uint8_t* edge, const int* s0, const int* u_pos,
-                                    int* out, int n_buckets, int u, int list_cap,
-                                    void* stream) {
-  if (n_buckets <= 0 || u <= 0 || u > 32768 || list_cap < 0) return (int)cudaErrorInvalidValue;
-  const size_t smem = 12 * (size_t)u + 4 + 2 * (size_t)list_cap;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        cluster_fixpoint_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  cluster_fixpoint_kernel<<<n_buckets, THREADS, smem, (cudaStream_t)stream>>>(
-      edge, s0, u_pos, out, u, list_cap);
-  return (int)cudaGetLastError();
-}
 
 // words (n_buckets, u, w) i32 (2-bit packed UMIs, I32_MAX on empty
 // slots), u_pos and u_cnt (n_buckets, u) i32 in; seed and mid
 // (n_buckets, u) i32 and n_mol (n_buckets,) i32 out -- all contiguous on
 // the device. table_in_smem says whether the table is copied into shared
-// memory; list_cap is the in-neighbour list's length in i16 entries.
-// Launches on `stream` and returns the launch's cudaError_t (0 = ok).
+// memory; scratch_bytes is the shared memory a block has past its slot
+// arrays and table for the edge masks and the in-neighbour list
+// (kernels/cluster_fixpoint.py:cluster_plan). Launches on `stream` and
+// returns the launch's cudaError_t (0 = ok).
 extern "C" int directional_cluster_i32(const int* words, const int* u_pos, const int* u_cnt,
                                        int* seed, int* mid, int* n_mol, int n_buckets, int u,
-                                       int w, int list_cap, int table_in_smem, int max_hamming,
-                                       int count_ratio, void* stream) {
-  if (n_buckets <= 0 || u <= 0 || u > 16384 || w <= 0 || list_cap < 0)
-    return (int)cudaErrorInvalidValue;
-  const size_t smem = 4 * (2 * (size_t)u + 1) +
-                      (table_in_smem ? 4 * (size_t)u * (w + 2) : 0) + 2 * (size_t)list_cap;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        directional_cluster_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  directional_cluster_kernel<<<n_buckets, THREADS, smem, (cudaStream_t)stream>>>(
-      words, u_pos, u_cnt, seed, mid, n_mol, u, w, list_cap, table_in_smem, max_hamming,
-      count_ratio);
-  return (int)cudaGetLastError();
+                                       int w, int scratch_bytes, int table_in_smem,
+                                       int max_hamming, int count_ratio, void* stream) {
+  return launch_cluster(words, u_pos, u_cnt, seed, mid, n_mol, n_buckets, u, w, scratch_bytes,
+                        table_in_smem, max_hamming, count_ratio, nullptr, stream);
 }
+
+// how many blocks of directional_cluster_i32 at w words one SM holds at
+// once with the table in shared memory and `smem` bytes of dynamic
+// shared memory (0 if none)
+extern "C" int directional_cluster_blocks_per_sm(int w, int smem) {
+  const KernelFn kern = pick(w, 1);
+  if (smem > SMEM_LIMIT ||
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_LIMIT) !=
+          cudaSuccess)
+    return 0;
+  int blocks = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kern, THREADS, smem) != cudaSuccess)
+    return 0;
+  return blocks;
+}
+
+#ifdef DUT_CLUSTER_PHASES
+static const char PHASE_NAMES[] =
+    "table_and_bounds,rank_and_indegree,indegree_scan,list,sweeps,seeds,first_keys,"
+    "first_keys_scan,ids";
+
+// the same launch with the stamps: (n_buckets, N_STAMPS) u64 on the
+// device. Row b: [0] clock64() at the block's start, [k] at the end of
+// phase k (1 <= k <= 9, named by directional_cluster_phase_names), [10]
+// the fixpoint's sweeps, [11] the SM, [12] / [13] %globaltimer at the
+// start and the end (ns), [14] the fixpoint's mode (bit 0: the list was
+// used, bit 1: the edge masks were kept, bit 2: the list was written
+// from them), [15] the bucket's in-group edges
+extern "C" int directional_cluster_i32_phases(const int* words, const int* u_pos,
+                                              const int* u_cnt, int* seed, int* mid, int* n_mol,
+                                              int n_buckets, int u, int w, int scratch_bytes,
+                                              int table_in_smem, int max_hamming,
+                                              int count_ratio, void* stamps, void* stream) {
+  return launch_cluster(words, u_pos, u_cnt, seed, mid, n_mol, n_buckets, u, w, scratch_bytes,
+                        table_in_smem, max_hamming, count_ratio,
+                        (unsigned long long*)stamps, stream);
+}
+
+extern "C" const char* directional_cluster_phase_names() { return PHASE_NAMES; }
+#endif

@@ -5,7 +5,10 @@ first use, into ``_build/lib<name>-<digest>.so`` beside the package
 (the directory is git-ignored; ``DUT_BUILD_DIR`` moves it, see
 utils/compile_cache.py); the digest of the source names the library,
 so an edited source rebuilds and an unchanged one loads the existing
-file. Nothing here runs at import time.
+file. A build with compile-time macros (``defines``, e.g. the
+cluster kernel's per-phase clock stamps) is another library of the same
+source, named by a digest that includes them. Nothing here runs at
+import time.
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -o _build/lib<name>-<digest>.so csrc/<name>.cu
@@ -37,7 +40,7 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
 
-_LIBS: dict[str, ctypes.CDLL] = {}
+_LIBS: dict[tuple, ctypes.CDLL] = {}
 # launch accounting of the kernel wrappers (count_launch): one lock for
 # every wrapper's counters, and the tally of the launches a thread is
 # capturing into a CUDA graph (runtime/graphs.py), which launch nothing
@@ -66,34 +69,39 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def lib_path(name: str) -> str:
+def _flags(defines=()) -> tuple:
+    return (*NVCC_FLAGS, *(f"-D{d}" for d in defines))
+
+
+def lib_path(name: str, defines=()) -> str:
     src = os.path.join(CSRC_DIR, f"{name}.cu")
     with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+        digest = hashlib.sha256(f.read() + " ".join(_flags(defines)).encode()).hexdigest()
     return os.path.join(build_dir(BUILD_DIR), f"lib{name}-{digest[:16]}.so")
 
 
-def _start(name: str):
+def _start(name: str, defines=()):
     """Start nvcc for one source unless its library exists; returns
     (name, final path, tmp path, Popen | None)."""
-    out = lib_path(name)
+    out = lib_path(name, defines)
     if os.path.exists(out):
         return name, out, None, None
     os.makedirs(os.path.dirname(out), exist_ok=True)
     # unique temp name + atomic rename: concurrent builds never load
     # a half-written library
     tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC_DIR, f"{name}.cu")]
+    cmd = [nvcc_path(), *_flags(defines), "-o", tmp, os.path.join(CSRC_DIR, f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
     return name, out, tmp, proc
 
 
-def build_all(names=SOURCES) -> dict[str, float]:
-    """Compile every named source, one nvcc each, all started together.
-    Returns {name: seconds} (0.0 for a library that already existed);
-    raises with the compiler's output if any build fails."""
+def build_all(names=SOURCES, defines=()) -> dict[str, float]:
+    """Compile every named source, one nvcc each, all started together,
+    with the macros ``defines``. Returns {name: seconds} (0.0 for a
+    library that already existed); raises with the compiler's output if
+    any build fails."""
     t0 = time.monotonic()
-    started = [_start(n) for n in names]
+    started = [_start(n, defines) for n in names]
     secs = {}
     errors = []
     for name, out, tmp, proc in started:
@@ -122,17 +130,19 @@ def device_guard(device):
     return torch.cuda.device(device)
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of csrc/<name>.cu, built first if needed.
-    Thread-safe: concurrent first callers build and load it once."""
-    lib = _LIBS.get(name)
+def load(name: str, defines=()) -> ctypes.CDLL:
+    """The loaded library of csrc/<name>.cu built with the macros
+    ``defines``, built first if needed. Thread-safe: concurrent first
+    callers build and load it once."""
+    key = (name, tuple(defines))
+    lib = _LIBS.get(key)
     if lib is None:
         with _LOAD_LOCK:
-            lib = _LIBS.get(name)
+            lib = _LIBS.get(key)
             if lib is None:
-                build_all((name,))
-                lib = ctypes.CDLL(lib_path(name))
-                _LIBS[name] = lib
+                build_all((name,), defines)
+                lib = ctypes.CDLL(lib_path(name, defines))
+                _LIBS[key] = lib
     return lib
 
 

@@ -1,44 +1,31 @@
-"""Directional clustering — grouping's min-ancestor fixpoint, and the
-whole directional-cluster step around it.
+"""Directional clustering — grouping's whole directional-cluster step:
+the UMI-tools edges, the count ranks, the min-ancestor fixpoint and the
+molecule ids.
 
-Two wrappers, each over every bucket n of a dispatch class at once:
-
-- :func:`directional_cluster`: the unique-UMI slot table of a class
-  (packed words, positions, read counts) -> each slot's cluster seed,
-  its molecule id and each bucket's molecule count. This is
-  ``group_kernel``'s adjacency/cluster branch (``kernels/grouping.py``).
-  On CUDA it launches the kernel ``directional_cluster_i32`` of
-  csrc/cluster_fixpoint.cu, which builds the directed UMI-tools edges,
-  the count ranks and the molecule ids of each bucket in shared memory,
-  so no (N, U, U) tensor is written; on a CPU tensor it runs
-  :func:`directional_cluster_plain`, the plain PyTorch version over the
-  (N, U, U) grids.
-- :func:`propagate_min`: the fixpoint alone over a given edge grid,
-
-      s[n, j] = min(s0[n, j], min over every slot i that reaches j along
-                the directed edges edge[n, i, j])
-
-  (kernel ``cluster_fixpoint_i32``, plain version
-  :func:`propagate_min_plain`). Grouping no longer calls it; it is kept
-  as the smallest form of the shared sweep.
+:func:`directional_cluster` maps the unique-UMI slot table of a dispatch
+class (packed words, positions, read counts), every bucket n at once, to
+each slot's cluster seed, its molecule id and each bucket's molecule
+count. This is ``group_kernel``'s adjacency/cluster branch
+(``kernels/grouping.py``). On CUDA it launches the kernel
+``directional_cluster_i32`` of csrc/cluster_fixpoint.cu, which builds
+the directed UMI-tools edges, the count ranks and the molecule ids of
+each bucket in shared memory, so no (N, U, U) tensor is written; on a
+CPU tensor it runs :func:`directional_cluster_plain`, the plain PyTorch
+version over the (N, U, U) grids.
 
 Each unique-UMI slot ends at the least combined key ``rank * U + slot``
 among the slots that reach it, which is its cluster seed. The JAX
 package propagates in a ``lax.while_loop`` on the device
 (duplexumiconsensusreads_tpu/kernels/grouping.py:160), one Jacobi sweep
 per iteration until no slot changes, at most U sweeps. PyTorch has no
-loop on the device: the plain version checks for a change on the host
-once per sweep, while the kernels run each bucket to its own fixpoint in
-one block and the host neither waits nor reads anything back.
-
-The fixpoint is unique, so the sweep order cannot change it: the
-kernels update in place (Gauss-Seidel), visit only each slot's
-position-group range (an edge joins two slots of one position, and the
-slots are sorted by position; unsorted positions take a full scan), and
-return the plain loop's keys bit for bit. ``propagate_min``'s contract:
-``edge[n, i, j]`` is set only where ``u_pos[n, i] == u_pos[n, j] !=
-I32_MAX``, an edge between two valid slots of one position (the plain
-edge build ANDs both in).
+loop on the device: the plain version (:func:`propagate_min_plain`)
+checks for a change on the host once per sweep, while the kernel runs
+each bucket to its own fixpoint in one block and the host neither waits
+nor reads anything back. The fixpoint is unique, so the sweep order
+cannot change it: the kernel updates in place (Gauss-Seidel), visits
+only each slot's position-group range (an edge joins two slots of one
+position, and the slots are sorted by position; unsorted positions take
+a full scan), and returns the plain loop's keys bit for bit.
 """
 
 from __future__ import annotations
@@ -52,21 +39,30 @@ from duplexumiconsensusreads_torch.kernels.build import count_launch, device_gua
 from duplexumiconsensusreads_torch.kernels.encoding import CODES_PER_WORD, n_umi_words
 
 I32_MAX = 2**31 - 1
-# both kernels keep their keys and CSR offsets in shared memory and a
-# slot index in 16 bits
+# the kernel keeps a slot index in 16 bits
 MAX_U = 16384
 # the dynamic shared memory a block may ask for on sm_90 (227 KB, less
-# 1 KB for the kernel's static scratch)
+# 1 KB for the kernel's static scratch); the kernel's limit on every
+# launch (csrc/cluster_fixpoint.cu: SMEM_LIMIT)
 SMEM_LIMIT = 231_424
-# the in-neighbour list's default length, in i16 entries (32 KB): at
-# u_max 2048 a propagate_min block then asks for 57 KB, so three fit an
-# SM. A bucket with more in-group edges sweeps over the edge grid (or
-# runs the edge test again) instead
+# an SM's shared memory on sm_90 (228 KB), what the runtime keeps of it
+# for each resident block, and the kernel's static shared memory (under
+# 256 bytes)
+SM_SMEM = 233_472
+BLOCK_RESERVED = 1024
+STATIC_SMEM = 256
+# the kernel's block (csrc/cluster_fixpoint.cu: THREADS) and the blocks
+# an SM holds at 2048 threads: four, so the card runs 4 x 132 = 528
+# buckets in one wave, where each block's shared memory is at most
+# RESIDENT_SMEM
+THREADS = 512
+BLOCKS_PER_SM = 2048 // THREADS
+RESIDENT_SMEM = SM_SMEM // BLOCKS_PER_SM - BLOCK_RESERVED - STATIC_SMEM
+# the scratch a larger table still gets for its edge masks and
+# in-neighbour list (32 KB, 16384 i16 entries), past RESIDENT_SMEM
 LIST_CAP = 16384
-# directional_cluster's kernel keeps its keys and CSR offsets in shared
-# memory (8 bytes a slot), and the slot table too (4 (W + 2) bytes a
-# slot) where that leaves a list of at least MIN_LIST entries; else the
-# block reads the table from global memory
+# the slot table goes into shared memory where that leaves a list of at
+# least MIN_LIST entries; else the block reads it from global memory
 MIN_LIST = 4096
 
 
@@ -192,91 +188,22 @@ def directional_cluster_plain(u_words, u_pos, u_cnt, umi_len: int, max_hamming: 
     return seed, mid_of_slot, n_mol
 
 
-def _check(edge: torch.Tensor, s0: torch.Tensor, u_pos: torch.Tensor) -> None:
-    if edge.dtype != torch.bool or s0.dtype != torch.int32 or u_pos.dtype != torch.int32:
-        raise TypeError(
-            f"propagate_min wants edge bool, s0 and u_pos i32, got "
-            f"{edge.dtype} / {s0.dtype} / {u_pos.dtype}"
-        )
-    if s0.dim() != 2 or edge.shape != (*s0.shape, s0.shape[1]) or u_pos.shape != s0.shape:
-        raise ValueError(
-            f"propagate_min wants edge (N, U, U), s0 and u_pos (N, U), got "
-            f"{tuple(edge.shape)} / {tuple(s0.shape)} / {tuple(u_pos.shape)}"
-        )
-    if not (edge.device == s0.device == u_pos.device):
-        raise ValueError(f"edge on {edge.device}, s0 on {s0.device}, u_pos on {u_pos.device}")
-
-
-def smem_bytes(u: int, list_cap: int) -> int:
-    """The kernel's dynamic shared memory: s, u_pos and offsets (i32),
-    then the i16 in-neighbour list."""
-    return 12 * u + 4 + 2 * list_cap
-
-
-def default_list_cap(u: int) -> int:
-    """LIST_CAP entries, or what fits beside the slot arrays."""
-    return max(0, min(LIST_CAP, (SMEM_LIMIT - smem_bytes(u, 0)) // 2))
-
-
-def propagate_min(edge: torch.Tensor, s0: torch.Tensor, u_pos: torch.Tensor) -> torch.Tensor:
-    """(N, U, U) bool edges + (N, U) i32 start keys + (N, U) i32 slot
-    positions -> (N, U) i32 fixpoint keys.
-
-    CUDA tensors launch the hand-written kernel, one launch per call
-    (and raise if it cannot launch); CPU tensors take the plain version.
-    The kernel's in-neighbour list holds default_list_cap(U) entries; a
-    bucket with more in-group edges re-reads its edge grid every sweep
-    instead. Every launch adds one to ``propagate_min.launches`` and to
-    ``propagate_min.stream_launches[(device index, stream handle)]`` of
-    the stream it was queued on (``build.count_launch``: under a lock,
-    since the streaming executor's transfer workers launch at once; a
-    launch captured into a CUDA graph counts at each replay)."""
-    _check(edge, s0, u_pos)
-    if s0.device.type == "cpu":
-        return propagate_min_plain(edge, s0, u_pos)
-    if s0.device.type != "cuda":
-        raise ValueError(f"propagate_min runs on cuda or cpu tensors, not {s0.device}")
-    n, u = s0.shape
-    if u > MAX_U:
-        raise ValueError(f"propagate_min's kernel takes u_max <= {MAX_U}, got {u}")
-    cap = default_list_cap(u)
-    out = torch.empty_like(s0)
-    if n == 0:
-        return out
-    edge, s0, u_pos = edge.contiguous(), s0.contiguous(), u_pos.contiguous()
-    stream = torch.cuda.current_stream(s0.device).cuda_stream
-    with device_guard(s0.device):
-        rc = _kernel()(edge.data_ptr(), s0.data_ptr(), u_pos.data_ptr(), out.data_ptr(),
-                       n, u, cap, stream)
-    if rc != 0:
-        raise RuntimeError(f"cluster_fixpoint kernel launch failed (cudaError {rc})")
-    count_launch(propagate_min, s0.device.index, stream)
-    return out
-
-
-def _kernel():
-    """The kernel's C entry point, built and bound at first use."""
-    global _FN
-    if _FN is None:
-        fn = load("cluster_fixpoint").cluster_fixpoint_i32
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _FN = fn
-    return _FN
-
-
-def cluster_smem_bytes(u: int, w: int, table_in_smem: bool, list_cap: int) -> int:
-    """directional_cluster's dynamic shared memory: keys and offsets
-    (i32), the slot table if it is held there, then the i16 list."""
-    return 4 * (2 * u + 1) + (4 * u * (w + 2) if table_in_smem else 0) + 2 * list_cap
+def cluster_smem_bytes(u: int, w: int, table_in_smem: bool, scratch: int) -> int:
+    """The kernel's dynamic shared memory: keys, CSR offsets and group
+    ranges (i32 a slot), the slot table if it is held there, then
+    ``scratch`` bytes for the edge masks and the i16 in-neighbour list."""
+    return 4 * (3 * u + 1) + (4 * u * (w + 2) if table_in_smem else 0) + scratch
 
 
 def cluster_plan(u: int, w: int) -> tuple[bool, int]:
-    """(whether the slot table goes into shared memory, the list's
-    length in entries) for a table of u slots of w words."""
-    in_smem = cluster_smem_bytes(u, w, True, MIN_LIST) <= SMEM_LIMIT
-    room = SMEM_LIMIT - cluster_smem_bytes(u, w, in_smem, 0)
-    return in_smem, max(0, min(LIST_CAP, room // 2))
+    """(whether the slot table goes into shared memory, the scratch
+    bytes) for a table of u slots of w words: a block of RESIDENT_SMEM
+    (four an SM) where the table fits it, else its arrays and LIST_CAP
+    list entries, within SMEM_LIMIT."""
+    in_smem = cluster_smem_bytes(u, w, True, 2 * MIN_LIST) <= SMEM_LIMIT
+    fixed = cluster_smem_bytes(u, w, in_smem, 0)
+    total = min(SMEM_LIMIT, max(RESIDENT_SMEM, fixed + 2 * LIST_CAP))
+    return in_smem, max(0, total - fixed)
 
 
 def _check_table(u_words, u_pos, u_cnt, umi_len, max_hamming, count_ratio) -> None:
@@ -331,23 +258,31 @@ def directional_cluster(u_words: torch.Tensor, u_pos: torch.Tensor, u_cnt: torch
     n, u, w = u_words.shape
     if u > MAX_U:
         raise ValueError(f"directional_cluster's kernel takes u_max <= {MAX_U}, got {u}")
-    seed = torch.empty((n, u), dtype=torch.int32, device=dev)
-    mid = torch.empty_like(seed)
-    n_mol = torch.empty((n,), dtype=torch.int32, device=dev)
+    out = _cluster_outputs(n, u, dev)
     if n == 0:
-        return seed, mid, n_mol
-    in_smem, cap = cluster_plan(u, w)
-    u_words, u_pos, u_cnt = u_words.contiguous(), u_pos.contiguous(), u_cnt.contiguous()
+        return out
+    tabs = [a.contiguous() for a in (u_words, u_pos, u_cnt)]
     stream = torch.cuda.current_stream(dev).cuda_stream
     with device_guard(dev):
-        rc = _cluster_kernel()(u_words.data_ptr(), u_pos.data_ptr(), u_cnt.data_ptr(),
-                               seed.data_ptr(), mid.data_ptr(), n_mol.data_ptr(),
-                               n, u, w, cap, int(in_smem), operator.index(max_hamming),
-                               operator.index(count_ratio), stream)
+        rc = _cluster_kernel()(*_cluster_args(tabs, out, max_hamming, count_ratio), stream)
     if rc != 0:
         raise RuntimeError(f"directional_cluster kernel launch failed (cudaError {rc})")
     count_launch(directional_cluster, dev.index, stream)
-    return seed, mid, n_mol
+    return out
+
+
+def _cluster_outputs(n: int, u: int, dev):
+    seed = torch.empty((n, u), dtype=torch.int32, device=dev)
+    return seed, torch.empty_like(seed), torch.empty((n,), dtype=torch.int32, device=dev)
+
+
+def _cluster_args(tabs, out, max_hamming, count_ratio) -> tuple:
+    """The C entry's arguments but the stream, for the contiguous
+    tables ``tabs`` (words, positions, counts) and the outputs."""
+    n, u, w = tabs[0].shape
+    in_smem, scratch = cluster_plan(u, w)
+    return (*(a.data_ptr() for a in (*tabs, *out)), n, u, w, scratch, int(in_smem),
+            operator.index(max_hamming), operator.index(count_ratio))
 
 
 def _cluster_kernel():
@@ -361,9 +296,52 @@ def _cluster_kernel():
     return _CLUSTER_FN
 
 
-_FN = None
+# the macro of the build with per-phase clock stamps, and a block's row
+# of stamps (csrc/cluster_fixpoint.cu: N_STAMPS)
+PHASES_MACRO = "DUT_CLUSTER_PHASES"
+N_STAMPS = 16
+
+
+def directional_cluster_stamped(u_words, u_pos, u_cnt, umi_len: int, max_hamming: int,
+                                count_ratio: int):
+    """The kernel built from the same source with per-phase clock stamps
+    (-D``PHASES_MACRO``; scripts/cluster_phases.py), CUDA tensors only:
+    ((seed, mid_of_slot, n_mol), the (N, N_STAMPS) i64 stamp rows, the
+    phase names). A measurement: it adds no launch to the counts."""
+    _check_table(u_words, u_pos, u_cnt, umi_len, max_hamming, count_ratio)
+    dev = u_words.device
+    if dev.type != "cuda":
+        raise ValueError(f"the stamped directional_cluster runs on cuda tensors, not {dev}")
+    n, u, _ = u_words.shape
+    if u > MAX_U:
+        raise ValueError(f"directional_cluster's kernel takes u_max <= {MAX_U}, got {u}")
+    lib = load("cluster_fixpoint", (PHASES_MACRO,))
+    fn = lib.directional_cluster_i32_phases
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 2
+    fn.restype = ctypes.c_int
+    lib.directional_cluster_phase_names.restype = ctypes.c_char_p
+    out = _cluster_outputs(n, u, dev)
+    stamps = torch.zeros((n, N_STAMPS), dtype=torch.int64, device=dev)
+    tabs = [a.contiguous() for a in (u_words, u_pos, u_cnt)]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with device_guard(dev):
+        rc = fn(*_cluster_args(tabs, out, max_hamming, count_ratio), stamps.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"stamped directional_cluster launch failed (cudaError {rc})")
+    return out, stamps, lib.directional_cluster_phase_names().decode().split(",")
+
+
+def cluster_blocks_per_sm(u: int, w: int) -> int:
+    """How many blocks of the kernel one SM of the current card holds at
+    once for a table of u slots of w words (CUDA's occupancy query at
+    cluster_plan's shared memory)."""
+    in_smem, scratch = cluster_plan(u, w)
+    fn = load("cluster_fixpoint").directional_cluster_blocks_per_sm
+    fn.argtypes = [ctypes.c_int, ctypes.c_int]
+    fn.restype = ctypes.c_int
+    return fn(w, cluster_smem_bytes(u, w, in_smem, scratch))
+
+
 _CLUSTER_FN = None
-propagate_min.launches = 0
-propagate_min.stream_launches = {}
 directional_cluster.launches = 0
 directional_cluster.stream_launches = {}

@@ -285,91 +285,27 @@ def test_cuda_kernel_matches_plain_on_buckets_taller_than_an_id_chunk(kind, cuda
     assert torch.equal(got, sg.segment_gemm_plain(big, fid_t, F))
 
 
-# ----------------------------------------------------- the grouping fixpoint
-
-I32_MAX = 2**31 - 1
-FIXPOINT_KINDS = ("groups", "chain_up", "chain_down", "empty", "all_invalid", "dense",
-                  "unsorted")
-
-
-def fixpoint_case(kind: str, n: int, u: int, rng):
-    """(edge, s0, u_pos) numpy for n buckets of u slots: position groups
-    in ascending slot order (shuffled for "unsorted"), invalid slots at
-    the tail, edges only within a group, s0 = rank * u + slot."""
-    edge = np.zeros((n, u, u), bool)
-    u_pos = np.full((n, u), I32_MAX, np.int32)
-    rank = np.full((n, u), u, np.int64)
-    for b in range(n):
-        n_valid = 0 if kind == "all_invalid" else int(rng.integers(u // 2, u + 1))
-        if kind in ("chain_up", "chain_down", "dense"):
-            n_valid, sizes = u, [u]
-        else:
-            sizes = []
-            while sum(sizes) < n_valid:
-                sizes.append(int(min(rng.integers(1, 65), n_valid - sum(sizes))))
-        pos = np.repeat(np.arange(len(sizes), dtype=np.int32) * 3, sizes)
-        if kind == "unsorted":
-            pos = rng.permutation(pos)
-        u_pos[b, :n_valid] = pos
-        rank[b, :n_valid] = rng.permutation(n_valid)
-        same = u_pos[b, :, None] == u_pos[b, None, :]
-        if kind in ("groups", "unsorted"):
-            edge[b] = same & (rng.random((u, u)) < 0.05)
-        elif kind == "dense":
-            edge[b] = same
-        elif kind in ("chain_up", "chain_down"):
-            k = np.arange(u - 1)
-            # the chain starts at its least key: slot 0 climbing, or the
-            # last slot walking down one slot per ascending sweep
-            if kind == "chain_up":
-                edge[b, k, k + 1] = True
-                rank[b] = np.arange(u)
-            else:
-                edge[b, k + 1, k] = True
-                rank[b] = np.arange(u)[::-1]
-        edge[b] &= ~np.eye(u, dtype=bool)
-        edge[b] &= (u_pos[b] != I32_MAX)[:, None] & (u_pos[b] != I32_MAX)[None, :]
-    s0 = (rank * u + np.arange(u)).astype(np.int32)
-    return edge, s0, u_pos
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("kind", FIXPOINT_KINDS)
-@pytest.mark.parametrize("n, u", [(6, 64), (3, 256), (3, 1024), (2, 2048)])
-def test_cuda_fixpoint_matches_plain(kind, n, u, cuda):
-    # "dense" at u 1024 and 2048 has more in-group edges than the
-    # kernel's list holds: it sweeps over the edge grid instead
-    from duplexumiconsensusreads_torch.kernels import cluster_fixpoint as cf
-
-    edge, s0, u_pos = (torch.from_numpy(a).to(cuda)
-                       for a in fixpoint_case(kind, n, u, np.random.default_rng(u)))
-    if kind == "dense" and u >= 1024:
-        assert int(edge[0].sum()) > cf.default_list_cap(u)
-    before = cf.propagate_min.launches
-    on = (s0.device.index, torch.cuda.current_stream(s0.device).cuda_stream)
-    before_on = cf.propagate_min.stream_launches.get(on, 0)
-    got = cf.propagate_min(edge, s0, u_pos)
-    torch.cuda.synchronize()
-    assert cf.propagate_min.launches == before + 1
-    assert cf.propagate_min.stream_launches[on] == before_on + 1
-    want = cf.propagate_min_plain(edge, s0, u_pos)
-    assert torch.equal(got, want)
-    if kind == "chain_down":
-        assert (got % u == u - 1).all()
-
+# ------------------------------------------------- grouping's directional cluster
 
 CLUSTER_CASES = [("groups", u, umi_len, h, r) for u in (8, 64, 512) for umi_len in (12, 18)
                  for h in (0, 1, 2) for r in (0, 2)] + [
-    ("chain_up", 512, 12, 1, 1), ("chain_down", 512, 18, 1, 1), ("dense", 2048, 12, 12, 0),
-    ("unsorted", 512, 12, 1, 2), ("unsorted", 2048, 18, 2, 0), ("groups", 16384, 12, 1, 2)]
+    ("chain_up", 512, 12, 1, 1), ("chain_down", 512, 18, 1, 1), ("dense", 512, 12, 12, 0),
+    ("dense", 2048, 12, 12, 0), ("unsorted", 512, 12, 1, 2), ("unsorted", 2048, 18, 2, 0),
+    ("groups", 16384, 12, 1, 2), ("groups", 512, 36, 2, 2), ("groups", 512, 48, 3, 2),
+    ("size31", 512, 12, 1, 2), ("size32", 512, 12, 1, 2), ("size33", 512, 12, 1, 2),
+    ("size512", 512, 12, 1, 2), ("size512", 512, 12, 1, 0), ("reversed", 512, 12, 1, 2),
+    ("reversed", 2048, 18, 2, 2)]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind, u, umi_len, max_hamming, count_ratio", CLUSTER_CASES)
 def test_cuda_directional_cluster_matches_plain(kind, u, umi_len, max_hamming, count_ratio, cuda):
     # tolerance 0 on seed, mid_of_slot and n_mol; "dense" has more
-    # in-group edges than the kernel's list holds (its sweeps run the
-    # edge test again), u 16384 reads its table from global memory
+    # in-group edges than the kernel's list holds (its sweeps read the
+    # kept edge masks at u 512, run the edge test again at u 2048),
+    # u 16384 reads its table from global memory; W 3 and 4 words; groups
+    # of exactly 31, 32, 33 and 512 slots; "unsorted" and "reversed"
+    # (words falling within a group) take the id pair passes
     from duplexumiconsensusreads_torch.kernels import cluster_fixpoint as cf
 
     n = 2 if u >= 2048 else 3
@@ -387,9 +323,55 @@ def test_cuda_directional_cluster_matches_plain(kind, u, umi_len, max_hamming, c
         assert torch.equal(g, w)
     if kind == "dense":
         edge, _ = cf.cluster_edges_plain(words, pos, cnt, umi_len, max_hamming, count_ratio)
-        assert int(edge[0].sum()) > cf.cluster_plan(u, words.shape[-1])[1]
+        assert 2 * int(edge[0].sum()) > cf.cluster_plan(u, words.shape[-1])[1]
     if u == cf.MAX_U:
         assert not cf.cluster_plan(u, words.shape[-1])[0]
+
+
+@pytest.mark.cuda
+def test_cuda_concurrent_launches_of_two_table_sizes(cuda):
+    # the streaming executor's transfer threads launch classes of other
+    # table sizes at once: neither may find the kernel's shared-memory
+    # limit lowered under what it asks (each launch used to set it to its
+    # own size)
+    import threading
+
+    from duplexumiconsensusreads_torch.kernels import cluster_fixpoint as cf
+
+    tabs = [tuple(torch.from_numpy(a).to(cuda) for a in
+                  cluster_case("groups", n, u, 12, np.random.default_rng(u))[1:])
+            for n, u in ((8, 512), (2, 2048))]
+    wants = [cf.directional_cluster_plain(*t, 12, 1, 2) for t in tabs]
+    errors = []
+
+    def launch(t, want):
+        try:
+            stream = torch.cuda.Stream()
+            with torch.cuda.stream(stream):
+                for _ in range(200):
+                    got = cf.directional_cluster(*t, 12, 1, 2)
+                stream.synchronize()
+            assert all(torch.equal(g, w) for g, w in zip(got, want))
+        except Exception as e:  # noqa: BLE001 - reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=launch, args=tw) for tw in zip(tabs, wants)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    assert not errors, errors
+
+
+@pytest.mark.cuda
+def test_cuda_main_class_is_resident_in_one_wave(cuda):
+    # 512 threads a block and the plan's shared memory leave four blocks
+    # an SM at the main class's table: its 280 buckets in one wave
+    from duplexumiconsensusreads_torch.kernels import cluster_fixpoint as cf
+
+    per_sm = cf.cluster_blocks_per_sm(512, 1)
+    assert per_sm == cf.BLOCKS_PER_SM
+    assert per_sm * torch.cuda.get_device_properties(0).multi_processor_count >= 280
 
 
 @pytest.mark.cuda
@@ -423,7 +405,7 @@ def test_cuda_group_kernel_matches_cpu_without_a_host_sync(strategy, cuda):
     want = group_kernel(*args, **kw)
     dev_args = [a.to(cuda) for a in args]
     torch.cuda.synchronize()
-    before = (cf.directional_cluster.launches, cf.propagate_min.launches)
+    before = cf.directional_cluster.launches
     torch.cuda.set_sync_debug_mode("error")
     try:
         got = group_kernel(*dev_args, **kw)
@@ -431,8 +413,7 @@ def test_cuda_group_kernel_matches_cpu_without_a_host_sync(strategy, cuda):
         torch.cuda.set_sync_debug_mode("default")
     # one directional_cluster launch per dispatch class, and no (N, U, U)
     # tensor: no torch operation of the call creates one
-    assert (cf.directional_cluster.launches, cf.propagate_min.launches) == (before[0] + 1,
-                                                                            before[1])
+    assert cf.directional_cluster.launches == before + 1
     for g, w in zip(got, want):
         assert torch.equal(g.cpu(), w)
     size, _ = largest_tensor(lambda: group_kernel(*dev_args, **kw))

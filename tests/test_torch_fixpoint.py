@@ -2,11 +2,11 @@
 JAX package.
 
 ``kernels/cluster_fixpoint.py`` holds grouping's directional cluster
-and its min-ancestor propagation: on CUDA hand-written kernels sweep
-each bucket to its fixpoint in place, in ascending slot order within a
-thread's run, scanning only each slot's position-group range; on the
-CPU ``propagate_min_plain`` runs the batched Jacobi loop inside
-``directional_cluster_plain``. Held here:
+and its min-ancestor propagation: on CUDA the hand-written kernel
+sweeps each bucket to its fixpoint in place, in ascending slot order
+within a thread's run, over each slot's in-neighbours within its
+position-group range; on the CPU ``propagate_min_plain`` runs the
+batched Jacobi loop inside ``directional_cluster_plain``. Held here:
 
 - the plain version, through the port's ``group_kernel``, against the
   JAX ``group_kernel`` (adjacency and cluster) on numpy-seeded buckets:
@@ -16,12 +16,11 @@ CPU ``propagate_min_plain`` runs the batched Jacobi loop inside
   ``_directional_cluster`` while loop, on hypothesis-made graphs that
   include chains of length U-1 in both slot orders, empty edge sets,
   all-invalid buckets and dense groups: the premise that the sweep
-  order cannot change the seeds;
-- the wrapper's dispatch: the CPU takes the plain version without a
-  launch, another device raises.
+  order cannot change the seeds.
 
 The kernel itself is held against the plain version on the card in
-test_torch_cuda.py.
+test_torch_cuda.py, and its whole schedule in NumPy against the plain
+version and JAX in test_torch_cluster.py.
 """
 
 from __future__ import annotations
@@ -71,9 +70,9 @@ def test_plain_fixpoint_through_group_kernel_matches_jax(strategy, paired, seed)
               presorted=True)
     args = [st_[k] for k in ("pos", "umi", "strand_ab", "frag_end", "valid")]
     want = jax.vmap(lambda *a: jax_group(*a, **kw))(*args)
-    before = (cf.propagate_min.launches, cf.directional_cluster.launches)
+    before = cf.directional_cluster.launches
     got = grouping.group_kernel(*(torch.from_numpy(np.ascontiguousarray(a)) for a in args), **kw)
-    assert (cf.propagate_min.launches, cf.directional_cluster.launches) == before
+    assert cf.directional_cluster.launches == before
     for key, w, g in zip(KEYS, want, got):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w), err_msg=key)
     # umi_error 0.05 at 6 positions: directional merges happened
@@ -249,59 +248,3 @@ def test_model_handles_unsorted_positions_by_the_full_scan():
     want = cf.propagate_min_plain(torch.from_numpy(edge), torch.from_numpy(s0),
                                   torch.from_numpy(u_pos))
     np.testing.assert_array_equal(keys, want.numpy())
-
-
-# ------------------------------------------------------------------- dispatch
-
-
-def _small(device="cpu"):
-    rng = np.random.default_rng(9)
-    u = 16
-    u_pos = np.repeat(np.arange(4, dtype=np.int32), 4)[None]
-    edge = (rng.random((1, u, u)) < 0.4) & (u_pos[:, :, None] == u_pos[:, None, :])
-    s0 = (rng.permutation(u) * u + np.arange(u)).astype(np.int32)[None]
-    return tuple(torch.from_numpy(a).to(device) for a in (edge, s0, u_pos))
-
-
-def test_cpu_tensor_takes_plain_version_without_launch():
-    edge, s0, u_pos = _small()
-    before = cf.propagate_min.launches
-    got = cf.propagate_min(edge, s0, u_pos)
-    assert cf.propagate_min.launches == before
-    assert got.dtype == torch.int32
-    assert torch.equal(got, cf.propagate_min_plain(edge, s0, u_pos))
-    # keys only fall, each to a key of its position group
-    assert (got <= s0).all()
-
-
-def test_other_device_raises():
-    edge, s0, u_pos = _small("meta")
-    with pytest.raises(ValueError, match="cuda or cpu"):
-        cf.propagate_min(edge, s0, u_pos)
-
-
-@pytest.mark.parametrize(
-    "change, err",
-    [
-        (lambda e, s, p: (e.to(torch.uint8), s, p), TypeError),
-        (lambda e, s, p: (e, s.long(), p), TypeError),
-        (lambda e, s, p: (e, s, p.long()), TypeError),
-        (lambda e, s, p: (e[:, :-1], s, p), ValueError),
-        (lambda e, s, p: (e, s, p[:, :-1]), ValueError),
-        (lambda e, s, p: (e[0], s[0], p[0]), ValueError),
-    ],
-)
-def test_wrapper_rejects_what_the_kernel_does_not_take(change, err):
-    with pytest.raises(err):
-        cf.propagate_min(*change(*_small()))
-
-
-def test_shared_memory_plan():
-    # the default list fits beside the slot arrays at every u_max the
-    # kernel takes, and is full length at the main path's 1024-2048
-    for u in (1, 128, 1024, 2048, 4096, cf.MAX_U):
-        cap = cf.default_list_cap(u)
-        assert cap >= 0 and cf.smem_bytes(u, cap) <= cf.SMEM_LIMIT
-    assert cf.default_list_cap(2048) == cf.LIST_CAP
-    # past what shared memory holds, the slot arrays alone leave no list
-    assert cf.default_list_cap(19_300) == 0

@@ -190,7 +190,7 @@ class TestThreadConfinement(J.TestThreadConfinement):
 
     @pytest.mark.parametrize("call", [
         "torch.cuda.synchronize()", "torch.cuda.current_stream()",
-        "segment_gemm(batch, batch, 4)", "propagate_min(batch, batch, batch)",
+        "segment_gemm(batch, batch, 4)", "pack_fetch_outputs(batch, 4)",
         "directional_cluster(batch, batch, batch, 12, 1, 2)", "fused_pipeline(batch, None)",
     ])
     def test_torch_device_call_without_the_grant_fires_on_the_port_only(self, call):
