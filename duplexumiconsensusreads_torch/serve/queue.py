@@ -92,7 +92,11 @@ from duplexumiconsensusreads_torch.io.durable import (
     write_durable,
 )
 from duplexumiconsensusreads_torch.serve.job import JobSpec, validate_spec
-from duplexumiconsensusreads_torch.serve.store import LeaseStore, resolve_store
+from duplexumiconsensusreads_torch.serve.store import (
+    LeaseStore,
+    ceil_ms,
+    resolve_store,
+)
 
 # the job state machine — states, legal transitions, and the derived
 # families — lives in serve/states.py (the single declared source of
@@ -455,7 +459,7 @@ class SpoolQueue:
                 if 0 < self.lock_timeout_s <= waited:
                     raise JournalLockTimeout(
                         f"journal.lock on {self.root!r} not acquired "
-                        f"after {waited:.1f}s (lock_timeout_s="
+                        f"after {ceil_ms(waited):.3f}s (lock_timeout_s="
                         f"{self.lock_timeout_s}): wedged holder?"
                     )
                 if not stalled and waited >= LOCK_STALL_EVENT_S:
@@ -468,7 +472,7 @@ class SpoolQueue:
 
                     emit_event(
                         "lock_stall",
-                        waited_s=round(waited, 3),
+                        waited_s=ceil_ms(waited),
                         spool=self.root,
                     )
                 # small cap: transactions are sub-ms when healthy, and
@@ -666,8 +670,8 @@ class SpoolQueue:
             # the one clock domain the whole lease machinery uses
             deadline_s = spec.deadline_s or self.default_deadline_s
             if deadline_s and deadline_s > 0:
-                entry["deadline_m"] = round(
-                    self.store.now() + float(deadline_s), 3
+                entry["deadline_m"] = ceil_ms(
+                    self.store.now() + float(deadline_s)
                 )
             if spec.shards is not None or spec.shard_bytes is not None:
                 # sharding parent: the phase field decides what a claim
@@ -742,7 +746,7 @@ class SpoolQueue:
             # durable-progress stamp: a fresh claim counts as progress
             # (the watchdog must not declare a just-claimed job stalled
             # while it compiles); every chunk-commit renewal re-stamps
-            entry["progress_m"] = round(self.store.now(), 3)
+            entry["progress_m"] = ceil_ms(self.store.now())
             # bounded claim history: who ran this job under which token
             # — the quarantine diagnosis bundle's lease trail
             hist = entry.setdefault("lease_history", [])
@@ -783,10 +787,8 @@ class SpoolQueue:
         stale progress over the journal any more than a stale lease."""
         with self._txn():
             entry = self._check_fence(job_id, daemon_id, token)
-            entry["lease"]["expires_m"] = round(
-                self.store.now() + lease_s, 3
-            )
-            entry["progress_m"] = round(self.store.now(), 3)
+            entry["lease"]["expires_m"] = ceil_ms(self.store.now() + lease_s)
+            entry["progress_m"] = ceil_ms(self.store.now())
             if progress:
                 entry.update(progress)
             self.save()
@@ -796,7 +798,7 @@ class SpoolQueue:
         daemon holds. Returns the number renewed (0 = nothing to save)."""
         with self._txn():
             renewed = 0
-            deadline = round(self.store.now() + lease_s, 3)
+            deadline = ceil_ms(self.store.now() + lease_s)
             for entry in self.jobs.values():
                 lease = entry.get("lease")
                 if (
@@ -890,7 +892,7 @@ class SpoolQueue:
                 if stalled <= stall_s:
                     continue
                 rec = self._abort_requeue_locked(job_id, entry, "stalled")
-                rec["stalled_s"] = round(stalled, 3)
+                rec["stalled_s"] = ceil_ms(stalled)
                 reclaimed.append(rec)
                 entry.pop("lease", None)
             if reclaimed:

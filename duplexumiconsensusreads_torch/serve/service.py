@@ -96,7 +96,11 @@ from duplexumiconsensusreads_torch.serve.queue import (
     SpoolQueue,
 )
 from duplexumiconsensusreads_torch.serve.states import OPEN_STATES
-from duplexumiconsensusreads_torch.serve.store import LeaseStore, resolve_store
+from duplexumiconsensusreads_torch.serve.store import (
+    LeaseStore,
+    floor_ms,
+    resolve_store,
+)
 from duplexumiconsensusreads_torch.serve.scheduler import FairScheduler
 from duplexumiconsensusreads_torch.serve.worker import (
     JobDeadlineExceeded,
@@ -666,11 +670,16 @@ class ConsensusService:
                 if self._fatal is None:
                     self._fatal = e
         finally:
+            # the service ends with its own threads: a beat or a
+            # watchdog sweep still in flight would go on renewing
+            # leases, writing the spool's metrics and hitting fault
+            # sites after run() returned, into the next daemon's run
             wd_stop.set()
-            if wd is not None and wd.is_alive():
-                wd.join(timeout=2.0)
             if hb is not None:
                 hb.stop()
+                hb.join()
+            if wd is not None and wd.is_alive():
+                wd.join()
             snap = self._beat_stats()
             if tr is not None:
                 if self._fatal is None:
@@ -879,7 +888,7 @@ class ConsensusService:
                     "watchdog_fired", job=r["job_id"],
                     lane=f"job-{r['job_id']}",
                     stalled_s=r.get("stalled_s"),
-                    threshold_s=round(threshold, 3),
+                    threshold_s=floor_ms(threshold),
                     prev_owner=str(r.get("prev_owner"))[:80],
                 )
         if reclaimed:

@@ -68,6 +68,7 @@ client's poll path constructs a store per SpoolQueue).
 from __future__ import annotations
 
 import json
+import math
 import os
 import socket
 import time
@@ -96,6 +97,24 @@ HOST_ID_ENV = "DUT_HOST_ID"
 EPOCH_SKEW_ENV = "DUT_HOST_EPOCH_SKEW"
 
 _HOST = socket.gethostname()
+
+
+def ceil_ms(seconds: float) -> float:
+    """``seconds`` rounded UP to the millisecond. Every stamp or wait
+    that a threshold is judged against is written this way: an expiry
+    or deadline stamp so that it never falls before its allowance ends,
+    the start of a stall so that the stall is never read as longer than
+    it was, and a wait that crossed its threshold so that the record
+    never reads as shorter (to the nearest, a stall of 1.5004 s over a
+    1.5 s threshold was recorded as 1.5)."""
+    return math.ceil(seconds * 1000.0) / 1000.0
+
+
+def floor_ms(seconds: float) -> float:
+    """``seconds`` rounded DOWN to the millisecond: a threshold recorded
+    beside a :func:`ceil_ms` wait that crossed it, so the wait always
+    reads as the longer."""
+    return math.floor(seconds * 1000.0) / 1000.0
 
 
 def _pid_alive(pid: int) -> bool:
@@ -192,7 +211,7 @@ class LocalLeaseStore(LeaseStore):
             "owner": owner,
             "pid": os.getpid(),
             "host": _HOST,
-            "expires_m": round(self.now() + lease_s, 3),
+            "expires_m": ceil_ms(self.now() + lease_s),
         }
 
     def claim_rec(self, owner: str, token: int) -> dict:
@@ -304,7 +323,7 @@ class SharedFsLeaseStore(LeaseStore):
             "owner": owner,
             "host": self.host_id,
             "boot": self.boot,
-            "expires_m": round(self.now() + lease_s, 3),
+            "expires_m": ceil_ms(self.now() + lease_s),
         }
 
     def claim_rec(self, owner: str, token: int) -> dict:
@@ -353,7 +372,7 @@ class SharedFsLeaseStore(LeaseStore):
             "daemon_id": self._daemon_id,
             "host_id": self.host_id,
             "boot": self.boot,
-            "stamp_m": round(self.now(), 3),
+            "stamp_m": ceil_ms(self.now()),
             "beats": self._beats,
             "lease_s": self._lease_s,
             "stale_s": self._stale_s,

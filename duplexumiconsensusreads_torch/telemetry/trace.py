@@ -554,6 +554,13 @@ class Heartbeat:
             # sink must be bounded by ~1s, never the full interval
             self._thread.join(timeout=min(self.interval_s, 1.0))
 
+    def join(self) -> None:
+        """Wait, after :meth:`stop`, until an in-flight beat has ended:
+        for an owner whose beats change shared state (the service's
+        lease renewals) and so must not outlive it."""
+        if self._thread.is_alive():
+            self._thread.join()
+
     def beat(self) -> None:
         """One sample -> stderr line (+ trace event). Exposed for tests
         and for a final sample at shutdown."""

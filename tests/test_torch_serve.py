@@ -1244,6 +1244,37 @@ def test_kill_at_each_serve_site_then_restart_exactly_once(site, nth, sim, tmp_p
         if j not in [e["job"] for e in _events(t1)[1] if e["name"] == "job_completed"])
 
 
+def test_a_killed_service_leaves_no_thread_of_its_own(sim, tmp_path):
+    """run() re-raises a modelled kill only once the service's own
+    threads have ended: a heartbeat beat in flight when the daemon dies
+    is waited for, not left running past run() into whatever runs next
+    in the process. Here the beat is held until the daemon has died."""
+    import threading
+
+    in_path, _ = sim
+    spool = str(tmp_path / "spool")
+    _submit_n(spool, in_path, tmp_path, 1)
+    svc = _service(spool, heartbeat_s=0.05, watchdog_s=30.0, daemon_id="leftover-A")
+    beat, in_beat = svc.store.beat, threading.Event()
+
+    def held_beat():
+        if threading.current_thread().name == "dut-heartbeat":
+            in_beat.set()
+            time.sleep(0.5)
+        else:
+            # the worker's own first beat: claim (and die) only once a
+            # heartbeat is in flight
+            assert in_beat.wait(timeout=60)
+        beat()
+
+    svc.store.beat = held_beat
+    before = set(threading.enumerate())
+    faults.install(faults.FaultPlan.parse("serve.lease:1:kill"))
+    with pytest.raises(faults.InjectedKill):
+        svc.run_until_idle()
+    assert [t.name for t in set(threading.enumerate()) - before if t.is_alive()] == []
+
+
 class TestDeadlines:
     def test_deadline_stamped_monotonic_and_swept(self, tmp_path):
         q = SpoolQueue(str(tmp_path))
@@ -1335,6 +1366,19 @@ class TestDeadlines:
         assert _read(out) == ref_bytes
 
 
+def _clock(t):
+    """A local lease store whose clock reads ``t`` (set ``.t`` to move it)."""
+    from duplexumiconsensusreads_torch.serve.store import LocalLeaseStore
+
+    class Clock(LocalLeaseStore):
+        def now(self):
+            return self.t
+
+    store = Clock()
+    store.t = t
+    return store
+
+
 class TestWatchdog:
     def test_reclaim_stalled_requeues_and_counts_crash(self, tmp_path):
         from duplexumiconsensusreads_torch.serve.queue import JobFenced
@@ -1355,6 +1399,48 @@ class TestWatchdog:
         assert q.claim(jid, "d2", lease_s=3600.0) == token + 1
         with pytest.raises(JobFenced):
             q.verify_lease(jid, "d1", token)
+
+    @pytest.mark.parametrize("past_s", [0.0, 0.0004])
+    def test_stall_record_is_never_shorter_than_its_threshold(self, tmp_path, past_s):
+        """The watchdog requeues a job only once its stall is past the
+        threshold, and the record says so: a stall 0.4 ms past 1.5 s
+        reads above 1.5 s (to the nearest millisecond it would read
+        1.5); a stall of exactly the threshold leaves the job alone."""
+        clock = _clock(1000.5)
+        q, jid = _queued(_pkg("torch"), str(tmp_path), store=clock)
+        q.claim(jid, "d1", lease_s=3600.0)
+        assert q.jobs[jid]["progress_m"] == 1000.5
+        clock.t = 1000.5 + 1.5 + past_s
+        rec = q.reclaim_stalled(1.5)
+        if past_s == 0.0:
+            assert rec == [] and q.jobs[jid]["state"] == "running"
+            return
+        assert [r["job_id"] for r in rec] == [jid] and q.jobs[jid]["state"] == "queued"
+        assert rec[0]["stalled_s"] > 1.5
+
+    def test_threshold_stamps_never_fall_before_their_allowance(self, tmp_path):
+        """A stamp a threshold is judged on rounds to its safe side: a
+        deadline or a lease expiry never falls before its allowance ends,
+        and a progress stamp never makes a stall read longer than it was
+        (to the nearest millisecond each could be half a millisecond
+        off)."""
+        clock = _clock(1000.0004)
+        root = str(tmp_path)
+        q = SpoolQueue(root, store=clock)
+        jid = client.submit(root, __file__, os.path.join(root, "job.bam"),
+                            config=dict(CONFIG), deadline_s=60.0)
+        assert q.accept_one(jid)[0] is not None
+        assert q.jobs[jid]["deadline_m"] >= clock.t + 60.0
+        q.claim(jid, "d1", lease_s=30.0)
+        e = q.jobs[jid]
+        assert e["lease"]["expires_m"] >= clock.t + 30.0 and e["progress_m"] >= clock.t
+        clock.t = 1010.0004
+        q.renew_lease(jid, "d1", e["token"], lease_s=30.0)
+        e = q.jobs[jid]
+        assert e["lease"]["expires_m"] >= clock.t + 30.0 and e["progress_m"] >= clock.t
+        clock.t = 1020.0004
+        assert q.renew_all("d1", lease_s=30.0) == 1
+        assert q.jobs[jid]["lease"]["expires_m"] >= clock.t + 30.0
 
     def test_wedged_slice_is_watchdog_requeued_and_finished_elsewhere(self, sim, tmp_path):
         """Daemon A's slice wedges after its first commit with the lease
@@ -1387,6 +1473,10 @@ class TestWatchdog:
         assert wedged.wait(timeout=120), "daemon A never wedged"
         _wait_for(lambda: SpoolQueue(spool).jobs.get(jid, {}).get("state") == "queued", 60,
                   "the watchdog")
+        # A's watchdog has fired; from here on it would fire again on B's
+        # claim of the job whenever B took longer than 1.5 s to commit a
+        # chunk, as it may on a loaded host
+        svc_a.watchdog_s = 0
         assert SpoolQueue(spool).jobs[jid].get("crash_count") == 1
         t_b = str(tmp_path / "svcB.jsonl")
         snap_b = _service(spool, trace_path=t_b, watchdog_s=0, daemon_id="wd-B").run_until_idle()
