@@ -33,7 +33,7 @@ CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
 
 # every CUDA source of the package; build_all compiles them in parallel
-SOURCES = ("segment_gemm", "cluster_fixpoint")
+SOURCES = ("segment_gemm", "cluster_fixpoint", "step_clock")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

@@ -35,6 +35,7 @@ from duplexumiconsensusreads_torch.kernels.segment_gemm import (
     segment_gemm,
     segment_gemm_plain,
 )
+from duplexumiconsensusreads_torch.telemetry import steps
 
 # the port's reduction methods (ops/pipeline.SSC_METHOD_COSTS holds a
 # cost function for each): the kernel, the dense one-hot product, the
@@ -282,6 +283,7 @@ def ssc_kernel(
     if fit_mode and want_err:
         raise ValueError("columns='fit' is incompatible with want_err")
     want_depth = (not fit_mode) or method == "runsum"
+    steps.mark("evidence")
     ok = valid & (family_id >= 0)
     fid = torch.where(ok, family_id, torch.full_like(family_id, f_max))
     if method in _SORTED_METHODS:
@@ -296,8 +298,10 @@ def ssc_kernel(
         fit_counts,
     )
     # every method takes the padded view as it is
+    steps.mark("reduce")
     out = _reduce(big, fid.contiguous(), f_max, method, blockseg_t=blockseg_t)
     del big
+    steps.mark("consensus_math")
 
     loglik = out[..., : 4 * l].reshape(n, f_max, l, 4)
     if fit_mode:

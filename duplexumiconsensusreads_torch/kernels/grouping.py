@@ -37,6 +37,7 @@ import torch
 from duplexumiconsensusreads_torch.constants import NO_FAMILY
 from duplexumiconsensusreads_torch.kernels.cluster_fixpoint import directional_cluster
 from duplexumiconsensusreads_torch.kernels.encoding import pack_umi_words
+from duplexumiconsensusreads_torch.telemetry import steps
 
 I32_MAX = 2**31 - 1
 
@@ -91,6 +92,7 @@ def group_kernel(
     scattered back through it."""
     if strategy not in ("exact", "adjacency", "cluster"):
         raise ValueError(f"unknown grouping strategy {strategy!r}")
+    steps.mark("group")
     if strategy == "cluster":
         # UMI-tools cluster == adjacency with the count condition removed
         count_ratio = 0
@@ -138,9 +140,11 @@ def group_kernel(
         u_cnt = torch.zeros(n, u_max + 1, dtype=torch.int32, device=dev)
         u_cnt.scatter_add_(1, cnt_slot, svalid.to(torch.int32))
         u_cnt = u_cnt[:, :u_max]
+        steps.mark("cluster")
         _seed, mid_of_slot, n_mol = directional_cluster(
             u_words, u_pos, u_cnt, umi_codes.shape[-1], max_hamming, count_ratio
         )
+        steps.mark("group")
 
     slot_c = torch.clamp(uid, max=u_max - 1).long()
     mid_raw = torch.gather(mid_of_slot, 1, slot_c)

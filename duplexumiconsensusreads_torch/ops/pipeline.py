@@ -34,6 +34,7 @@ from duplexumiconsensusreads_torch.kernels.error_model import (
     fit_cycle_cap_kernel,
 )
 from duplexumiconsensusreads_torch.kernels.grouping import group_kernel
+from duplexumiconsensusreads_torch.telemetry import steps
 from duplexumiconsensusreads_torch.types import ConsensusParams, GroupingParams
 
 
@@ -354,6 +355,7 @@ def _decode_packed(pos, umi, strand_ab, bases, spec: PipelineSpec):
     unpacked tensors."""
     if spec.umi_len is None:
         raise ValueError("packed_io requires spec.umi_len")
+    steps.mark("decode")
     n, r = pos.shape
     if spec.packed_qbits:
         none_idx = (1 << spec.packed_qbits) - 1
@@ -463,10 +465,12 @@ def fused_pipeline(
     if c.error_model == "cycle":
         if spec.fit_impl == "counts":
             cb0, _sz0, fv0, counts0 = ssc(quals, columns="fit_counts")
+            steps.mark("cycle_cap")
             cap = fit_cycle_cap_from_counts(cb0, counts0, fv0)
             del counts0
         else:
             cb0, _sz0, fv0 = ssc(quals, columns="fit")
+            steps.mark("cycle_cap")
             cap = fit_cycle_cap_kernel(bases, red, valid, cb0, fv0)
         quals_eff = apply_cycle_cap(quals, cap)
         del cb0, _sz0, fv0
@@ -481,6 +485,7 @@ def fused_pipeline(
         out_b, out_q, out_d, out_v = cb, cq, dep, fv
         out_e = ss_err
     elif strided:
+        steps.mark("duplex_merge")
         out_b, out_q, out_d, out_v, *dx_rest = duplex_merge_strided(
             cb, cq, dep, size, fv, ss_err,
             m_max=m_max,
@@ -490,6 +495,7 @@ def fused_pipeline(
         )
         out_e = dx_rest[0] if dx_rest else None
     elif c.mode == "duplex":
+        steps.mark("duplex_merge")
         out_b, out_q, out_d, out_v, *dx_rest = duplex_kernel(
             cb, cq, dep, fv, fam, mol, strand_ab, valid, ss_err,
             m_max=m_max,
@@ -503,6 +509,7 @@ def fused_pipeline(
 
     # per-output-row mate/pair metadata, reduced from the read level by
     # segment-mins (constant within a row's reads by construction)
+    steps.mark("row_stats")
     duplex_out = c.mode == "duplex"
     out_ids = mol if duplex_out else fam
     n_rows = m_max if duplex_out else f_max
@@ -529,6 +536,7 @@ def fused_pipeline(
         torch.where(pos_d, out_d, 2**31 - 1).amin(dim=2),
         0,
     )
+    steps.mark(steps.END)
     return {
         "family_id": fam,
         "molecule_id": mol,

@@ -80,6 +80,12 @@ every dispatch. Here a class that recurs on a lane is one replay.
   the replay's stream, so a run counts what it launched, as eagerly.
 - **Lifetime.** The cache is the process's, as the JAX package's
   executable caches are: a serve daemon's jobs reuse its graphs.
+- **Step clock.** Every call on the card is timed on the lane's stream
+  by telemetry/steps.py: a pair of events around the input copies and
+  the replay (or the eager step, or the capture and its first replay),
+  keyed by (kind, class, lane, mode), and the stages of the step from
+  the marks the fused step records, which a capture turns into stamp
+  kernels that add each replay's stage times to a device buffer.
 
 On the CPU the step runs eagerly and never reaches the cache, unless a
 test injects a capture backend (:func:`use_backend`), which stands in
@@ -98,6 +104,7 @@ import weakref
 import torch
 
 from duplexumiconsensusreads_torch.kernels import build
+from duplexumiconsensusreads_torch.telemetry import steps
 
 # step graphs a lane keeps, the bytes of their static inputs and
 # outputs, and epilogue graphs a step graph keeps
@@ -156,8 +163,10 @@ class _Graph:
     outputs, the kernel launches one replay makes, and (for a step
     graph) its epilogue graphs and their sightings."""
 
-    def __init__(self, handle, inputs, outputs, tally, lane):
+    def __init__(self, handle, inputs, outputs, tally, lane, stamps=None):
         self.handle, self.inputs, self.tally, self.lane = handle, inputs, tally, lane
+        self.stamps = stamps  # the buffers its stage stamps write (telemetry/steps.py)
+        self.label = None  # a step graph's class, as the step clock names it
         self.nbytes = sum(t.nbytes for d in (inputs, outputs) for t in d.values())
         self.outputs = GraphOutputs(outputs)
         self.outputs.graph = weakref.ref(self)
@@ -502,8 +511,9 @@ def _sighted(seen: collections.OrderedDict, key) -> int:
     return n
 
 
-def _capture(backend, lane: _Lane, fn, static: dict) -> tuple:
-    """Capture ``fn(static)`` on the lane and replay it once. The
+def _capture(backend, lane: _Lane, fn, static: dict, call) -> tuple:
+    """Capture ``fn(static)`` on the lane and replay it once, its marks
+    going to the step clock's ``call``. The
     device's other idle lanes are trimmed to the budget first; a capture
     that runs out of device memory drops every idle lane and this
     lane's other graphs and tries once more (still a capture: it never
@@ -514,7 +524,7 @@ def _capture(backend, lane: _Lane, fn, static: dict) -> tuple:
         before = backend.reserved(lane.device)
         try:
             with build.tally_launches() as tally:
-                handle, out = backend.capture(lambda: fn(static), lane)
+                handle, out = backend.capture(steps.capturing(call, lambda: fn(static)), lane)
             break
         except torch.OutOfMemoryError:
             if attempt:
@@ -523,8 +533,9 @@ def _capture(backend, lane: _Lane, fn, static: dict) -> tuple:
     # what the capture grew the card's reservation by: the lane's pool
     # (another thread's allocations at the same time land here too)
     lane.pool_bytes += max(backend.reserved(lane.device) - before, 0)
-    g = _Graph(handle, static, out, tally, lane)
-    _replayed(backend, g)
+    g = _Graph(handle, static, out, tally, lane, steps.adopt(call))
+    with steps.first_replay(g.stamps):
+        _replayed(backend, g)
     return g, time.monotonic() - t0
 
 
@@ -567,12 +578,20 @@ def run_step(args: dict, spec, keys: tuple) -> tuple:
     def step(inputs):
         return fused_pipeline(*(inputs[k] for k in keys), spec)
 
+    def label():
+        n, r = args[keys[0]].shape[:2]
+        return steps.class_label(spec, n, r, spec.cycles_len or args[keys[5]].shape[-1])
+
     device = args[keys[0]].device
     backend = _backend(device)
+    key = None if backend is None and device.type != "cuda" else (
+        spec, signature((args[k].shape, args[k].dtype) for k in keys))
     if backend is None:
-        return step(args), ("eager", 0.0)
+        if key is None:
+            return step(args), ("eager", 0.0)
+        return _clocked(step, args, steps.begin("step", key, CudaBackend().lane(device), device,
+                                                "eager", label)), ("eager", 0.0)
     lane = _lane(backend, device)
-    key = (spec, signature((args[k].shape, args[k].dtype) for k in keys))
     with _LOCK:
         if len(_CLASSES) < MAX_CLASSES:
             _CLASSES.add(key)
@@ -580,8 +599,10 @@ def run_step(args: dict, spec, keys: tuple) -> tuple:
         g = lane.graphs.get(key)
         if g is not None:
             lane.graphs.move_to_end(key)
+            call = steps.begin("step", key, lane.key, device, "replayed", label)
             _bind(g.inputs, args)
             _replayed(backend, g)
+            steps.end(call)
             _count("step", "replayed")
             return g.outputs, ("replayed", 0.0)
         eager = _sighted(lane.seen, key) == 1
@@ -589,18 +610,31 @@ def run_step(args: dict, spec, keys: tuple) -> tuple:
             _eager_running(lane, 1)
         else:
             static = {k: args[k].clone() for k in keys}
-            g, dt = _capture(backend, lane, step, static)
+            call = steps.begin("step", key, lane.key, device, "captured", label)
+            g, dt = _capture(backend, lane, step, static, call)
+            steps.end(call)
+            g.label = call.tally.label if call is not None else None
             lane.graphs[key] = g
             _evict(backend, lane, lane.graphs, MAX_GRAPHS, MAX_LANE_STATIC_BYTES)
             _count("step", "captured", dt)
     if eager:
         _count("step", "eager")
         try:
-            return step(args), ("eager", 0.0)
+            return _clocked(step, args, steps.begin("step", key, lane.key, device, "eager",
+                                                    label)), ("eager", 0.0)
         finally:
             _eager_running(lane, -1)
     _after_capture(backend, lane)
     return g.outputs, ("captured", dt)
+
+
+def _clocked(fn, arg, call):
+    """``fn(arg)`` run eagerly as the step clock's ``call``."""
+    try:
+        with steps.marking(call):
+            return fn(arg)
+    finally:
+        steps.end(call)
 
 
 def run_epilogue(out: dict, fn, key: tuple) -> dict:
@@ -611,30 +645,45 @@ def run_epilogue(out: dict, fn, key: tuple) -> dict:
     ref = getattr(out, "graph", None)
     owner = ref() if ref is not None else None
     if owner is None:
-        return fn(out)
+        device = next(iter(out.values())).device
+        if device.type != "cuda":
+            return fn(out)
+        return _clocked(fn, out, steps.begin("epilogue", ("eager outputs", key),
+                                             CudaBackend().lane(device), device, "eager",
+                                             lambda: f"eager outputs k_pad={key[1]}"))
     backend = _backend(owner.lane.device)
     if backend is None or backend.lane(owner.lane.device) != owner.lane.key:
         return fn(out)
     lane = owner.lane
+    ident = (owner.label, key)
+
+    def label():
+        return f"{owner.label} k_pad={key[1]}"
+
     with _holding(lane):
         g = owner.epilogues.get(key)
         if g is not None:
             owner.epilogues.move_to_end(key)
+            call = steps.begin("epilogue", ident, lane.key, lane.device, "replayed", label)
             _replayed(backend, g)
+            steps.end(call)
             _count("epilogue", "replayed")
             return g.outputs
         eager = _sighted(owner.epilogue_seen, key) == 1
         if eager:
             _eager_running(lane, 1)
         else:
-            g, dt = _capture(backend, lane, fn, out)
+            call = steps.begin("epilogue", ident, lane.key, lane.device, "captured", label)
+            g, dt = _capture(backend, lane, fn, out, call)
+            steps.end(call)
             owner.epilogues[key] = g
             _evict(backend, lane, owner.epilogues, MAX_EPILOGUES)
             _count("epilogue", "captured", dt)
     if eager:
         _count("epilogue", "eager")
         try:
-            return fn(out)
+            return _clocked(fn, out, steps.begin("epilogue", ident, lane.key, lane.device,
+                                                 "eager", label))
         finally:
             _eager_running(lane, -1)
     _after_capture(backend, lane)

@@ -13,12 +13,14 @@ totals, measured bandwidth, the wire-floor model, the byte sum-checks
 (per-class FLOPs/MFU/arithmetic intensity, the roofline verdicts, the
 dev-interval sum-checks `tools/devstat.py` enforces); `device` is the
 peak-FLOP/s table of the CUDA cards every MFU consumer resolves
-through; `fleet` is the fleet flight recorder (N daemons' service
-captures stitched into per-job cross-daemon timelines with an exact
-sum-check, fleet metrics, SLO gates; `tools/fleet_report.py` is its
-CLI). The analysers read files only and never need a device. The
-recording side imports only the stdlib so `runtime/faults.py` and
-`io/durable.py` can hook into it without an import cycle.
+through; `steps` is the step clock (device spans the compiled step
+records itself, by class, lane and stage); `fleet` is the fleet flight
+recorder (N daemons' service captures stitched into per-job
+cross-daemon timelines with an exact sum-check, fleet metrics, SLO
+gates; `tools/fleet_report.py` is its CLI). The analysers read files
+only and never need a device. The recording side imports only the
+stdlib so `runtime/faults.py` and `io/durable.py` can hook into it
+without an import cycle.
 """
 
 from duplexumiconsensusreads_torch.telemetry.trace import (
